@@ -1,0 +1,14 @@
+"""metrics_tpu_torch: the PyTorch and CUDA port of ``metrics_tpu``.
+
+The package mirrors ``metrics_tpu``'s module paths so each port sits where its
+reference does. It imports ``torch`` and numpy only, never JAX nor any module
+of ``metrics_tpu``. States are tensors on an explicit device; entry points run
+on the GPU unless the caller passes ``device="cpu"``.
+
+Where ``metrics_tpu`` ran a Pallas kernel, the port runs a CUDA kernel written
+for Hopper (``csrc/``), built with ``nvcc`` at first use. On a CUDA tensor the
+kernel runs or the call raises; the kernel's plain PyTorch version serves CPU
+tensors only.
+"""
+
+__version__ = "0.1.0"

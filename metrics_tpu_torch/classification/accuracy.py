@@ -1,0 +1,29 @@
+"""Accuracy module metric, multiclass part (port of ``metrics_tpu/classification/accuracy.py``)."""
+
+from __future__ import annotations
+
+from torch import Tensor
+
+from metrics_tpu_torch.classification.stat_scores import MulticlassStatScores
+from metrics_tpu_torch.functional.classification.accuracy import _accuracy_reduce
+
+
+class MulticlassAccuracy(MulticlassStatScores):
+    """Multiclass accuracy with micro/macro/weighted/none averaging.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.classification import MulticlassAccuracy
+        >>> metric = MulticlassAccuracy(num_classes=3, device="cpu")
+        >>> metric.update(torch.tensor([0, 2, 1, 2]), torch.tensor([0, 1, 1, 2]))
+        >>> metric.compute()
+        tensor(0.8333)
+    """
+
+    is_differentiable = False
+    higher_is_better = True
+    full_state_update = False
+
+    def compute(self) -> Tensor:
+        tp, fp, tn, fn = self._final_state()
+        return _accuracy_reduce(tp, fp, tn, fn, average=self.average, multidim_average=self.multidim_average)

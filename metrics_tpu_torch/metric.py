@@ -1,0 +1,544 @@
+"""Core ``Metric`` runtime (port of ``metrics_tpu/metric.py``).
+
+A metric holds named states: tensors on one explicit device (fixed-shape
+states) or Python lists of tensors (ragged "cat" states). Updates rebind
+states to new tensors and never write into a state in place, so a snapshot is
+a set of references, as it is with the JAX package's immutable arrays.
+
+Two faces over the same states:
+
+- the stateful shell, ``update()`` / ``compute()`` / ``forward()`` /
+  ``reset()``, with cross-process sync through ``gather_all_tensors``;
+- the pure functional API, ``init_state()`` / ``update_state(state, ...)`` /
+  ``compute_from(state)`` / ``merge_states(a, b)``, which a training step calls
+  with states it owns. ``update_state`` does not modify the state it is given.
+
+The device is explicit: ``device=None`` means the GPU, and constructing a
+metric without one raises unless ``device="cpu"`` (or another device) is given.
+Count states and the functional ``_update_count`` are int32, as in the JAX
+package with x64 off.
+
+Not ported in this slice: ``jitted_update_state`` (PyTorch runs eagerly),
+in-trace ``sync_state``, ``CompositionalMetric`` and the operator overloads,
+nested metrics in ``state_dict``/``persistent``, the ``compute_on_cpu``
+option, ``save``/``restore`` and ``plot``.
+"""
+
+from __future__ import annotations
+
+import functools
+from abc import ABC, abstractmethod
+from contextlib import contextmanager
+from copy import deepcopy
+from typing import Any, Callable, Dict, Generator, List, Optional, Union
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from metrics_tpu_torch.utils.data import (
+    _flatten,
+    _squeeze_if_scalar,
+    apply_to_collection,
+    dim_zero_cat,
+    dim_zero_max,
+    dim_zero_mean,
+    dim_zero_min,
+    dim_zero_sum,
+)
+from metrics_tpu_torch.utils.device import DeviceLike, resolve_device
+from metrics_tpu_torch.utils.distributed import distributed_available, gather_all_tensors
+from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+from metrics_tpu_torch.utils.prints import rank_zero_warn
+
+_REDUCTION_FNS: Dict[str, Callable] = {
+    "sum": dim_zero_sum,
+    "mean": dim_zero_mean,
+    "cat": dim_zero_cat,
+    "min": dim_zero_min,
+    "max": dim_zero_max,
+}
+
+StateValue = Union[Tensor, List[Tensor]]
+
+
+def zero_state(shape: Any = (), dtype: torch.dtype = torch.float32, device: DeviceLike = None) -> Tensor:
+    """An all-zeros state default of ``shape`` and ``dtype`` on ``device``."""
+    if isinstance(shape, int):
+        shape = (shape,)
+    return torch.zeros(tuple(shape), dtype=dtype, device=resolve_device(device))
+
+
+def _raise_on_unconsumed(state_dict: Dict[str, Any], prefix: str, consumed: set) -> None:
+    """Strict-mode guard: any key under ``prefix`` that was not consumed is unexpected."""
+    unexpected = sorted(k for k in state_dict if k.startswith(prefix) and k not in consumed)
+    if unexpected:
+        shown = ", ".join(unexpected[:8]) + (" ..." if len(unexpected) > 8 else "")
+        raise KeyError(f"Unexpected key(s) in state_dict under prefix {prefix!r}: {shown}")
+
+
+def _copy_state(value: StateValue) -> StateValue:
+    return list(value) if isinstance(value, list) else value.clone()
+
+
+def _as_state_tensor(value: Any, device: torch.device) -> Tensor:
+    """A tensor on ``device`` from a tensor or an array (numpy arrays are
+    copied: those exported by other frameworks are read-only)."""
+    if isinstance(value, Tensor):
+        return value.to(device)
+    return torch.from_numpy(np.array(value, copy=True)).to(device)
+
+
+class Metric(ABC):
+    """Base class for all metrics.
+
+    Kwargs: ``device`` (default: the GPU), ``dist_sync_on_step``,
+    ``process_group``, ``dist_sync_fn``, ``distributed_available_fn``,
+    ``sync_on_compute``.
+    """
+
+    is_differentiable: Optional[bool] = None
+    higher_is_better: Optional[bool] = None
+    full_state_update: Optional[bool] = False
+
+    def __init__(self, **kwargs: Any) -> None:
+        self._device = resolve_device(kwargs.pop("device", None))
+
+        self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
+        if not isinstance(self.dist_sync_on_step, bool):
+            raise ValueError(f"Expected keyword argument `dist_sync_on_step` to be a `bool` but got {self.dist_sync_on_step}")
+
+        self.process_group = kwargs.pop("process_group", None)
+
+        self.dist_sync_fn = kwargs.pop("dist_sync_fn", None)
+        if self.dist_sync_fn is not None and not callable(self.dist_sync_fn):
+            raise ValueError(f"Expected keyword argument `dist_sync_fn` to be an callable function but got {self.dist_sync_fn}")
+
+        self.distributed_available_fn = kwargs.pop("distributed_available_fn", None) or distributed_available
+
+        self.sync_on_compute = kwargs.pop("sync_on_compute", True)
+        if not isinstance(self.sync_on_compute, bool):
+            raise ValueError(f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}")
+
+        if kwargs:
+            kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
+            raise ValueError(f"Unexpected keyword arguments: {', '.join(kwargs_)}")
+
+        self._defaults: Dict[str, StateValue] = {}
+        self._persistent: Dict[str, bool] = {}
+        self._reductions: Dict[str, Union[str, Callable, None]] = {}
+
+        self._update_count = 0
+        self._computed: Any = None
+        self._to_sync = self.sync_on_compute
+        self._should_unsync = True
+
+        self._cache: Optional[Dict[str, StateValue]] = None
+        self._is_synced = False
+
+        self._update_called = False
+        self._forward_cache: Any = None
+        self._batch_state: Optional[Dict[str, StateValue]] = None
+
+        self.update: Callable = self._wrap_update(self.update)  # type: ignore[method-assign]
+        self.compute: Callable = self._wrap_compute(self.compute)  # type: ignore[method-assign]
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    # ------------------------------------------------------------------ state registry
+
+    def add_state(
+        self,
+        name: str,
+        default: Union[Tensor, np.ndarray, list],
+        dist_reduce_fx: Optional[Union[str, Callable]] = None,
+        persistent: bool = False,
+    ) -> None:
+        """Register a metric state.
+
+        ``default`` must be a tensor (fixed-shape state) or an empty list
+        (ragged "cat" state). ``dist_reduce_fx`` is one of 'sum', 'mean',
+        'cat', 'min', 'max', a callable, or None.
+        """
+        if not isinstance(default, (Tensor, np.ndarray, list)) or (isinstance(default, list) and default):
+            raise ValueError("state variable must be a tensor or any empty list (where you can append tensors)")
+        if isinstance(dist_reduce_fx, str):
+            if dist_reduce_fx not in _REDUCTION_FNS:
+                raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+        elif not (callable(dist_reduce_fx) or dist_reduce_fx is None):
+            raise ValueError("`dist_reduce_fx` must be callable or one of ['mean', 'sum', 'cat', 'min', 'max', None]")
+        if name in ("_defaults", "_persistent", "_reductions", "update", "compute"):
+            raise ValueError(f"The name `{name}` is reserved and cannot be used for a metric state")
+
+        if not isinstance(default, list):
+            default = _as_state_tensor(default, self._device)
+        self._defaults[name] = default
+        setattr(self, name, _copy_state(default))
+        self._persistent[name] = persistent
+        self._reductions[name] = dist_reduce_fx
+
+    # ------------------------------------------------------------------ update/compute (stateful shell)
+
+    @abstractmethod
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        """Override to update metric state from a batch."""
+
+    @abstractmethod
+    def compute(self) -> Any:
+        """Override to compute the final value from accumulated state."""
+
+    def _wrap_update(self, update: Callable) -> Callable:
+        @functools.wraps(update)
+        def wrapped_func(*args: Any, **kwargs: Any) -> None:
+            self._computed = None
+            self._update_count += 1
+            self._update_called = True
+            if self._is_synced:
+                raise MetricsTPUUserError(
+                    "The Metric has already been synced. HINT: call `unsync()` before modifying the state."
+                )
+            update(*args, **kwargs)
+
+        return wrapped_func
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        @functools.wraps(compute)
+        def wrapped_func(*args: Any, **kwargs: Any) -> Any:
+            if not self._update_called:
+                rank_zero_warn(
+                    f"The ``compute`` method of metric {self.__class__.__name__} was called before the ``update`` method"
+                    " which may lead to errors, as metric states have not yet been updated.",
+                    UserWarning,
+                )
+            if self._computed is not None:
+                return self._computed
+            with self.sync_context(
+                dist_sync_fn=self.dist_sync_fn,
+                process_group=self.process_group,
+                should_sync=self._to_sync,
+                should_unsync=self._should_unsync,
+            ):
+                self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            return self._computed
+
+        return wrapped_func
+
+    def _snapshot_state(self) -> Dict[str, StateValue]:
+        """Shallow snapshot: tensor references plus shallow list copies."""
+        return {attr: (list(v) if isinstance(v, list) else v) for attr, v in ((a, getattr(self, a)) for a in self._defaults)}
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        """Accumulate global state AND return the metric value on this batch."""
+        if self._is_synced:
+            raise MetricsTPUUserError("The Metric shouldn't be synced when performing ``forward``.")
+        if self.full_state_update or self.full_state_update is None or self.dist_sync_on_step:
+            return self._forward_full_state_update(*args, **kwargs)
+        return self._forward_reduce_state_update(*args, **kwargs)
+
+    def __call__(self, *args: Any, **kwargs: Any) -> Any:
+        return self.forward(*args, **kwargs)
+
+    def _restore_after_forward(self, batch_val: Any) -> None:
+        self._is_synced = False
+        self._cache = None
+        self._should_unsync = True
+        self._to_sync = self.sync_on_compute
+        self._computed = None
+        self._forward_cache = batch_val
+
+    def _forward_full_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """Two updates: one into the global state, one into a fresh state for the batch value."""
+        self.update(*args, **kwargs)
+        _update_count = self._update_count
+        self._to_sync = self.dist_sync_on_step
+        cache = self._snapshot_state()
+        self._should_unsync = False
+        self.reset()
+        self.update(*args, **kwargs)
+        self._batch_state = self._snapshot_state()
+        batch_val = self.compute()
+        for attr, val in cache.items():
+            setattr(self, attr, val)
+        self._update_count = _update_count
+        self._restore_after_forward(batch_val)
+        return batch_val
+
+    def _forward_reduce_state_update(self, *args: Any, **kwargs: Any) -> Any:
+        """One update into a fresh state, then an associative merge into the global state."""
+        global_state = self._snapshot_state()
+        _update_count = self._update_count
+        self.reset()
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
+        self.update(*args, **kwargs)
+        self._batch_state = self._snapshot_state()
+        batch_val = self.compute()
+        self._update_count = _update_count + 1
+        self._reduce_states(global_state)
+        self._restore_after_forward(batch_val)
+        return batch_val
+
+    def _reduce_states(self, incoming_state: Dict[str, StateValue]) -> None:
+        """Merge an incoming (global) state into the current (batch) state.
+
+        sum: add; mean: running mean by update count; max/min: elementwise;
+        cat: list concat; None: stack.
+        """
+        for attr in self._defaults:
+            local_state = getattr(self, attr)
+            global_state = incoming_state[attr]
+            reduce_fn = self._reductions[attr]
+            if reduce_fn == "sum":
+                reduced = global_state + local_state
+            elif reduce_fn == "mean":
+                reduced = ((self._update_count - 1) * global_state + local_state) / self._update_count
+            elif reduce_fn == "max":
+                reduced = torch.maximum(global_state, local_state)
+            elif reduce_fn == "min":
+                reduced = torch.minimum(global_state, local_state)
+            elif reduce_fn == "cat":
+                reduced = global_state + local_state  # list concat
+            elif reduce_fn is None and isinstance(global_state, Tensor):
+                reduced = torch.stack([global_state, local_state])
+            elif reduce_fn is None and isinstance(global_state, list):
+                reduced = _flatten([global_state, local_state])
+            else:
+                reduced = reduce_fn(torch.stack([global_state, local_state]))
+            setattr(self, attr, reduced)
+
+    # ------------------------------------------------------------------ distributed sync (host level)
+
+    def _sync_dist(self, dist_sync_fn: Callable = gather_all_tensors, process_group: Optional[Any] = None) -> None:
+        """Gather every registered state from all ranks, then reduce it."""
+        input_dict = {attr: getattr(self, attr) for attr in self._reductions}
+        for attr in self._reductions:
+            # pre-concatenate list states to need one gather each
+            if isinstance(input_dict[attr], list) and len(input_dict[attr]) >= 1:
+                input_dict[attr] = [dim_zero_cat(input_dict[attr])]
+
+        output_dict = apply_to_collection(input_dict, Tensor, dist_sync_fn, group=process_group or self.process_group)
+
+        for attr, reduction_fn in self._reductions.items():
+            if isinstance(output_dict[attr], list) and len(output_dict[attr]) == 0:
+                setattr(self, attr, [])
+                continue
+            if isinstance(output_dict[attr][0], Tensor):
+                output_dict[attr] = torch.stack(output_dict[attr])
+            elif isinstance(output_dict[attr][0], list):
+                output_dict[attr] = _flatten(output_dict[attr])
+            fn = _REDUCTION_FNS.get(reduction_fn, reduction_fn) if isinstance(reduction_fn, str) else reduction_fn
+            if not (callable(fn) or fn is None):
+                raise TypeError("reduction_fn must be callable or None")
+            reduced = fn(output_dict[attr]) if fn is not None else output_dict[attr]
+            if isinstance(getattr(self, attr), list) and isinstance(reduced, Tensor):
+                reduced = [reduced]
+            setattr(self, attr, reduced)
+
+    def sync(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> None:
+        """Sync state across processes, keeping the local state to restore on ``unsync``."""
+        if self._is_synced and should_sync:
+            raise MetricsTPUUserError("The Metric has already been synced.")
+        if distributed_available is None and self.distributed_available_fn is not None:
+            distributed_available = self.distributed_available_fn
+        is_distributed = distributed_available() if callable(distributed_available) else None
+        if not should_sync or not is_distributed:
+            return
+        if dist_sync_fn is None:
+            dist_sync_fn = gather_all_tensors
+        self._cache = self._snapshot_state()
+        self._sync_dist(dist_sync_fn, process_group=process_group)
+        self._is_synced = True
+
+    def unsync(self, should_unsync: bool = True) -> None:
+        """Restore the local state cached by ``sync``."""
+        if not should_unsync:
+            return
+        if not self._is_synced:
+            raise MetricsTPUUserError("The Metric has already been un-synced.")
+        if self._cache is None:
+            raise MetricsTPUUserError("The internal cache should exist to unsync the Metric.")
+        for attr, val in self._cache.items():
+            setattr(self, attr, val)
+        self._is_synced = False
+        self._cache = None
+
+    @contextmanager
+    def sync_context(
+        self,
+        dist_sync_fn: Optional[Callable] = None,
+        process_group: Optional[Any] = None,
+        should_sync: bool = True,
+        should_unsync: bool = True,
+        distributed_available: Optional[Callable] = None,
+    ) -> Generator[None, None, None]:
+        """Sync on enter, unsync on exit."""
+        self.sync(
+            dist_sync_fn=dist_sync_fn,
+            process_group=process_group,
+            should_sync=should_sync,
+            distributed_available=distributed_available,
+        )
+        yield
+        self.unsync(should_unsync=self._is_synced and should_unsync)
+
+    # ------------------------------------------------------------------ pure functional API
+
+    def _raw_update(self) -> Callable:
+        """The unwrapped subclass ``update``."""
+        return type(self).update.__get__(self)
+
+    def _raw_compute(self) -> Callable:
+        return type(self).compute.__get__(self)
+
+    def init_state(self) -> Dict[str, Any]:
+        """Default state as a dict of fresh tensors (and empty lists), with an
+        int32 ``_update_count``."""
+        state: Dict[str, Any] = {name: _copy_state(default) for name, default in self._defaults.items()}
+        state["_update_count"] = torch.zeros((), dtype=torch.int32, device=self._device)
+        return state
+
+    def _swap_in(self, state: Dict[str, Any]) -> Dict[str, Any]:
+        snapshot: Dict[str, Any] = {name: getattr(self, name) for name in self._defaults}
+        snapshot["_update_count"] = self._update_count
+        for name in self._defaults:
+            value = state[name]
+            # a list state is appended to by update: copy it, so the caller's list is untouched
+            setattr(self, name, list(value) if isinstance(value, list) else value)
+        self._update_count = state.get("_update_count", 0)
+        return snapshot
+
+    def _swap_out(self, snapshot: Dict[str, Any]) -> Dict[str, Any]:
+        state: Dict[str, Any] = {name: getattr(self, name) for name in self._defaults}
+        state["_update_count"] = self._update_count
+        for name in self._defaults:
+            setattr(self, name, snapshot[name])
+        self._update_count = snapshot["_update_count"]
+        return state
+
+    def update_state(self, state: Dict[str, Any], *args: Any, **kwargs: Any) -> Dict[str, Any]:
+        """Pure: ``(state, batch) -> new state``; ``state`` itself is left as it was."""
+        snapshot = self._swap_in(state)
+        try:
+            self._raw_update()(*args, **kwargs)
+            self._update_count = self._update_count + 1
+        finally:
+            new_state = self._swap_out(snapshot)
+        return new_state
+
+    def compute_from(self, state: Dict[str, Any]) -> Any:
+        """Pure: the final value from a state dict."""
+        snapshot = self._swap_in(state)
+        try:
+            return _squeeze_if_scalar(self._raw_compute()())
+        finally:
+            self._swap_out(snapshot)
+
+    def merge_states(self, state_a: Dict[str, Any], state_b: Dict[str, Any]) -> Dict[str, Any]:
+        """Associatively merge two state dicts (pure analogue of ``_reduce_states``)."""
+        merged: Dict[str, Any] = {}
+        count_a = state_a.get("_update_count", 0)
+        count_b = state_b.get("_update_count", 0)
+        total = count_a + count_b
+        for name, reduction in self._reductions.items():
+            a, b = state_a[name], state_b[name]
+            if reduction == "sum":
+                merged[name] = a + b
+            elif reduction == "mean":
+                merged[name] = (count_a * a + count_b * b) / torch.clamp(torch.as_tensor(total), min=1)
+            elif reduction == "max":
+                merged[name] = torch.maximum(a, b)
+            elif reduction == "min":
+                merged[name] = torch.minimum(a, b)
+            elif reduction == "cat" or reduction is None:
+                merged[name] = list(a) + list(b) if isinstance(a, list) else torch.cat([a, b], dim=0)
+            else:
+                merged[name] = reduction(torch.stack([a, b]))
+        merged["_update_count"] = total
+        return merged
+
+    # ------------------------------------------------------------------ reset / clone
+
+    def reset(self) -> None:
+        """Reset states to their defaults."""
+        self._update_count = 0
+        self._update_called = False
+        self._computed = None
+        self._batch_state = None
+        for attr, default in self._defaults.items():
+            setattr(self, attr, _copy_state(default))
+        self._cache = None
+        self._is_synced = False
+
+    def clone(self) -> "Metric":
+        """Deep copy of the metric."""
+        return deepcopy(self)
+
+    # ------------------------------------------------------------------ persistence
+
+    def state_dict(self, destination: Optional[Dict] = None, prefix: str = "") -> Dict[str, Any]:
+        """Persistent states (only those registered ``persistent=True``) as a
+        flat dict of detached tensor copies (lists of them for list states)."""
+        destination = {} if destination is None else destination
+        for key in self._defaults:
+            if not self._persistent[key]:
+                continue
+            current = getattr(self, key)
+            if isinstance(current, list):
+                destination[prefix + key] = [c.detach().clone() for c in current]
+            else:
+                destination[prefix + key] = current.detach().clone()
+        return destination
+
+    def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = True) -> None:
+        """Inverse of :meth:`state_dict`; values may be tensors or numpy arrays.
+
+        ``strict=True`` raises on missing persistent keys and on unexpected keys
+        under this instance's prefix.
+        """
+        consumed: set = set()
+        for key in self._defaults:
+            name = prefix + key
+            if name in state_dict:
+                consumed.add(name)
+                val = state_dict[name]
+                if isinstance(val, list):
+                    setattr(self, key, [_as_state_tensor(v, self._device) for v in val])
+                else:
+                    setattr(self, key, _as_state_tensor(val, self._device))
+            elif strict and self._persistent[key]:
+                raise KeyError(f"Missing key {name} in state_dict")
+        if strict:
+            _raise_on_unconsumed(state_dict, prefix, consumed)
+
+    def __getstate__(self) -> Dict[str, Any]:
+        """Drop the instance-wrapped ``update``/``compute`` for pickling and deepcopy."""
+        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute")}
+
+    def __setstate__(self, state: Dict[str, Any]) -> None:
+        self.__dict__.update(state)
+        self.update = self._wrap_update(type(self).update.__get__(self))
+        self.compute = self._wrap_compute(type(self).compute.__get__(self))
+
+    def __setattr__(self, name: str, value: Any) -> None:
+        if name in ("higher_is_better", "is_differentiable", "full_state_update"):
+            raise RuntimeError(f"Can't change const `{name}`.")
+        super().__setattr__(name, value)
+
+    @property
+    def update_called(self) -> bool:
+        return self._update_called
+
+    @property
+    def update_count(self) -> int:
+        return self._update_count
+
+    def __repr__(self) -> str:
+        return f"{self.__class__.__name__}()"

@@ -1,0 +1,226 @@
+"""The port's ``Metric`` base class against the JAX package's, on the CPU.
+
+One small metric is written twice, once on each base class, with a sum state,
+a max state, a mean state and a ragged "cat" state. The same numpy batches go
+through both; states and values must agree exactly: the arithmetic is integer
+sums, a max, and float32 divisions of exact operands in the same order. (A
+float32 ``mean`` is not used: the two frameworks reduce it differently and
+can differ in the last bit.)
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from metrics_tpu.metric import Metric as JaxMetric
+from metrics_tpu.utils.data import dim_zero_cat as jax_dim_zero_cat
+from metrics_tpu_torch.classification import MulticlassAccuracy
+from metrics_tpu_torch.metric import Metric, zero_state
+from metrics_tpu_torch.utils.data import dim_zero_cat
+from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+
+
+class JaxProbe(JaxMetric):
+    full_state_update = False
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("total", jnp.zeros((), jnp.int32), dist_reduce_fx="sum", persistent=True)
+        self.add_state("peak", jnp.full((3,), -100, jnp.int32), dist_reduce_fx="max", persistent=True)
+        self.add_state("avg", jnp.zeros((), jnp.float32), dist_reduce_fx="mean")
+        self.add_state("seen", [], dist_reduce_fx="cat", persistent=True)
+
+    def update(self, x):
+        self.total = self.total + jnp.sum(x).astype(jnp.int32)
+        self.peak = jnp.maximum(self.peak, jnp.max(x, axis=0).astype(jnp.int32))
+        self.avg = jnp.sum(x).astype(jnp.float32) / x.size  # exact operands, one correctly rounded division
+        self.seen.append(x[:, 0])
+
+    def compute(self):
+        return jnp.stack([self.total.astype(jnp.float32), jnp.sum(self.peak).astype(jnp.float32),
+                          self.avg, jnp.sum(jax_dim_zero_cat(self.seen)).astype(jnp.float32)])
+
+
+class TorchProbe(Metric):
+    full_state_update = False
+
+    def __init__(self, **kwargs):
+        super().__init__(**kwargs)
+        self.add_state("total", zero_state((), torch.int32, self.device), dist_reduce_fx="sum", persistent=True)
+        self.add_state("peak", torch.full((3,), -100, dtype=torch.int32), dist_reduce_fx="max", persistent=True)
+        self.add_state("avg", zero_state((), torch.float32, self.device), dist_reduce_fx="mean")
+        self.add_state("seen", [], dist_reduce_fx="cat", persistent=True)
+
+    def update(self, x):
+        self.total = self.total + x.sum().to(torch.int32)
+        self.peak = torch.maximum(self.peak, x.amax(dim=0).to(torch.int32))
+        self.avg = x.sum().to(torch.float32) / x.numel()
+        self.seen.append(x[:, 0])
+
+    def compute(self):
+        return torch.stack([self.total.float(), self.peak.sum().float(), self.avg, dim_zero_cat(self.seen).sum().float()])
+
+
+class JaxProbeFull(JaxProbe):
+    full_state_update = True
+
+
+class TorchProbeFull(TorchProbe):
+    full_state_update = True
+
+
+def _batches(seed=0, n=4):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-50, 50, (int(rng.integers(3, 9)), 3)).astype(np.int32) for _ in range(n)]
+
+
+def _assert_state_equal(jax_state, torch_state):
+    assert set(jax_state) == set(torch_state)
+    for key, want in jax_state.items():
+        got = torch_state[key]
+        if isinstance(want, list):
+            assert len(got) == len(want), key
+            for w, g in zip(want, got):
+                np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+            continue
+        want = np.asarray(want)
+        got = got if isinstance(got, torch.Tensor) else torch.tensor(got)
+        assert str(got.dtype).replace("torch.", "") == str(want.dtype), key
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=key)
+
+
+def test_metric_without_device_raises_on_a_gpu_less_machine():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU: device=None resolves to it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TorchProbe()
+
+
+def test_add_state_rejects_what_the_jax_package_rejects():
+    m = TorchProbe(device="cpu")
+    with pytest.raises(ValueError):
+        m.add_state("bad", [1])
+    with pytest.raises(ValueError):
+        m.add_state("bad", torch.zeros(()), dist_reduce_fx="median")
+    with pytest.raises(ValueError):
+        m.add_state("update", torch.zeros(()))
+    with pytest.raises(ValueError):
+        TorchProbe(device="cpu", not_a_kwarg=1)
+    with pytest.raises(RuntimeError):
+        m.full_state_update = True
+
+
+@pytest.mark.parametrize("pair", [(JaxProbe, TorchProbe), (JaxProbeFull, TorchProbeFull)], ids=["reduce", "full"])
+def test_update_forward_compute_reset_match_jax(pair):
+    jax_cls, torch_cls = pair
+    jm, tm = jax_cls(), torch_cls(device="cpu")
+    for i, x in enumerate(_batches()):
+        if i % 2:
+            jm.update(jnp.asarray(x))
+            tm.update(torch.from_numpy(x))
+        else:
+            np.testing.assert_array_equal(tm(torch.from_numpy(x)).numpy(), np.asarray(jm(jnp.asarray(x))))
+        assert tm.update_count == jm.update_count
+        _assert_state_equal(
+            {k: getattr(jm, k) for k in jm._defaults}, {k: getattr(tm, k) for k in tm._defaults}
+        )
+    np.testing.assert_array_equal(tm.compute().numpy(), np.asarray(jm.compute()))
+    tm.reset()
+    jm.reset()
+    assert tm.update_count == 0 and not tm.update_called
+    _assert_state_equal({k: getattr(jm, k) for k in jm._defaults}, {k: getattr(tm, k) for k in tm._defaults})
+
+
+def test_compute_before_update_warns_and_is_cached():
+    tm = TorchProbe(device="cpu")
+    tm.update(torch.ones(2, 3, dtype=torch.int32))
+    first = tm.compute()
+    assert tm.compute() is first  # cached until the next update
+    with pytest.warns(UserWarning, match="before the ``update``"):
+        MulticlassAccuracy(3, device="cpu").compute()
+
+
+def test_functional_api_matches_jax_and_is_pure():
+    jm, tm = JaxProbe(), TorchProbe(device="cpu")
+    js, ts = jm.init_state(), tm.init_state()
+    assert ts["_update_count"].dtype == torch.int32
+    _assert_state_equal(js, ts)
+    for x in _batches(seed=1):
+        before = {k: (list(v) if isinstance(v, list) else v.clone()) for k, v in ts.items()}
+        new_ts = tm.update_state(ts, torch.from_numpy(x))
+        # purity: the given state is left as it was, list states included
+        for k, v in before.items():
+            if isinstance(v, list):
+                assert len(ts[k]) == len(v)
+            else:
+                assert torch.equal(ts[k], v)
+        js, ts = jm.update_state(js, jnp.asarray(x)), new_ts
+        _assert_state_equal(js, ts)
+    assert ts["_update_count"].dtype == torch.int32 and int(ts["_update_count"]) == 4
+    np.testing.assert_array_equal(tm.compute_from(ts).numpy(), np.asarray(jm.compute_from(js)))
+    # the stateful shell was not touched by the functional calls
+    assert tm.update_count == 0 and tm.seen == []
+
+
+def test_merge_states_matches_jax():
+    jm, tm = JaxProbe(), TorchProbe(device="cpu")
+    b = _batches(seed=2)
+    ja = jm.update_state(jm.update_state(jm.init_state(), jnp.asarray(b[0])), jnp.asarray(b[1]))
+    jb = jm.update_state(jm.init_state(), jnp.asarray(b[2]))
+    ta = tm.update_state(tm.update_state(tm.init_state(), torch.from_numpy(b[0])), torch.from_numpy(b[1]))
+    tb = tm.update_state(tm.init_state(), torch.from_numpy(b[2]))
+    merged_j, merged_t = jm.merge_states(ja, jb), tm.merge_states(ta, tb)
+    assert merged_t["_update_count"].dtype == torch.int32
+    _assert_state_equal(merged_j, merged_t)
+
+
+def test_state_dict_round_trips_and_crosses_from_jax():
+    jm, tm = JaxProbe(), TorchProbe(device="cpu")
+    for x in _batches(seed=3):
+        jm.update(jnp.asarray(x))
+        tm.update(torch.from_numpy(x))
+    sd = tm.state_dict()
+    assert set(sd) == {"total", "peak", "seen"}  # persistent states only
+    fresh = TorchProbe(device="cpu")
+    fresh.load_state_dict(sd)
+    for key in sd:
+        _assert_state_equal({key: getattr(tm, key)}, {key: getattr(fresh, key)})
+    # a JAX state_dict (numpy leaves) loads into the port with its dtypes
+    from_jax = TorchProbe(device="cpu")
+    from_jax.load_state_dict(jm.state_dict())
+    for key in sd:
+        _assert_state_equal({key: getattr(jm, key)}, {key: getattr(from_jax, key)})
+
+
+def test_load_state_dict_is_strict():
+    tm = TorchProbe(device="cpu")
+    sd = tm.state_dict()
+    with pytest.raises(KeyError, match="Missing key"):
+        TorchProbe(device="cpu").load_state_dict({k: v for k, v in sd.items() if k != "total"})
+    with pytest.raises(KeyError, match="Unexpected"):
+        TorchProbe(device="cpu").load_state_dict({**sd, "totl": sd["total"]})
+    TorchProbe(device="cpu").load_state_dict({k: v for k, v in sd.items() if k != "total"}, strict=False)
+
+
+def test_update_while_synced_raises_and_clone_is_independent():
+    tm = TorchProbe(device="cpu")
+    tm.update(torch.ones(2, 3, dtype=torch.int32))
+    twin = tm.clone()
+    twin.update(torch.ones(2, 3, dtype=torch.int32))
+    assert int(tm.total) == 6 and int(twin.total) == 12 and tm.update_count == 1
+    tm._is_synced = True
+    with pytest.raises(MetricsTPUUserError):
+        tm.update(torch.ones(2, 3, dtype=torch.int32))
+    with pytest.raises(MetricsTPUUserError):
+        tm(torch.ones(2, 3, dtype=torch.int32))
+
+
+def test_sync_with_a_custom_gather_reduces_like_two_ranks():
+    """``dist_sync_fn`` sees each state (list states pre-concatenated) and its
+    per-rank results are reduced by each state's ``dist_reduce_fx``."""
+    tm = TorchProbe(device="cpu", distributed_available_fn=lambda: True, dist_sync_fn=lambda t, group=None: [t, t])
+    tm.update(torch.tensor([[1, 2, 3], [4, 5, 6]], dtype=torch.int32))
+    local = tm.compute()  # compute syncs, then restores the local state
+    assert int(tm.total) == 21
+    assert float(local[0]) == 42.0 and float(local[1]) == 4 + 5 + 6 and float(local[3]) == 2 * (1 + 4)
