@@ -44,6 +44,28 @@ checkout, and then:
 - Phase F times each scatter kernel at the Phase E shapes (call, device,
   plain version, one PyTorch library call, byte bound), each sketch's update
   and values/s, the ledger walk per item, and profiles one quantile update.
+- Phase G holds the threshold-count kernel of the binned curves
+  (``csrc/binned_curve.cu``) against its plain version: ``torch.equal`` on
+  0/1 weights at N = 10^6 with T = 100, 200, 400 and 1024 and with 10
+  columns, and on the edge cases of the CPU tests (NaN, +-inf, -0.0, scores
+  on a threshold, unsorted and duplicate thresholds, T = 1, T above one
+  block's 1024, N = 1, ragged N, N = 0 without a launch); float weights
+  within ``rtol=1e-5, atol=1e-3``, two launches on one input bit-identical.
+- Phase H drives the binned curves at full width: 8 updates of 10^6 scores
+  at T = 200 through BinaryPrecisionRecallCurve, BinaryROC, BinaryAUROC
+  (max_fpr None and 0.5) and BinaryAveragePrecision, functional API and
+  stateful; MulticlassAUROC and MultilabelAveragePrecision at C = 10 on 10^6
+  rows; one exact-mode BinaryAUROC on 2^20 scores. Launch counts are zeroed
+  just before and read just after: one binned_curve launch per binned update
+  and no reference dispatch. The int32 states are held against a CPU
+  recomputation (the plain version) and the merge of two half-streams
+  against the single stream; values against the CPU.
+- Phase I times the kernel at the Phase H shape and at T = 1024 (device time
+  under the profiler, call time, plain version, bound: the larger of the
+  bytes and the operations of the sorted-threshold route, O(N log T), the
+  least work that computes the function; no single PyTorch call
+  computes the function, so the three-call bucketize + bincount + cumsum
+  route is timed beside it) and the five binary updates per batch.
 
 The second-to-last line of output is a JSON object with one record per
 kernel; the last is ``{"ok": true, "device": {...}}``. Any failure raises,
@@ -68,6 +90,11 @@ SKETCH_BATCH = 2**22  # values per sketch update in Phases E and F
 SKETCH_BATCHES = 8
 HH_BATCH = 4096  # ids per heavy-hitter update: its ledger walk is one item at a time
 HH_BATCHES = 4  # fewer than SKETCH_BATCHES: the walk takes about 0.4 ms per item on the card
+CURVE_N = 10**6  # scores per curve update in Phases G to I
+CURVE_T = 200
+CURVE_UPDATES = 8
+CURVE_COLS = 10
+EXACT_N = 2**20
 ZIPF_IDS = 10**7
 ZIPF_S = 1.1
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
@@ -735,6 +762,304 @@ def phase_f(torch, scatter, data) -> dict:
     return recs
 
 
+def _curve_inputs(torch, gen, shape, thr, weights: str, per_row: bool = False):
+    """(p, tw, w) on the card: uniform scores with the edge values and ties on
+    ``thr`` mixed in; 0/1 or float weights, per element or per row."""
+    p = torch.rand(shape, generator=gen, device="cuda")
+    flat = p.view(-1)
+    n = flat.numel()
+    if n >= 16:
+        flat[:6] = torch.tensor([math.nan, math.inf, -math.inf, -0.0, 0.0, 1.0], device="cuda")
+        k = max(1, n // 100)
+        at = torch.randint(0, n, (k,), generator=gen, device="cuda")
+        flat[at] = thr[torch.randint(0, thr.numel(), (k,), generator=gen, device="cuda")]
+    w_shape = shape[:1] if per_row else shape
+    if weights == "float":
+        w = torch.rand(w_shape, generator=gen, device="cuda") * 2
+    else:
+        w = torch.randint(0, 2, w_shape, generator=gen, device="cuda").to(torch.float32)
+    y = torch.randint(0, 2, shape, generator=gen, device="cuda").to(torch.float32)
+    return p, y * (w[:, None] if per_row and len(shape) == 2 else w), w
+
+
+def _curve_cases():
+    """(name, N, C, T, thresholds, per-row w) of the Phase G cases."""
+    return [
+        ("main_T100", CURVE_N, 1, 100, "linspace", False),
+        ("main_T200", CURVE_N, 1, 200, "linspace", False),  # the main path's shape
+        ("main_T400", CURVE_N, 1, 400, "linspace", False),
+        ("main_T1024", CURVE_N, 1, 1024, "linspace", False),
+        ("multiclass_C10", CURVE_N, CURVE_COLS, 200, "linspace", True),  # the multiclass update: w per row
+        ("multilabel_C10", CURVE_N, CURVE_COLS, 200, "linspace", False),
+        ("T1", 5003, 1, 1, "linspace", False),
+        ("T1500_two_chunks", 4097, 3, 1500, "unsorted", False),
+        ("unsorted_duplicates", 65537, 1, 37, "unsorted", False),
+        ("N1", 1, 1, 5, "linspace", False),
+        ("N1_C10", 1, CURVE_COLS, 7, "linspace", True),
+        ("ragged", 1025, 2, 33, "linspace", False),
+        ("empty", 0, 1, 10, "linspace", False),
+    ]
+
+
+def _curve_thresholds(torch, kind: str, t: int, gen):
+    from metrics_tpu_torch.functional.classification.precision_recall_curve import _adjust_threshold_arg
+
+    if kind == "linspace":
+        return _adjust_threshold_arg(t, torch.device("cuda"))
+    thr = torch.rand(t, generator=gen, device="cuda")
+    if t > 2:
+        thr[1] = thr[0]
+    return thr
+
+
+def phase_g(torch, bc) -> dict:
+    """Every threshold-count case: kernel vs plain version on the same CUDA inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    worst = 0.0
+    for name, n, c, t, kind, per_row in _curve_cases():
+        thr = _curve_thresholds(torch, kind, t, gen)
+        p, tw, w = _curve_inputs(torch, gen, (n,) if c == 1 else (n, c), thr, "01", per_row)
+        before = bc.launches
+        got = bc.binned_curve_counts_cuda(p, tw, w, thr)
+        torch.cuda.synchronize()
+        _check(bc.launches == before + (1 if n else 0), f"{name}: launch count")
+        want = bc.reference_counts(p, tw, w, thr)
+        for g, wnt, what in zip(got, want, ("tp", "fp")):
+            _check(g.dtype == torch.float32 and g.shape == wnt.shape, f"{name} {what}: {g.dtype} {tuple(g.shape)}")
+            _check(torch.equal(g, wnt), f"{name} {what}: kernel differs from reference_counts")
+        err = max(float((g - wnt).abs().max()) if g.numel() else 0.0 for g, wnt in zip(got, want))
+        worst = max(worst, err)
+        print(f"phase G {name}: N={n} C={c} T={t} thresholds={kind} w={'per row' if per_row else 'per element'} "
+              f"equal=True max_abs_err={err} launches={bc.launches - before} tp[0]={got[0].reshape(-1)[0].item() if n else 0}")
+
+    float_err = 0.0
+    for name, n, c, t in (("float_main", CURVE_N, 1, CURVE_T), ("float_C10", CURVE_N, CURVE_COLS, CURVE_T)):
+        thr = _curve_thresholds(torch, "linspace", t, gen)
+        p, tw, w = _curve_inputs(torch, gen, (n,) if c == 1 else (n, c), thr, "float")
+        first = bc.binned_curve_counts_cuda(p, tw, w, thr)
+        second = bc.binned_curve_counts_cuda(p, tw, w, thr)
+        want = bc.reference_counts(p, tw, w, thr)
+        torch.cuda.synchronize()
+        for a, b, wnt in zip(first, second, want):
+            _check(torch.equal(a, b), f"{name}: two launches on one input differ")
+            _check(torch.allclose(a, wnt, rtol=1e-5, atol=1e-3), f"{name}: kernel vs reference_counts")
+        err = max(float((a - wnt).abs().max()) for a, wnt in zip(first, want))
+        rel = max(float(((a - wnt).abs() / wnt.abs().clamp(min=1)).max()) for a, wnt in zip(first, want))
+        float_err = max(float_err, err)
+        print(f"phase G {name}: N={n} C={c} T={t} float weights: repeat launches bit-identical; "
+              f"allclose(rtol=1e-5, atol=1e-3) max_abs_err={err} max_rel_err={rel}")
+    return {"max_abs_err": worst, "float_max_abs_err": float_err}
+
+
+def _classifier_scores(torch, gen, n: int, pos_rate: float = 0.3):
+    """Probabilities of a fair binary classifier: labels ~ Bernoulli(pos_rate), logits ~ N(+-1, 1.5), 1% ignored (-1)."""
+    y = (torch.rand(n, generator=gen, device="cuda") < pos_rate).to(torch.int32)
+    logit = torch.randn(n, generator=gen, device="cuda") * 1.5 + (2 * y - 1).to(torch.float32)
+    y = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.01, -1, y)
+    return torch.sigmoid(logit), y
+
+
+def phase_h(torch, bc, obs, instrument):
+    """The binned curves at full width, counted and verified."""
+    from metrics_tpu_torch.classification import (
+        BinaryAUROC, BinaryAveragePrecision, BinaryPrecisionRecallCurve, BinaryROC, MulticlassAUROC,
+        MultilabelAveragePrecision,
+    )
+
+    gen = torch.Generator(device="cuda").manual_seed(4242)
+    batches = [_classifier_scores(torch, gen, CURVE_N) for _ in range(CURVE_UPDATES)]
+    mc_batches, ml_batches = [], []
+    for _ in range(2):
+        mc_target = torch.randint(0, CURVE_COLS, (CURVE_N,), generator=gen, device="cuda", dtype=torch.int32)
+        logits = torch.randn(CURVE_N, CURVE_COLS, generator=gen, device="cuda")
+        logits[torch.arange(CURVE_N, device="cuda"), mc_target.long()] += 1.5
+        mc_batches.append((torch.softmax(logits, dim=1), mc_target))
+        ml_target = (torch.rand(CURVE_N, CURVE_COLS, generator=gen, device="cuda") < 0.2).to(torch.int32)
+        ml_scores = torch.sigmoid(torch.randn(CURVE_N, CURVE_COLS, generator=gen, device="cuda") + 1.5 * ml_target - 0.5)
+        ml_batches.append((ml_scores, ml_target))
+    torch.cuda.synchronize()
+    print(f"phase H data: {CURVE_UPDATES} batches of {CURVE_N} binary scores (30% positive, 1% ignored), "
+          f"2 batches of {CURVE_N} x {CURVE_COLS} multiclass and multilabel scores; T={CURVE_T}")
+
+    kw = {"thresholds": CURVE_T, "ignore_index": -1, "device": "cuda"}
+    binary = {
+        "BinaryPrecisionRecallCurve": BinaryPrecisionRecallCurve(**kw),
+        "BinaryROC": BinaryROC(**kw),
+        "BinaryAUROC": BinaryAUROC(**kw),
+        "BinaryAUROC(max_fpr=0.5)": BinaryAUROC(max_fpr=0.5, **kw),
+        "BinaryAveragePrecision": BinaryAveragePrecision(**kw),
+    }
+    mc = MulticlassAUROC(num_classes=CURVE_COLS, thresholds=CURVE_T, device="cuda")
+    ml = MultilabelAveragePrecision(num_labels=CURVE_COLS, thresholds=CURVE_T, device="cuda")
+    paths = {name: (m, batches) for name, m in binary.items()}
+    paths["MulticlassAUROC"] = (mc, mc_batches)
+    paths["MultilabelAveragePrecision"] = (ml, ml_batches)
+
+    states, launches, n_updates = {}, 0, 0
+    obs.enable()
+    try:
+        instrument.KERNEL_DISPATCHES.clear()
+        bc.launches = 0  # the main path's run starts here ...
+        t0 = time.perf_counter()
+        for name, (m, bs) in paths.items():
+            half = len(bs) // 2
+            first = _fold(m.init_state, lambda s, b: m.update_state(s, *b), bs[:half])
+            single = _fold(lambda: first, lambda s, b: m.update_state(s, *b), bs[half:])
+            second = _fold(m.init_state, lambda s, b: m.update_state(s, *b), bs[half:])
+            states[name] = (first, second, single, m.merge_states(first, second))
+            n_updates += len(bs) + len(bs[half:])
+            m.update(*bs[0])  # the stateful path: one update, compute below
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = bc.launches  # ... and ends here
+        ref = instrument.KERNEL_DISPATCHES.value(kernel="binned_curve_counts", impl="reference")
+        opt = instrument.KERNEL_DISPATCHES.value(kernel="binned_curve_counts", impl="optimized")
+    finally:
+        obs.disable()
+    n_updates += len(paths)  # the stateful updates
+    print(f"phase H ran {n_updates} binned updates in {wall:.3f} s; binned_curve launches={launches}, "
+          f"dispatches optimized={opt} reference={ref}")
+    _check(launches == n_updates, f"expected {n_updates} binned_curve launches (one per update), got {launches}")
+    _check(opt == n_updates and ref == 0, f"dispatches: {opt} optimized, {ref} reference on CUDA tensors")
+
+    # CPU recomputation through the plain version; the five binary metrics share one state
+    cpu_bin = BinaryPrecisionRecallCurve(thresholds=CURVE_T, ignore_index=-1, device="cpu")
+    cpu_state = _fold(cpu_bin.init_state, lambda s, b: cpu_bin.update_state(s, b[0].cpu(), b[1].cpu()), batches)
+    cpu_mc = MulticlassAUROC(num_classes=CURVE_COLS, thresholds=CURVE_T, device="cpu")
+    cpu_mc_state = _fold(cpu_mc.init_state, lambda s, b: cpu_mc.update_state(s, b[0].cpu(), b[1].cpu()), mc_batches)
+    cpu_ml = MultilabelAveragePrecision(num_labels=CURVE_COLS, thresholds=CURVE_T, device="cpu")
+    cpu_ml_state = _fold(cpu_ml.init_state, lambda s, b: cpu_ml.update_state(s, b[0].cpu(), b[1].cpu()), ml_batches)
+    cpu_states = {name: (cpu_bin, cpu_state) for name in binary}
+    cpu_states["MulticlassAUROC"] = (cpu_mc, cpu_mc_state)
+    cpu_states["MultilabelAveragePrecision"] = (cpu_ml, cpu_ml_state)
+    for name, (m, bs) in paths.items():
+        first, second, single, merged = states[name]
+        _equal_states(torch, single, merged, f"{name}: merge of two half-streams")
+        cpu_m, cpu_s = cpu_states[name]
+        _check(single["confmat"].dtype == torch.int32, f"{name}: confmat dtype {single['confmat'].dtype}")
+        _check(torch.equal(single["confmat"].cpu(), cpu_s["confmat"]), f"{name}: state differs from the CPU recomputation")
+        got, want = m.compute_from(single), _twin(m, "cpu").compute_from(cpu_s)
+        for g, w in zip(got if isinstance(got, tuple) else (got,), want if isinstance(want, tuple) else (want,)):
+            _check(bool(torch.isfinite(g).all()), f"{name}: value not finite")
+            _check(torch.allclose(g.cpu(), w, rtol=1e-5, atol=1e-6), f"{name}: card {g} vs CPU {w}")
+        stateful, functional = m.compute(), m.compute_from(m.update_state(m.init_state(), *bs[0]))
+        for g, w in zip(stateful if isinstance(stateful, tuple) else (stateful,),
+                        functional if isinstance(functional, tuple) else (functional,)):
+            _check(torch.equal(g, w), f"{name}: stateful compute differs from compute_from")
+        m.reset()
+        _check(not m.confmat.any() and m.update_count == 0, f"{name}: reset")
+    auroc = float(binary["BinaryAUROC"].compute_from(states["BinaryAUROC"][2]))
+    ap = float(binary["BinaryAveragePrecision"].compute_from(states["BinaryAveragePrecision"][2]))
+    pauc = float(binary["BinaryAUROC(max_fpr=0.5)"].compute_from(states["BinaryAUROC(max_fpr=0.5)"][2]))
+    mc_v = float(mc.compute_from(states["MulticlassAUROC"][2]))
+    ml_v = float(ml.compute_from(states["MultilabelAveragePrecision"][2]))
+    print(f"phase H binned states bit-identical to the CPU recomputation; merge == single stream; stateful == "
+          f"functional; BinaryAUROC={auroc} (max_fpr=0.5: {pauc}) BinaryAveragePrecision={ap} "
+          f"MulticlassAUROC={mc_v} MultilabelAveragePrecision={ml_v}")
+
+    # exact mode: one BinaryAUROC on 2^20 scores, against the CPU and the binned value
+    scores, target = _classifier_scores(torch, gen, EXACT_N)
+    exact = BinaryAUROC(thresholds=None, ignore_index=-1, device="cuda")
+    exact.update(scores, target)
+    got = float(exact.compute())
+    cpu_exact = BinaryAUROC(thresholds=None, ignore_index=-1, device="cpu")
+    cpu_exact.update(scores.cpu(), target.cpu())
+    want = float(cpu_exact.compute())
+    binned = BinaryAUROC(thresholds=CURVE_T, ignore_index=-1, device="cuda")
+    binned.update(scores, target)
+    approx = float(binned.compute())
+    _check(math.isfinite(got) and abs(got - want) <= 1e-5, f"exact AUROC card {got} vs CPU {want}")
+    _check(abs(got - approx) <= 2e-3, f"exact AUROC {got} vs binned {approx}")
+    print(f"phase H exact BinaryAUROC on {EXACT_N} scores: {got} (CPU {want}; binned T={CURVE_T}: {approx})")
+    return launches, {"batches": batches, "binary": binary, "mc": (mc, mc_batches), "ml": (ml, ml_batches)}
+
+
+def _twin(m, device: str, validate_args: bool = True):
+    """The same curve metric class with the same arguments, on ``device``."""
+    kw = {"thresholds": CURVE_T, "device": device, "validate_args": validate_args}
+    for attr in ("ignore_index", "max_fpr", "average", "num_classes", "num_labels"):
+        if hasattr(m, attr):
+            kw[attr] = getattr(m, attr)
+    return type(m)(**kw)
+
+
+def _bucketize_counts(torch, p, tw, w, thr_sorted):
+    """The three-call route for sorted thresholds: bucketize, bincount, cumsum (0/1 weights)."""
+    b = torch.bucketize(p, thr_sorted, right=True)  # p >= thr[t]  <=>  b > t; NaN lands past the last bucket
+    t = thr_sorted.numel()
+    key = b * 2 + (tw > 0).to(torch.int64)
+    hist = torch.bincount(key, weights=w, minlength=2 * (t + 1)).reshape(t + 1, 2)
+    suffix = torch.flip(torch.cumsum(torch.flip(hist, (0,)), 0), (0,))  # suffix[t] = counts with b >= t
+    return suffix[1:, 1], suffix[1:, 0]
+
+
+def phase_i(torch, bc, data) -> dict:
+    """The kernel at the Phase H shape and at T = 1024; the binary updates per batch."""
+    recs = {}
+    gen = torch.Generator(device="cuda").manual_seed(99)
+    for t, c in ((CURVE_T, 1), (1024, 1), (CURVE_T, CURVE_COLS)):
+        n = CURVE_N
+        thr = _curve_thresholds(torch, "linspace", t, gen)
+        p, tw, w = _curve_inputs(torch, gen, (n,) if c == 1 else (n, c), thr, "01", per_row=c > 1)
+        iters = 50
+        ms = _time_ms(lambda: bc.binned_curve_counts_cuda(p, tw, w, thr), iters)
+        plain_ms = _time_ms(lambda: bc.reference_counts(p, tw, w, thr), 5, warmup=1)
+        nbytes = 12 * n * c + 8 * t * c  # p, tw, w read once (w counted per element); tp, fp written once
+        # The least work that computes the function is the sorted-threshold route: sort the thresholds,
+        # per sample a binary search and five flops (w·tw, w·w, a subtraction, two histogram adds),
+        # then a suffix sum of both histograms.
+        ops = t * math.ceil(math.log2(t)) + n * c * (math.ceil(math.log2(t + 1)) + 5) + 2 * t * c
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
+        bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
+        kernels, _ = _profile_steps(torch, lambda: bc.binned_curve_counts_cuda(p, tw, w, thr), 20)
+        parts = [us for name, v in kernels.items() if "binned_curve_partials" in name for us in v]
+        sums = [us for name, v in kernels.items() if "binned_curve_sum" in name for us in v]
+        device_ms = (sum(parts) + sum(sums)) / len(parts) / 1e3 if parts else None
+        rec = {"shape": f"N={n}, C={c}, T={t}", "ms": ms, "device_ms": device_ms,
+               "partials_device_ms": sum(parts) / len(parts) / 1e3 if parts else None,
+               "sum_device_ms": sum(sums) / len(sums) / 1e3 if sums else None,
+               "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
+               "bytes": nbytes, "ops": ops}
+        if c == 1:  # the three-call route, for sorted thresholds and 0/1 weights
+            finite = torch.isfinite(p)  # the route counts NaN above every threshold: compare on finite scores
+            got_f = _bucketize_counts(torch, p[finite], tw[finite], w[finite], thr)
+            want_f = bc.binned_curve_counts_cuda(p[finite].contiguous(), tw[finite].contiguous(), w[finite].contiguous(), thr)
+            _check(all(torch.equal(a.to(torch.float32), b) for a, b in zip(got_f, want_f)),
+                   "bucketize route differs from the kernel on finite scores")
+            rec["bucketize_bincount_cumsum_ms"] = _time_ms(lambda: _bucketize_counts(torch, p, tw, w, thr), iters)
+        recs[f"T{t}_C{c}"] = rec
+        print(f"phase I binned_curve {json.dumps(rec)}")
+
+    # the five binary updates per batch of 10^6 scores (default arguments, and without validation)
+    batch = data["batches"][0]
+    for validate in (True, False):
+        metrics = [_twin(m, "cuda", validate) for m in data["binary"].values()]
+        states = [m.init_state() for m in metrics]
+
+        def run():
+            for i, m in enumerate(metrics):
+                states[i] = m.update_state(states[i], *batch)
+
+        ms = _time_ms(run, 10, warmup=2)
+        recs[f"binary_updates_validate_{validate}"] = {"ms_per_batch": ms, "updates": len(metrics),
+                                                      "scores_per_s": CURVE_N * len(metrics) / ms * 1e3}
+    one = data["binary"]["BinaryAUROC"]
+    state = one.init_state()
+    kernels, wall_us = _profile_steps(torch, lambda: one.update_state(state, *batch), 5)
+    busy_us = sum(sum(v) for v in kernels.values())
+    recs["auroc_update_profile"] = {
+        "device_busy_us_per_update": busy_us / 5,
+        "wall_us_per_update_under_profiler": wall_us / 5,
+        "idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+        "launches_per_update": sum(len(v) for v in kernels.values()) / 5,
+        "top_kernels": [{"name": name[:90], "launches_per_update": len(v) / 5, "us_per_update": sum(v) / 5}
+                        for name, v in sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:8]],
+    }
+    print(f"phase I binary updates {json.dumps({k: v for k, v in recs.items() if not k.startswith('T')})}")
+    return recs
+
+
 def main() -> int:
     import torch
 
@@ -747,6 +1072,7 @@ def main() -> int:
     import metrics_tpu_torch.entry as entry_mod
     from metrics_tpu_torch import obs
     from metrics_tpu_torch.kernels import _build, confmat, scatter
+    from metrics_tpu_torch.kernels import binned_curve as bc
     from metrics_tpu_torch.obs import instrument
 
     card = subprocess.run(
@@ -758,14 +1084,14 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    names = (confmat.KERNEL_NAME, scatter.KERNEL_NAME)
+    names = (confmat.KERNEL_NAME, scatter.KERNEL_NAME, bc.KERNEL_NAME)
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all started together
         libs = dict(zip(names, pool.map(_build.build, names)))
     print(f"build {', '.join(f'{n}.cu' for n in names)}: {time.perf_counter() - t0:.2f} s")
     for name, lib in libs.items():
         print(f"  {lib.name}")
         for ln in lib.with_suffix(".log").read_text().splitlines():
-            if "ptxas" in ln:
+            if "ptxas" in ln or "spill" in ln:
                 print(f"    {ln.strip()}")
 
     max_abs_err = phase_a(torch, confmat)
@@ -779,6 +1105,10 @@ def main() -> int:
     del args, step
     sketch_launches, sketch_data = phase_e(torch, scatter, obs, instrument)
     sketch_recs = phase_f(torch, scatter, sketch_data)
+    del sketch_data
+    curve_err = phase_g(torch, bc)
+    curve_launches, curve_data = phase_h(torch, bc, obs, instrument)
+    curve_recs = phase_i(torch, bc, curve_data)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     kernels = [{
@@ -801,6 +1131,16 @@ def main() -> int:
             "max_abs_err": scatter_err[kernel],
             **{k: rec[k] for k in fields},
         })
+    main_curve = curve_recs[f"T{CURVE_T}_C1"]
+    kernels.append({
+        "name": "binned_curve",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/binned_curve.cu",
+        "replaces": "metrics_tpu/kernels/binned_curve.py:45",
+        "launches": curve_launches,
+        "max_abs_err": curve_err["max_abs_err"],
+        **{k: main_curve[k] for k in fields},
+    })
     print(json.dumps({"step": steps, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

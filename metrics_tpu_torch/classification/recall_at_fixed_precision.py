@@ -1,0 +1,133 @@
+"""Recall-at-fixed-precision module metrics (port of
+``metrics_tpu/classification/recall_at_fixed_precision.py``): the
+precision-recall curve classes' states, with the selection compute."""
+
+from __future__ import annotations
+
+from typing import Any, Optional, Tuple
+
+from torch import Tensor
+
+from metrics_tpu_torch.classification.precision_recall_curve import (
+    BinaryPrecisionRecallCurve,
+    MulticlassPrecisionRecallCurve,
+    MultilabelPrecisionRecallCurve,
+)
+from metrics_tpu_torch.functional.classification.precision_recall_curve import Thresholds
+from metrics_tpu_torch.functional.classification.recall_at_fixed_precision import (
+    _binary_recall_at_fixed_precision_arg_validation,
+    _binary_recall_at_fixed_precision_compute,
+    _multiclass_recall_at_fixed_precision_arg_compute,
+    _multiclass_recall_at_fixed_precision_arg_validation,
+    _multilabel_recall_at_fixed_precision_arg_compute,
+    _multilabel_recall_at_fixed_precision_arg_validation,
+)
+from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.enums import ClassificationTask
+
+
+class BinaryRecallAtFixedPrecision(BinaryPrecisionRecallCurve):
+    """The highest recall with precision >= ``min_precision``, and its threshold."""
+
+    higher_is_better = True
+
+    def __init__(
+        self,
+        min_precision: float,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(thresholds=thresholds, ignore_index=ignore_index, validate_args=False, **kwargs)
+        if validate_args:
+            _binary_recall_at_fixed_precision_arg_validation(min_precision, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_precision = min_precision
+
+    def compute(self) -> Tuple[Tensor, Tensor]:
+        return _binary_recall_at_fixed_precision_compute(self._curve_state(), self.thresholds, self.min_precision)
+
+
+class MulticlassRecallAtFixedPrecision(MulticlassPrecisionRecallCurve):
+    """Per class: the highest recall with precision >= ``min_precision``, and its threshold."""
+
+    higher_is_better = True
+
+    def __init__(
+        self,
+        num_classes: int,
+        min_precision: float,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(num_classes=num_classes, thresholds=thresholds, ignore_index=ignore_index,
+                         validate_args=False, **kwargs)
+        if validate_args:
+            _multiclass_recall_at_fixed_precision_arg_validation(num_classes, min_precision, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_precision = min_precision
+
+    def compute(self) -> Tuple[Tensor, Tensor]:
+        return _multiclass_recall_at_fixed_precision_arg_compute(
+            self._curve_state(), self.num_classes, self.thresholds, self.min_precision
+        )
+
+
+class MultilabelRecallAtFixedPrecision(MultilabelPrecisionRecallCurve):
+    """Per label: the highest recall with precision >= ``min_precision``, and its threshold."""
+
+    higher_is_better = True
+
+    def __init__(
+        self,
+        num_labels: int,
+        min_precision: float,
+        thresholds: Thresholds = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> None:
+        super().__init__(num_labels=num_labels, thresholds=thresholds, ignore_index=ignore_index,
+                         validate_args=False, **kwargs)
+        if validate_args:
+            _multilabel_recall_at_fixed_precision_arg_validation(num_labels, min_precision, thresholds, ignore_index)
+        self.validate_args = validate_args
+        self.min_precision = min_precision
+
+    def compute(self) -> Tuple[Tensor, Tensor]:
+        return _multilabel_recall_at_fixed_precision_arg_compute(
+            self._curve_state(), self.num_labels, self.thresholds, self.ignore_index, self.min_precision
+        )
+
+
+class RecallAtFixedPrecision:
+    """Task façade: the binary, multiclass or multilabel class for ``task``."""
+
+    def __new__(  # type: ignore[misc]
+        cls,
+        task: str,
+        min_precision: float,
+        thresholds: Thresholds = None,
+        num_classes: Optional[int] = None,
+        num_labels: Optional[int] = None,
+        ignore_index: Optional[int] = None,
+        validate_args: bool = True,
+        **kwargs: Any,
+    ) -> Metric:
+        task = ClassificationTask.from_str_or_raise(task)
+        if task == ClassificationTask.BINARY:
+            return BinaryRecallAtFixedPrecision(min_precision, thresholds, ignore_index, validate_args, **kwargs)
+        if task == ClassificationTask.MULTICLASS:
+            assert isinstance(num_classes, int)
+            return MulticlassRecallAtFixedPrecision(
+                num_classes, min_precision, thresholds, ignore_index, validate_args, **kwargs
+            )
+        if task == ClassificationTask.MULTILABEL:
+            assert isinstance(num_labels, int)
+            return MultilabelRecallAtFixedPrecision(
+                num_labels, min_precision, thresholds, ignore_index, validate_args, **kwargs
+            )
+        raise ValueError(f"Not handled value: {task}")

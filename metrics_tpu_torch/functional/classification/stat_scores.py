@@ -17,6 +17,18 @@ from metrics_tpu_torch.utils.checks import _value_check_possible
 from metrics_tpu_torch.utils.data import _one_hot, select_topk
 
 
+def _sigmoid_if_logits(preds: Tensor) -> Tensor:
+    """Sigmoid iff any value lies outside [0, 1], chosen on the device (no host sync)."""
+    return torch.where(torch.any((preds < 0) | (preds > 1)), torch.sigmoid(preds), preds)
+
+
+def _softmax_if_logits(preds: Tensor, dim: int = 1) -> Tensor:
+    """Softmax along ``dim`` iff the values do not already sum to 1 there (as
+    ``jnp.allclose(sums, 1.0, atol=1e-4)`` decides), chosen on the device."""
+    sums_to_one = torch.all(torch.abs(torch.sum(preds, dim=dim) - 1.0) <= 1e-4 + 1e-5)
+    return torch.where(sums_to_one, preds, torch.softmax(preds, dim=dim))
+
+
 def _ignore_mask(target: Tensor, ignore_index: Optional[int]) -> Tensor:
     """Boolean weight mask that zeroes out ignored positions."""
     if ignore_index is None:

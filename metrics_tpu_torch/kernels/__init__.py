@@ -2,6 +2,6 @@
 Hopper, each beside its plain PyTorch version, routed by :mod:`.registry`.
 Importing the package registers every entry."""
 
-from metrics_tpu_torch.kernels import confmat, scatter
+from metrics_tpu_torch.kernels import binned_curve, confmat, scatter
 
-__all__ = ["confmat", "scatter"]
+__all__ = ["binned_curve", "confmat", "scatter"]

@@ -1,4 +1,4 @@
-"""Numerically-safe compute helpers (port of ``metrics_tpu/utils/compute.py:65-92``)."""
+"""Numerically-safe compute helpers (port of ``metrics_tpu/utils/compute.py:65-113``)."""
 
 from __future__ import annotations
 
@@ -38,3 +38,32 @@ def _adjust_weights_safe_divide(score: Tensor, average: Optional[str], tp: Tenso
     weights = tp + fn if average == "weighted" else torch.ones_like(score)
     weights = weights.to(torch.float32)
     return torch.sum(_safe_divide(weights, torch.sum(weights, dim=-1, keepdim=True)) * score, dim=-1)
+
+
+def _auc_compute_without_check(x: Tensor, y: Tensor, direction: float, axis: int = -1) -> Tensor:
+    """Trapezoidal area under the curve; ``direction`` flips the sign for descending ``x``."""
+    dx = torch.diff(x, dim=axis)
+    n = y.shape[axis]
+    y_avg = (torch.narrow(y, axis, 1, n - 1) + torch.narrow(y, axis, 0, n - 1)) / 2.0
+    return torch.sum(dx * y_avg, dim=axis) * direction
+
+
+def _auc_compute(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
+    if reorder:
+        order = torch.argsort(x, stable=True)
+        x = x[order]
+        y = y[order]
+    dx = torch.diff(x)
+    direction = torch.where(torch.all(dx <= 0), -1.0, 1.0)
+    return _auc_compute_without_check(x, y, direction)
+
+
+def auc(x: Tensor, y: Tensor, reorder: bool = False) -> Tensor:
+    """Area under the curve by the trapezoidal rule."""
+    x = torch.as_tensor(x)
+    y = torch.as_tensor(y)
+    if x.ndim != 1 or y.ndim != 1:
+        raise ValueError(f"Expected 1-d x and y, got {x.ndim}-d and {y.ndim}-d")
+    if x.shape[0] != y.shape[0]:
+        raise ValueError("x and y must have the same length")
+    return _auc_compute(x, y, reorder=reorder)

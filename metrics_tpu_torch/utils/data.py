@@ -52,6 +52,16 @@ def to_onehot(label_tensor: Tensor, num_classes: int) -> Tensor:
     return torch.movedim(_one_hot(label_tensor, num_classes, dtype), -1, 1)
 
 
+def _bincount(x: Tensor, minlength: int) -> Tensor:
+    """Counts of each value in ``[0, minlength)``, as ``jnp.bincount(x, length=minlength)``
+    counts them: negative values count in bin 0 and values at or above
+    ``minlength`` are dropped (``torch.bincount`` raises on the one and grows
+    past ``minlength`` on the other). int32, as with x64 off."""
+    x = x.reshape(-1).to(torch.int64).clamp(min=0)
+    kept = torch.where(x < minlength, x, minlength)
+    return torch.bincount(kept, minlength=minlength + 1)[:minlength].to(torch.int32)
+
+
 def select_topk(prob_tensor: Tensor, topk: int = 1, dim: int = 1) -> Tensor:
     """int32 mask of the top-k entries along ``dim``."""
     if topk == 1:  # cheap argmax path

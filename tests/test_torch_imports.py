@@ -44,6 +44,19 @@ def test_sources_were_found():
     assert "metrics_tpu_torch/kernels/confmat.py" in SOURCES and len(SOURCES) > 20
 
 
+CURVE_MODULES = ["metrics_tpu_torch/kernels/binned_curve.py"] + [
+    f"metrics_tpu_torch/{pkg}/{name}.py"
+    for pkg in ("functional/classification", "classification")
+    for name in ("precision_recall_curve", "roc", "auroc", "average_precision", "specificity_at_sensitivity",
+                 "recall_at_fixed_precision")
+]
+
+
+@pytest.mark.parametrize("relpath", CURVE_MODULES)
+def test_curve_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
 @pytest.mark.parametrize("relpath", SOURCES)
 def test_no_jax_or_reference_package_import(relpath):
     assert forbidden_imports((ROOT / relpath).read_text()) == []
