@@ -28,9 +28,12 @@ checkout, and then:
   by kernel.
 - Phase A also holds each scatter kernel of the sketch plane (``hist_add``,
   ``hist_max``, ``cms_rows_add`` of ``csrc/scatter.cu``) against its plain
-  version: both branches (a shared-memory table, one above 48 KB of dynamic
-  shared memory, and global atomics), ragged and tiny N, N = 0, out-of-range
-  indices, zero weights, int32 extremes and Zipf-skewed keys.
+  version: every branch (a shared-memory table, one above 48 KB of dynamic
+  shared memory, hist_max's packed int16 table for tables beyond one block,
+  and global atomics),
+  ragged and tiny N, N = 0, out-of-range indices, zero weights, int32
+  extremes, Zipf-skewed keys, and inputs that are views at a storage offset
+  with N % 4 != 0 (idx and val at one offset and at two).
 - Phase E drives the sketch plane at the JAX classes' default sizes through
   the functional API and once through the stateful one: QuantileSketch
   (alpha 0.01, 2048 buckets), CardinalitySketch (p = 12 and 16) and the
@@ -48,9 +51,12 @@ checkout, and then:
   (``csrc/binned_curve.cu``) against its plain version: ``torch.equal`` on
   0/1 weights at N = 10^6 with T = 100, 200, 400 and 1024 and with 10
   columns, and on the edge cases of the CPU tests (NaN, +-inf, -0.0, scores
-  on a threshold, unsorted and duplicate thresholds, T = 1, T above one
-  block's 1024, N = 1, ragged N, N = 0 without a launch); float weights
-  within ``rtol=1e-5, atol=1e-3``, two launches on one input bit-identical.
+  on a threshold, unsorted, descending and duplicate thresholds, NaN and
+  +-inf thresholds, -0.0 against +0.0 scores, T = 1, T above one block's
+  1024, N = 1, ragged N, N = 0 without a launch, views at a storage offset),
+  on both sides of the crossover between the sorted-threshold and the
+  comparison route; float weights within ``rtol=1e-5, atol=1e-3``, two
+  launches on one input bit-identical.
 - Phase H drives the binned curves at full width: 8 updates of 10^6 scores
   at T = 200 through BinaryPrecisionRecallCurve, BinaryROC, BinaryAUROC
   (max_fpr None and 0.5) and BinaryAveragePrecision, functional API and
@@ -60,16 +66,18 @@ checkout, and then:
   and no reference dispatch. The int32 states are held against a CPU
   recomputation (the plain version) and the merge of two half-streams
   against the single stream; values against the CPU.
-- Phase I times the kernel at the Phase H shape and at T = 1024 (device time
-  under the profiler, call time, plain version, bound: the larger of the
+- Phase I times the kernel at the Phase H shape, at T = 1024 and at C = 10
+  (device time under the profiler, summed over every kernel one wrapper call
+  launches and divided by the calls, call time, plain version, bound: the larger of the
   bytes and the operations of the sorted-threshold route, O(N log T), the
   least work that computes the function; no single PyTorch call
   computes the function, so the three-call bucketize + bincount + cumsum
   route is timed beside it) and the five binary updates per batch.
 
 The second-to-last line of output is a JSON object with one record per
-kernel; the last is ``{"ok": true, "device": {...}}``. Any failure raises,
-and the script exits non-zero without those lines. Without a GPU it exits
+kernel (``shapes`` lists every shape a redesigned kernel was timed at); the
+last is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
+exits non-zero without those lines. Without a GPU it exits
 non-zero at once. It imports nothing of JAX.
 """
 
@@ -193,7 +201,7 @@ def _scatter_hist_cases():
         ("ddsketch_2048", "add", SKETCH_BATCH, 2048, (-3, 2051), "01"),  # Phase E's quantile shape, shared
         ("hll_p12", "max", SKETCH_BATCH, 2**12, (0, 2**12), "rank"),  # Phase E's p = 12, shared
         ("hll_p14_ragged", "max", 2**20 + 7, 2**14, (0, 2**14), "rank"),  # 64 KB: dynamic shared memory
-        ("hll_p16", "max", SKETCH_BATCH, 2**16, (0, 2**16), "rank"),  # 256 KB: global atomics
+        ("hll_p16", "max", SKETCH_BATCH, 2**16, (0, 2**16), "rank"),  # 256 KB: the packed branch
         ("add_ragged_global", "add", 4097, 2**16, (-5, 2**16 + 5), "01"),
         ("add_ragged_dynamic_shared", "add", 65537, 2**14, (-5, 2**14 + 5), "signed"),
         ("add_tiny", "add", 5, 2048, (0, 2048), "01"),
@@ -206,6 +214,23 @@ def _scatter_hist_cases():
         ("add_signed_wraparound", "add", 2**20, 64, (0, 64), "signed"),
         ("add_zipf_shared", "add", SKETCH_BATCH, 2048, "zipf", "01"),
         ("max_zipf_global", "max", SKETCH_BATCH, 2**16, "zipf", "rank"),
+        # views with a storage offset on the global branch, N % 4 != 0: idx and val at one
+        # offset (16-byte loads after a scalar head) and at two (single loads)
+        ("max_global_view_offset_1_1", "max", 2**20 + 3, 2**16, (-3, 2**16 + 3), "rank", (1, 1)),
+        ("max_global_view_offset_1_2", "max", 2**20 + 5, 2**16, (0, 2**16), "extremes", (1, 2)),
+        ("add_global_view_offset_3_3", "add", 2**20 + 1, 2**16, (-3, 2**16 + 3), "signed", (3, 3)),
+        ("add_global_view_offset_0_1", "add", 2**20 + 2, 2**16, (0, 2**16), "01", (0, 1)),
+        ("max_global_view_offset_tiny", "max", 3, 2**16, (0, 2**16), "rank", (2, 2)),
+        ("max_global_view_offset_small_1_1", "max", 40003, 2**16, (-3, 2**16 + 3), "rank", (1, 1)),
+        ("add_global_view_offset_small_1_2", "add", 40005, 2**16, (-3, 2**16 + 3), "signed", (1, 2)),
+        # 2^17 slots, beyond one block's shared memory and hist_max's packed table: global atomics
+        ("max_global_2p17_extremes", "max", 2**20 + 7, 2**17, (-5, 2**17 + 5), "extremes"),
+        ("add_global_2p17_zipf", "add", 2**20, 2**17, "zipf", "signed"),
+        # packed int16 slots of hist_max: values past int16 go straight to the output
+        ("max_packed_extremes", "max", 2**20 + 1, 2**16, (-5, 2**16 + 5), "extremes"),
+        # 2^19 slots, beyond 8 blocks' shared memory: global atomics
+        ("max_global_2p19", "max", 2**20 + 1, 2**19, (-5, 2**19 + 5), "rank"),
+        ("add_global_2p19", "add", 2**20 + 3, 2**19, (-5, 2**19 + 5), "signed"),
     ]
 
 
@@ -239,13 +264,16 @@ def phase_a_scatter(torch, scatter) -> dict:
         print(f"phase A {name}: kernel={kernel} N={n} table={tuple(table.shape)} branch={branch} "
               f"equal=True max_abs_err={err}")
 
-    for name, op, n, n_bins, index, values in _scatter_hist_cases():
+    for name, op, n, n_bins, index, values, *offsets in _scatter_hist_cases():
         kernel = f"hist_{op}"
+        off_i, off_v = offsets[0] if offsets else (0, 0)
         if index == "zipf":
-            idx = _zipf(torch, n, gen, n_ids=n_bins)
+            idx = _zipf(torch, n + off_i, gen, n_ids=n_bins)[off_i:]
         else:
-            idx = torch.randint(index[0], index[1], (n,), generator=gen, device="cuda", dtype=torch.int32)
-        vals = _scatter_values(torch, values, n, gen)
+            idx = torch.randint(index[0], index[1], (n + off_i,), generator=gen, device="cuda", dtype=torch.int32)
+            idx = idx[off_i:]
+        vals = _scatter_values(torch, values, n + off_v, gen)[off_v:]
+        _check(idx.storage_offset() == off_i and vals.storage_offset() == off_v, f"{name}: views")
         if name == "add_signed_wraparound":
             bins = torch.full((n_bins,), INT32_MAX - 2, dtype=torch.int32, device="cuda")
         elif op == "add":
@@ -259,7 +287,9 @@ def phase_a_scatter(torch, scatter) -> dict:
                           else (scatter.hist_max_cuda, scatter.hist_max_reference))
         got = wrapper(bins, idx, vals)
         want = plain(bins, idx, vals)
-        branch = "shared" if scatter.uses_shared_branch(n_bins) else "global"
+        branch = scatter.hist_branch(kernel, n, n_bins)
+        if off_i or off_v:
+            branch += f" (views at storage offsets {off_i}, {off_v})"
         held(kernel, name, got, want, before, bins, n, branch, launched)
 
     for name, n, depth, width, columns in _cms_cases():
@@ -408,6 +438,29 @@ def phase_c_kernel(torch, confmat, n, rows, cols):
            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
     print(f"phase C pair_count {json.dumps(rec)}")
     return rec
+
+
+def _per_call_ms(kernels: dict):
+    """Device ms of one wrapper call from ``{kernel name: [µs of each recorded
+    launch]}``: every kernel a call launches runs once per call, and the
+    profiler may miss the first launches of a window, so each kernel counts
+    its mean over the launches it recorded."""
+    return sum(sum(v) / len(v) for v in kernels.values()) / 1e3 if kernels else None
+
+
+def _call_kernels(torch, run, match: str, per_call: int, calls: int = 20, tries: int = 3) -> dict:
+    """``{kernel name: [µs of each recorded launch]}`` of the ``per_call`` kernels
+    (names holding ``match``) that one call of ``run`` launches, over ``calls``
+    calls under the profiler. The profiler sometimes records few or none of a
+    window's launches, so a window that lacks a kernel or holds fewer than half
+    of its launches is profiled again, up to ``tries`` times; ``{}`` (not
+    measured) if none is whole."""
+    for _ in range(tries):
+        kernels, _ = _profile_steps(torch, run, calls)
+        mine = {name: v for name, v in kernels.items() if match in name}
+        if len(mine) == per_call and all(2 * len(v) >= calls for v in mine.values()):
+            return mine
+    return {}
 
 
 def _kernel_times(prof, torch):
@@ -685,9 +738,7 @@ def _kernel_record(torch, kernel: str, run, plain, library, nbytes: int, ops: in
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-    kernels, _ = _profile_steps(torch, run, 20)
-    times = [us for name, v in kernels.items() if f"{kernel}_" in name for us in v]
-    device_ms = sum(times) / len(times) / 1e3 if times else None
+    device_ms = _per_call_ms(_call_kernels(torch, run, f"{kernel}_", 1))
     rec = {**extra, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
     print(f"phase F {kernel} {json.dumps(rec)}")
@@ -710,7 +761,8 @@ def phase_f(torch, scatter, data) -> dict:
     recs["hist_add"] = _kernel_record(
         torch, "hist_add", lambda: scatter.hist_add_cuda(bins, idx, w), lambda: scatter.hist_add_reference(bins, idx, w),
         lambda: lib_bins.index_add_(0, idx, w), 8 * n + 8 * 2048, 3 * n,
-        {"shape": f"N={n}, 2048 bins (the quantile sketch's positive store)"})
+        {"shape": f"N={n}, 2048 bins (the quantile sketch's positive store)",
+         "branch": scatter.hist_branch("hist_add", n, 2048)})
 
     for p in (12, 16):
         reg_idx, rank = sk.hll_registers(ids0, p=p)
@@ -720,7 +772,8 @@ def phase_f(torch, scatter, data) -> dict:
             torch, "hist_max", lambda: scatter.hist_max_cuda(regs, reg_idx, rank),
             lambda: scatter.hist_max_reference(regs, reg_idx, rank),
             lambda: lib_regs.scatter_reduce_(0, reg_idx64, rank, "amax", include_self=True),
-            8 * n + 8 * (1 << p), 3 * n, {"shape": f"N={n}, 2^{p} registers"})
+            8 * n + 8 * (1 << p), 3 * n,
+            {"shape": f"N={n}, 2^{p} registers", "branch": scatter.hist_branch("hist_max", n, 1 << p)})
 
     cols = sk._cm_columns(ids0, 4, 2048)
     valid = ids0 >= 0
@@ -762,13 +815,28 @@ def phase_f(torch, scatter, data) -> dict:
     return recs
 
 
-def _curve_inputs(torch, gen, shape, thr, weights: str, per_row: bool = False):
+def _at_offset(torch, x, offset: int):
+    """``x`` as a contiguous view ``offset`` elements into a larger buffer (a storage offset)."""
+    if not offset:
+        return x
+    buf = torch.full((x.numel() + offset,), 7.0, device=x.device, dtype=x.dtype)
+    view = buf[offset:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _curve_inputs(torch, gen, shape, thr, weights: str, per_row: bool = False, offset: int = 0,
+                  zeros: bool = False):
     """(p, tw, w) on the card: uniform scores with the edge values and ties on
-    ``thr`` mixed in; 0/1 or float weights, per element or per row."""
+    ``thr`` mixed in (or, with ``zeros``, only -0.0, +0.0 and +-1e-30); 0/1 or
+    float weights, per element or per row; views at a storage offset if asked."""
     p = torch.rand(shape, generator=gen, device="cuda")
     flat = p.view(-1)
     n = flat.numel()
-    if n >= 16:
+    if zeros:
+        choices = torch.tensor([-0.0, 0.0, 1e-30, -1e-30], device="cuda")
+        flat.copy_(choices[torch.randint(0, 4, (n,), generator=gen, device="cuda")])
+    elif n >= 16:
         flat[:6] = torch.tensor([math.nan, math.inf, -math.inf, -0.0, 0.0, 1.0], device="cuda")
         k = max(1, n // 100)
         at = torch.randint(0, n, (k,), generator=gen, device="cuda")
@@ -779,11 +847,23 @@ def _curve_inputs(torch, gen, shape, thr, weights: str, per_row: bool = False):
     else:
         w = torch.randint(0, 2, w_shape, generator=gen, device="cuda").to(torch.float32)
     y = torch.randint(0, 2, shape, generator=gen, device="cuda").to(torch.float32)
-    return p, y * (w[:, None] if per_row and len(shape) == 2 else w), w
+    tw = y * (w[:, None] if per_row and len(shape) == 2 else w)
+    return tuple(_at_offset(torch, x, offset) for x in (p, tw, w))
 
 
-def _curve_cases():
-    """(name, N, C, T, thresholds, per-row w) of the Phase G cases."""
+def _sorted_route_max_thresholds(bc, n_cols: int) -> int:
+    """The largest T that takes the kernel's sorted-threshold route for ``n_cols`` columns."""
+    lo, hi = 0, 2**20
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if bc.uses_sorted_route(n_cols, mid) else (lo, mid - 1)
+    return lo
+
+
+def _curve_cases(bc):
+    """(name, N, C, T, thresholds, per-row w[, storage offset]) of the Phase G cases,
+    with both sides of the route crossover (``uses_sorted_route``) at C = 1 and 16."""
+    edge1, edge16 = _sorted_route_max_thresholds(bc, 1), _sorted_route_max_thresholds(bc, 16)
     return [
         ("main_T100", CURVE_N, 1, 100, "linspace", False),
         ("main_T200", CURVE_N, 1, 200, "linspace", False),  # the main path's shape
@@ -793,11 +873,27 @@ def _curve_cases():
         ("multilabel_C10", CURVE_N, CURVE_COLS, 200, "linspace", False),
         ("T1", 5003, 1, 1, "linspace", False),
         ("T1500_two_chunks", 4097, 3, 1500, "unsorted", False),
+        ("compare_T1500_two_chunks_C16", 4097, 16, 1500, "unsorted", False),
         ("unsorted_duplicates", 65537, 1, 37, "unsorted", False),
         ("N1", 1, 1, 5, "linspace", False),
         ("N1_C10", 1, CURVE_COLS, 7, "linspace", True),
         ("ragged", 1025, 2, 33, "linspace", False),
         ("empty", 0, 1, 10, "linspace", False),
+        ("nan_inf_thresholds", 65537, 1, 40, "specials", False),
+        ("nan_inf_thresholds_C10", 30011, CURVE_COLS, 40, "specials", True),
+        ("all_nan_thresholds", 4099, 2, 3, "nan", False),
+        ("signed_zero_scores", 65536, 1, 9, "zeros", False),
+        ("descending", 65537, 1, 200, "descending", False),
+        ("descending_C10", 20000, CURVE_COLS, 64, "descending", False),
+        (f"sorted_edge_T{edge1}", 65537, 1, edge1, "specials", False),
+        (f"compare_edge_T{edge1 + 1}", 65537, 1, edge1 + 1, "specials", False),
+        (f"sorted_edge_C16_T{edge16}", 20001, 16, edge16, "unsorted", True),
+        (f"compare_edge_C16_T{edge16 + 1}", 20001, 16, edge16 + 1, "unsorted", True),
+        ("unsorted_T1024_in_block_sort", 65537, 1, 1024, "unsorted", False),
+        ("C3_two_phases", 30001, 3, 50, "specials", False),
+        ("C33_two_columns_per_warp", 20001, 33, 100, "unsorted", True),
+        ("view_offset_main", CURVE_N, 1, CURVE_T, "linspace", False, 1),
+        ("view_offset_C10", 99991, CURVE_COLS, 50, "unsorted", True, 3),
     ]
 
 
@@ -806,7 +902,16 @@ def _curve_thresholds(torch, kind: str, t: int, gen):
 
     if kind == "linspace":
         return _adjust_threshold_arg(t, torch.device("cuda"))
+    if kind == "nan":
+        return torch.full((t,), math.nan, device="cuda")
+    if kind == "zeros":  # -0.0 and +0.0, and their neighbours
+        return torch.tensor([0.0, -0.0, 1e-30, -1e-30, -0.0, 0.0, 1e-31, -math.inf, math.inf], device="cuda")[:t]
     thr = torch.rand(t, generator=gen, device="cuda")
+    if kind == "descending":
+        return torch.sort(thr, descending=True).values
+    if kind == "specials":  # NaN, +-inf, -0.0 beside +0.0 and a duplicate, at random places
+        at = torch.randperm(t, generator=gen, device="cuda")[:6]
+        thr[at] = torch.tensor([math.nan, math.inf, -math.inf, -0.0, 0.0, math.nan], device="cuda")[:at.numel()]
     if t > 2:
         thr[1] = thr[0]
     return thr
@@ -816,9 +921,16 @@ def phase_g(torch, bc) -> dict:
     """Every threshold-count case: kernel vs plain version on the same CUDA inputs."""
     gen = torch.Generator(device="cuda").manual_seed(77)
     worst = 0.0
-    for name, n, c, t, kind, per_row in _curve_cases():
+    for name, n, c, t, kind, per_row, *offset in _curve_cases(bc):
+        route = "sorted" if bc.uses_sorted_route(c, t) else "compare"
+        if name.startswith(("sorted_", "compare_")):
+            _check(name.startswith(route), f"{name}: takes the {route} route")
         thr = _curve_thresholds(torch, kind, t, gen)
-        p, tw, w = _curve_inputs(torch, gen, (n,) if c == 1 else (n, c), thr, "01", per_row)
+        p, tw, w = _curve_inputs(torch, gen, (n,) if c == 1 else (n, c), thr, "01", per_row,
+                                 offset=offset[0] if offset else 0, zeros=kind == "zeros")
+        if offset:
+            thr = _at_offset(torch, thr, offset[0])
+            _check(all(x.storage_offset() == offset[0] and x.is_contiguous() for x in (p, tw, w, thr)), name)
         before = bc.launches
         got = bc.binned_curve_counts_cuda(p, tw, w, thr)
         torch.cuda.synchronize()
@@ -829,11 +941,14 @@ def phase_g(torch, bc) -> dict:
             _check(torch.equal(g, wnt), f"{name} {what}: kernel differs from reference_counts")
         err = max(float((g - wnt).abs().max()) if g.numel() else 0.0 for g, wnt in zip(got, want))
         worst = max(worst, err)
-        print(f"phase G {name}: N={n} C={c} T={t} thresholds={kind} w={'per row' if per_row else 'per element'} "
+        print(f"phase G {name}: N={n} C={c} T={t} route={route} thresholds={kind} "
+              f"w={'per row' if per_row else 'per element'} offset={offset[0] if offset else 0} "
               f"equal=True max_abs_err={err} launches={bc.launches - before} tp[0]={got[0].reshape(-1)[0].item() if n else 0}")
+    _check(not bc.uses_sorted_route(16, 1500), "float_compare_route: takes the compare route")
 
     float_err = 0.0
-    for name, n, c, t in (("float_main", CURVE_N, 1, CURVE_T), ("float_C10", CURVE_N, CURVE_COLS, CURVE_T)):
+    for name, n, c, t in (("float_main", CURVE_N, 1, CURVE_T), ("float_C10", CURVE_N, CURVE_COLS, CURVE_T),
+                          ("float_compare_route", 65537, 16, 1500)):
         thr = _curve_thresholds(torch, "linspace", t, gen)
         p, tw, w = _curve_inputs(torch, gen, (n,) if c == 1 else (n, c), thr, "float")
         first = bc.binned_curve_counts_cuda(p, tw, w, thr)
@@ -1000,11 +1115,14 @@ def phase_i(torch, bc, data) -> dict:
     for t, c in ((CURVE_T, 1), (1024, 1), (CURVE_T, CURVE_COLS)):
         n = CURVE_N
         thr = _curve_thresholds(torch, "linspace", t, gen)
-        p, tw, w = _curve_inputs(torch, gen, (n,) if c == 1 else (n, c), thr, "01", per_row=c > 1)
+        per_row = c > 1
+        p, tw, w = _curve_inputs(torch, gen, (n,) if c == 1 else (n, c), thr, "01", per_row=per_row)
         iters = 50
         ms = _time_ms(lambda: bc.binned_curve_counts_cuda(p, tw, w, thr), iters)
         plain_ms = _time_ms(lambda: bc.reference_counts(p, tw, w, thr), 5, warmup=1)
-        nbytes = 12 * n * c + 8 * t * c  # p, tw, w read once (w counted per element); tp, fp written once
+        # p and tw read once, w once at its own shape (one weight per row for C > 1), thr once;
+        # tp and fp written once
+        nbytes = 8 * n * c + 4 * (n if per_row else n * c) + 4 * t + 8 * t * c
         # The least work that computes the function is the sorted-threshold route: sort the thresholds,
         # per sample a binary search and five flops (w·tw, w·w, a subtraction, two histogram adds),
         # then a suffix sum of both histograms.
@@ -1012,13 +1130,15 @@ def phase_i(torch, bc, data) -> dict:
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
         bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-        kernels, _ = _profile_steps(torch, lambda: bc.binned_curve_counts_cuda(p, tw, w, thr), 20)
-        parts = [us for name, v in kernels.items() if "binned_curve_partials" in name for us in v]
-        sums = [us for name, v in kernels.items() if "binned_curve_sum" in name for us in v]
-        device_ms = (sum(parts) + sum(sums)) / len(parts) / 1e3 if parts else None
-        rec = {"shape": f"N={n}, C={c}, T={t}", "ms": ms, "device_ms": device_ms,
-               "partials_device_ms": sum(parts) / len(parts) / 1e3 if parts else None,
-               "sum_device_ms": sum(sums) / len(sums) / 1e3 if sums else None,
+        calls = 20
+        # both routes launch two kernels a call
+        mine = _call_kernels(torch, lambda: bc.binned_curve_counts_cuda(p, tw, w, thr), "binned_curve_", 2, calls)
+        device_ms = _per_call_ms(mine)
+        rec = {"shape": f"N={n}, C={c}, T={t}", "route": "sorted" if bc.uses_sorted_route(c, t) else "compare",
+               "ms": ms, "device_ms": device_ms,
+               "device_ms_by_kernel": {
+                   name[:60]: {"launches_recorded": len(v), "calls": calls, "ms_per_launch": sum(v) / len(v) / 1e3}
+                   for name, v in mine.items()},
                "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by,
                "bytes": nbytes, "ops": ops}
         if c == 1:  # the three-call route, for sorted thresholds and 0/1 weights
@@ -1120,8 +1240,12 @@ def main() -> int:
         "max_abs_err": max_abs_err,
         **{k: main_shape[k] for k in fields},
     }]
-    for kernel, rec in (("hist_add", sketch_recs["hist_add"]), ("hist_max", sketch_recs["hist_max_p12"]),
-                        ("cms_rows_add", sketch_recs["cms_rows_add"])):
+    shape_fields = ("shape", *fields)
+    for kernel, rec, shapes in (
+        ("hist_add", sketch_recs["hist_add"], ()),
+        ("hist_max", sketch_recs["hist_max_p12"], (sketch_recs["hist_max_p12"], sketch_recs["hist_max_p16"])),
+        ("cms_rows_add", sketch_recs["cms_rows_add"], ()),
+    ):
         kernels.append({
             "name": kernel,
             "route": "cuda",
@@ -1130,6 +1254,7 @@ def main() -> int:
             "launches": sketch_launches[kernel],
             "max_abs_err": scatter_err[kernel],
             **{k: rec[k] for k in fields},
+            **({"shapes": [{k: r[k] for k in shape_fields} for r in shapes]} if shapes else {}),
         })
     main_curve = curve_recs[f"T{CURVE_T}_C1"]
     kernels.append({
@@ -1140,6 +1265,8 @@ def main() -> int:
         "launches": curve_launches,
         "max_abs_err": curve_err["max_abs_err"],
         **{k: main_curve[k] for k in fields},
+        "shapes": [{k: curve_recs[key][k] for k in shape_fields}
+                   for key in (f"T{CURVE_T}_C1", "T1024_C1", f"T{CURVE_T}_C{CURVE_COLS}")],
     })
     print(json.dumps({"step": steps, "card": card}))
     print(card)

@@ -22,23 +22,43 @@
 // What bounds it: memory. Per sample the work is one range test and one
 // atomic against 8 bytes read (an int32 index and an int32 value; for the
 // count-min table depth int32 columns and one uint8 flag), plus the table
-// read and written once. What the design does about it:
-//   - small tables (B * 4 bytes fit in a block's shared memory, up to the
-//     opt-in maximum of 227 KB): each block keeps a private table in shared
-//     memory, starting at the op's identity (0 for add, INT32_MIN for max),
-//     so the per-sample atomics never leave the SM; at the end the block
-//     folds only the bins it changed into the output with one global atomic
-//     each. Above 48 KB (HyperLogLog p = 14, 64 KB) this needs dynamic shared
-//     memory opted in with cudaFuncSetAttribute.
-//   - large tables (HyperLogLog p = 16, 256 KB; a 4 x 65536 count-min table):
-//     atomics go straight to the output, which sits in the 50 MB L2.
-//   - add skips zero weights (the DDSketch stores get weight 0 for every
-//     value of the other sign), and max skips a value that is not above what
-//     the slot already holds: slots only grow, so a stale read can only make
-//     the test pass, never skip a value that would have changed the slot.
-// Left for later: warp-aggregated atomics for skewed (Zipf) keys, 16-byte
-// loads, and more loads in flight per thread for the low-occupancy p = 14
-// shared table.
+// read and written once. But a scattered atomic or read of device memory
+// costs the L2 far more than its 4 bytes: the first global branch for tables
+// beyond shared memory (HyperLogLog p = 16) ran at 4.6x the byte bound. What
+// the design does about it, by branch of hist_add / hist_max:
+//   - shared (B * 4 bytes fit a block's shared memory, up to the opt-in 227
+//     KB): each block keeps a private table in shared memory, starting at the
+//     op's identity (0 for add, INT32_MIN for max), so the per-sample atomics
+//     never leave the SM; at the end the block folds the slots it changed into
+//     the output with one atomic each, lanes on consecutive slots. Above 48 KB
+//     (HyperLogLog p = 14, 64 KB) this needs dynamic shared memory opted in
+//     with cudaFuncSetAttribute.
+//   - packed (hist_max, B up to twice the int32 slots of a block, N >= B:
+//     HyperLogLog p = 16): the same with int16 slots, two to a 32-bit word,
+//     raised by a compare-and-swap loop that stops as soon as the slot is not
+//     below the value; values outside [-32767, 32767] go straight to the
+//     output. One block of 1024 threads per SM.
+//   - global (any other table, or N < B): atomics go straight to the output,
+//     which sits in the 50 MB L2, one sample per thread per pass; lanes of a
+//     warp with the same slot first fold their values together
+//     (__match_any_sync, the lowest lane goes on), which cuts the atomics on
+//     the hot slots of Zipf-skewed keys; max skips a value that is not above
+//     what the slot holds: slots only grow, so a stale read can only make the
+//     test pass, never skip a value that would have changed the slot.
+// Every branch with a table in shared memory loads its samples 16 bytes at a
+// time (idx and val at one offset from a 16-byte boundary; a scalar head up
+// to the boundary for a view with a storage offset and a scalar tail for
+// N % 4), two such loads in flight per thread, or 4 single loads a grid stride
+// apart when idx and val sit at different offsets. A block's private table
+// costs its zeroing and its fold at the end, one atomic per slot it changed:
+// at p = 16 and 2^22 samples that fold is a large share of the time, which is
+// why the packed branch takes one block per SM. Taking more
+// samples per thread in the global branch (16-byte loads, every slot read
+// before any atomic) made it slower, not faster: more reads of a slot before
+// its atomic lands mean more stale reads and more atomics on hot slots.
+// Left for later: warp-aggregated atomics for skewed (Zipf) keys in the
+// shared branches and in cms_rows_add, and the same batched loads for
+// cms_rows_add.
 //
 // Interface: plain C functions, loaded with ctypes (no PyTorch headers). Each
 // launches on the given stream, does not synchronise, allocates nothing, and
@@ -51,8 +71,10 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBigThreads = 1024;  // packed branch: one block fills an SM
 // Cap on resident blocks per SM for the global-atomic grid-stride loops.
 constexpr int kGlobalBlocksPerSm = 8;
+constexpr uint32_t kPackedEmpty = 0x80008000u;  // two int16 slots at -32768: not changed
 
 enum Op { kAdd = 0, kMax = 1 };
 
@@ -72,6 +94,59 @@ __device__ __forceinline__ void fold(int32_t* slot, int32_t v) {
   }
 }
 
+// Calls fn(idx[k], val[k]) for this thread's grid-stride share of the
+// samples, with a sample index of -1 for the padding of a short pass. When idx
+// and val sit at one offset from a 16-byte boundary the samples come 4 to a
+// load, two loads of each in flight; the up to 3 samples before the boundary
+// and the N % 4 after the last vector are taken one by one by the first
+// threads. Otherwise each thread loads 4 single samples a grid stride apart.
+template <typename Fn>
+__device__ __forceinline__ void for_each_sample(const int32_t* __restrict__ idx, const int32_t* __restrict__ val,
+                                                long long n, Fn&& fn) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(idx);
+  if (((at ^ reinterpret_cast<uintptr_t>(val)) & 15) == 0) {
+    const long long head = min(n, (long long)(((16 - (at & 15)) & 15) / sizeof(int32_t)));
+    const long long n_vec = (n - head) / 4;
+    const int4* idx4 = reinterpret_cast<const int4*>(idx + head);
+    const int4* val4 = reinterpret_cast<const int4*>(val + head);
+    for (long long k = tid; k < n_vec; k += 2 * stride) {
+      const bool two = k + stride < n_vec;
+      const int4 b0 = __ldg(idx4 + k);
+      const int4 v0 = __ldg(val4 + k);
+      const int4 b1 = two ? __ldg(idx4 + k + stride) : make_int4(-1, -1, -1, -1);
+      const int4 v1 = two ? __ldg(val4 + k + stride) : make_int4(0, 0, 0, 0);
+      fn(b0.x, v0.x);
+      fn(b0.y, v0.y);
+      fn(b0.z, v0.z);
+      fn(b0.w, v0.w);
+      fn(b1.x, v1.x);
+      fn(b1.y, v1.y);
+      fn(b1.z, v1.z);
+      fn(b1.w, v1.w);
+    }
+    const long long tail = head + n_vec * 4;  // samples [0, head) and [tail, n) one by one
+    if (tid < head + (n - tail)) {
+      const long long k = tid < head ? tid : tail + (tid - head);
+      fn(idx[k], val[k]);
+    }
+  } else {
+    for (long long k = tid; k < n; k += 4 * stride) {
+      int b[4];
+      int32_t v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const long long j = k + u * stride;
+        b[u] = j < n ? __ldg(idx + j) : -1;
+        v[u] = j < n ? __ldg(val + j) : 0;
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) fn(b[u], v[u]);
+    }
+  }
+}
+
 template <int kOp>
 __device__ __forceinline__ void hist_shared(const int32_t* __restrict__ idx, const int32_t* __restrict__ val,
                                             long long n, int n_bins, int32_t* __restrict__ out) {
@@ -79,11 +154,9 @@ __device__ __forceinline__ void hist_shared(const int32_t* __restrict__ idx, con
   for (int i = threadIdx.x; i < n_bins; i += blockDim.x) table[i] = identity<kOp>();
   __syncthreads();
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += stride) {
-    const int b = idx[k];
-    if ((unsigned)b < (unsigned)n_bins) fold<kOp>(&table[b], val[k]);
-  }
+  for_each_sample(idx, val, n, [&](int b, int32_t v) {
+    if ((unsigned)b < (unsigned)n_bins) fold<kOp>(&table[b], v);
+  });
   __syncthreads();
 
   for (int i = threadIdx.x; i < n_bins; i += blockDim.x) {
@@ -95,10 +168,65 @@ __device__ __forceinline__ void hist_shared(const int32_t* __restrict__ idx, con
 template <int kOp>
 __device__ __forceinline__ void hist_global(const int32_t* __restrict__ idx, const int32_t* __restrict__ val,
                                             long long n, int n_bins, int32_t* __restrict__ out) {
+  __shared__ int32_t stage[kThreads];
+  const int lane = threadIdx.x % 32;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += stride) {
     const int b = idx[k];
-    if ((unsigned)b < (unsigned)n_bins) fold<kOp>(&out[b], val[k]);
+    const int32_t v = val[k];
+    const bool in = (unsigned)b < (unsigned)n_bins;
+    // lanes with the same slot: the lowest folds their values together and goes on
+    const unsigned active = __activemask();
+    const unsigned peers = __match_any_sync(active, in ? b : -1 - lane);
+    stage[threadIdx.x] = v;
+    __syncwarp(active);
+    if (in && lane == __ffs(peers) - 1) {
+      int32_t w = v;
+      for (unsigned rest = peers & (peers - 1); rest; rest &= rest - 1) {
+        const int32_t x = stage[threadIdx.x - lane + __ffs(rest) - 1];
+        w = kOp == kAdd ? w + x : max(w, x);
+      }
+      fold<kOp>(&out[b], w);
+    }
+    __syncwarp(active);
+  }
+}
+
+// hist_max into int16 slots, two to a 32-bit word of shared memory; -32768
+// marks a slot the block did not change. The compare-and-swap loop stops as
+// soon as the slot is not below v.
+__device__ __forceinline__ void max_packed(uint32_t* words, int b, int32_t v) {
+  uint32_t* word = words + (b >> 1);
+  const int shift = (b & 1) * 16;
+  uint32_t old = *word;
+  while ((int32_t)(int16_t)(old >> shift) < v) {
+    const uint32_t want = (old & ~(0xffffu << shift)) | ((uint32_t)(v & 0xffff) << shift);
+    const uint32_t seen = atomicCAS(word, old, want);
+    if (seen == old) return;
+    old = seen;
+  }
+}
+
+__global__ void __launch_bounds__(kBigThreads)
+hist_max_packed_kernel(const int32_t* __restrict__ idx, const int32_t* __restrict__ val, long long n, int n_bins,
+                       int32_t* __restrict__ out) {
+  extern __shared__ uint32_t words[];  // (n_bins + 1) / 2
+  for (int i = threadIdx.x; i < (n_bins + 1) / 2; i += blockDim.x) words[i] = kPackedEmpty;
+  __syncthreads();
+
+  for_each_sample(idx, val, n, [&](int b, int32_t v) {
+    if ((unsigned)b >= (unsigned)n_bins) return;
+    if (v > -32768 && v <= 32767) {
+      max_packed(words, b, v);
+    } else {
+      fold<kMax>(&out[b], v);
+    }
+  });
+  __syncthreads();
+
+  for (int i = threadIdx.x; i < n_bins; i += blockDim.x) {
+    const int32_t v = (int16_t)(words[i >> 1] >> ((i & 1) * 16));
+    if (v != -32768) atomicMax(&out[i], v);
   }
 }
 
@@ -216,17 +344,63 @@ cudaError_t plan(const void* kernel, bool shared, long long samples, long long c
 
 typedef void (*HistKernel)(const int32_t*, const int32_t*, long long, int, int32_t*);
 
-int hist_launch(HistKernel shared_kernel, HistKernel global_kernel, const void* idx, const void* val,
-                long long n, int n_bins, void* out, void* stream) {
+// The int32 slots a block's shared memory holds on the current device, or a
+// negative CUDA error code.
+long long block_slots() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return -(long long)err;
+  int smem_optin = 0;
+  err = cudaDeviceGetAttribute(&smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return -(long long)err;
+  return smem_optin / (long long)sizeof(int32_t);
+}
+
+// The branch of hist_add (op 0) or hist_max (op 1) for n samples into n_bins
+// slots: 0 global, 1 shared, 2 packed; a negative CUDA error code when the
+// device cannot be queried. The packed branch keeps a table beyond one
+// block's shared memory, so it takes N >= B, which keeps the table's fold at
+// the end small against the stream.
+int hist_branch(long long n, long long n_bins, int op) {
   const int shared = uses_shared(n_bins);
-  if (shared < 0) return -shared;
-  HistKernel kernel = shared ? shared_kernel : global_kernel;
+  if (shared != 0) return shared;
+  if (op != kMax || n < n_bins) return 0;
+  const long long slots = block_slots();
+  if (slots < 0) return (int)slots;
+  return n_bins <= 2 * slots ? 2 : 0;
+}
+
+cudaError_t sm_count(int* sms) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+}
+
+int hist_launch(int op, HistKernel shared_kernel, HistKernel global_kernel, const void* idx, const void* val,
+                long long n, int n_bins, void* out, void* stream) {
+  const int branch = hist_branch(n, n_bins, op);
+  if (branch < 0) return -branch;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int32_t* i = static_cast<const int32_t*>(idx);
+  const int32_t* v = static_cast<const int32_t*>(val);
+  int32_t* o = static_cast<int32_t*>(out);
+  int sms = 0;
+  cudaError_t err = sm_count(&sms);
+  if (err != cudaSuccess) return (int)err;
+  if (branch == 2) {  // one block per SM
+    const size_t smem = (size_t)(n_bins + 1) / 2 * sizeof(uint32_t);
+    err = cudaFuncSetAttribute(hist_max_packed_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    hist_max_packed_kernel<<<(unsigned)sms, kBigThreads, smem, s>>>(i, v, n, n_bins, o);
+    return (int)cudaGetLastError();
+  }
+  HistKernel kernel = branch == 1 ? shared_kernel : global_kernel;
   unsigned grid = 0;
   size_t smem = 0;
-  cudaError_t err = plan((const void*)kernel, shared, n, n_bins, &grid, &smem);
+  err = plan((const void*)kernel, branch == 1, n, n_bins, &grid, &smem);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(idx), static_cast<const int32_t*>(val), n, n_bins, static_cast<int32_t*>(out));
+  kernel<<<grid, kThreads, smem, s>>>(i, v, n, n_bins, o);
   return (int)cudaGetLastError();
 }
 
@@ -236,14 +410,18 @@ extern "C" {
 
 int scatter_uses_shared(long long cells) { return uses_shared(cells); }
 
+// The branch hist_add (op 0) or hist_max (op 1) takes for n samples into
+// n_bins slots: 0 global, 1 shared, 2 packed; a negative CUDA error code.
+int scatter_hist_branch(long long n, long long n_bins, int op) { return hist_branch(n, n_bins, op); }
+
 // idx, val: n int32 on the device; out: n_bins int32, a copy of bins; stream:
 // a cudaStream_t. The caller guarantees 1 <= n < 2^31 and 1 <= n_bins < 2^31.
 int hist_add_launch(const void* idx, const void* val, long long n, int n_bins, void* out, void* stream) {
-  return hist_launch(hist_add_shared_kernel, hist_add_global_kernel, idx, val, n, n_bins, out, stream);
+  return hist_launch(kAdd, hist_add_shared_kernel, hist_add_global_kernel, idx, val, n, n_bins, out, stream);
 }
 
 int hist_max_launch(const void* idx, const void* val, long long n, int n_bins, void* out, void* stream) {
-  return hist_launch(hist_max_shared_kernel, hist_max_global_kernel, idx, val, n, n_bins, out, stream);
+  return hist_launch(kMax, hist_max_shared_kernel, hist_max_global_kernel, idx, val, n, n_bins, out, stream);
 }
 
 // cols: n * depth int32 (row-major (n, depth)); valid: n uint8; out: depth *

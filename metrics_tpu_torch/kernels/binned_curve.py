@@ -16,8 +16,15 @@ the JAX package builds a ``(T, M, C)`` comparison on accelerators.
 - ``reference_counts``: the plain version, the comparison form
   ``((p >= thr) * w) @ tw`` in float32, cut into row chunks so that the
   comparison block stays small. Serves CPU tensors.
+- ``sorted_route_counts``: the same function by the CUDA kernel's
+  sorted-threshold route (sort the thresholds, bucket each score by a binary
+  search, a per-column histogram, a suffix sum), in plain PyTorch: the CPU
+  tests hold the route's semantics with it.
 - ``binned_curve_counts_cuda``: the wrapper of the CUDA kernel
-  ``csrc/binned_curve.cu``, which replaces the Pallas ``_kernel``.
+  ``csrc/binned_curve.cu``, which replaces the Pallas ``_kernel``. It takes
+  the sorted-threshold route when a block's histograms and thresholds fit
+  its shared memory (``uses_sorted_route``), else the comparison route, from
+  the shapes alone.
 - ``binned_curve_counts``: the registry entry ``binned_curve_counts``, under
   the JAX name: the kernel for CUDA tensors, the plain version for CPU ones.
 
@@ -90,6 +97,59 @@ def reference_counts(preds: Tensor, target_w: Tensor, w: Tensor, thresholds: Ten
     return (tp[:, 0], fp[:, 0]) if one_column else (tp, fp)
 
 
+def _sort_thresholds(thr: Tensor) -> Tuple[Tensor, Tensor, int]:
+    """``(sorted, rank, n_real)``: the thresholds in ascending order with NaN
+    last and ties in the caller's order, each threshold's position in that
+    order, and how many are not NaN."""
+    order = torch.sort(thr, stable=True).indices  # NaN sorts last
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(thr.shape[0], device=thr.device)
+    return thr[order], rank, int((~torch.isnan(thr)).sum())
+
+
+def _bucket(p: Tensor, sorted_thr: Tensor, n_real: int) -> Tensor:
+    """The number of sorted (not NaN) thresholds ``s`` with ``p >= s``, by a
+    binary search that, like the kernel's bucket search, asks only ``p >= s``:
+    a NaN score lands in bucket 0, and -0.0 / +0.0 and +-inf decide as in the
+    comparison form."""
+    b = torch.zeros(p.shape, dtype=torch.int64, device=p.device)
+    step = 1 << max(n_real.bit_length() - 1, 0) if n_real else 0
+    while step:
+        cand = b + step
+        probe = sorted_thr[(cand - 1).clamp(max=max(n_real - 1, 0))]
+        b = torch.where((cand <= n_real) & (p >= probe), cand, b)
+        step //= 2
+    return b
+
+
+def sorted_route_counts(preds: Tensor, target_w: Tensor, w: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`reference_counts` by the kernel's sorted-threshold route, in plain PyTorch.
+
+    Sort the thresholds (NaN last; a NaN threshold passes no score), put each
+    sample in bucket ``b(p)`` (the number of sorted thresholds it passes),
+    add ``w·tw`` and ``w·(w − tw)`` into a per-column histogram of ``T + 1``
+    buckets, and give sorted threshold ``j`` the suffix sum of the buckets
+    above ``j``, scattered back to the caller's order. With 0/1 weights every
+    sum is an integer, so it equals :func:`reference_counts` bit for bit below
+    2**24 samples. The CPU tests hold the route's semantics with it; no path
+    calls it.
+    """
+    p, tw, w2, one_column = _as_columns(preds, target_w, w)
+    thr = thresholds.reshape(-1).to(device=p.device, dtype=torch.float32)
+    m, n_cols = p.shape
+    n_thr = thr.shape[0]
+    sorted_thr, rank, n_real = _sort_thresholds(thr)
+    p, tw = p.to(torch.float32), tw.to(torch.float32)
+    ww = w2.to(torch.float32).expand(m, n_cols)
+    key = (_bucket(p, sorted_thr, n_real) + torch.arange(n_cols, device=p.device) * (n_thr + 1)).reshape(-1)
+    tp, fp = [
+        torch.zeros(n_cols * (n_thr + 1), dtype=torch.float32, device=p.device).index_add_(0, key, v.reshape(-1))
+        .reshape(n_cols, n_thr + 1).flip(1).cumsum(1).flip(1)[:, 1:][:, rank].T
+        for v in (ww * tw, ww * (ww - tw))
+    ]
+    return (tp[:, 0], fp[:, 0]) if one_column else (tp.contiguous(), fp.contiguous())
+
+
 # --------------------------------------------------------------------- CUDA wrapper
 
 
@@ -99,15 +159,24 @@ def _lib() -> ctypes.CDLL:
         lib.binned_curve_launch.argtypes = [
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong,
             ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p,
         ]
         lib.binned_curve_launch.restype = ctypes.c_int
-        lib.binned_curve_row_blocks.argtypes = [ctypes.c_longlong]
-        lib.binned_curve_row_blocks.restype = ctypes.c_longlong
+        lib.binned_curve_scratch_words.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+        lib.binned_curve_scratch_words.restype = ctypes.c_longlong
+        lib.binned_curve_uses_sorted.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.binned_curve_uses_sorted.restype = ctypes.c_int
         lib.binned_curve_error_string.argtypes = [ctypes.c_int]
         lib.binned_curve_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
     return lib
+
+
+def uses_sorted_route(n_cols: int, n_thr: int) -> bool:
+    """True when the kernel takes its sorted-threshold route for ``C`` columns and
+    ``T`` thresholds on the CUDA device, False when it takes the comparison
+    route (the kernel's own rule, ``binned_curve_uses_sorted``). Builds the
+    kernels if needed."""
+    return bool(_lib().binned_curve_uses_sorted(n_cols, n_thr))
 
 
 def _check_input(name: str, x: Tensor, device: torch.device) -> None:
@@ -150,12 +219,12 @@ def binned_curve_counts_cuda(preds: Tensor, target_w: Tensor, w: Tensor, thresho
     fp = torch.empty_like(tp)
     lib = _lib()
     # Freed to the caching allocator on return: its next user on this stream runs after the kernel.
-    scratch = torch.empty((2, lib.binned_curve_row_blocks(m), n_cols, n_thr), dtype=torch.float32, device=device)
+    scratch = torch.empty(lib.binned_curve_scratch_words(m, n_cols, n_thr), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = lib.binned_curve_launch(
             p.data_ptr(), tw.data_ptr(), w2.data_ptr(), int(w.shape == preds.shape), thresholds.data_ptr(), m,
-            n_cols, n_thr, scratch[0].data_ptr(), scratch[1].data_ptr(), tp.data_ptr(), fp.data_ptr(), stream,
+            n_cols, n_thr, scratch.data_ptr(), tp.data_ptr(), fp.data_ptr(), stream,
         )
     if code != 0:
         msg = lib.binned_curve_error_string(code).decode()

@@ -107,6 +107,8 @@ def _lib() -> ctypes.CDLL:
         lib.cms_rows_add_launch.restype = ctypes.c_int
         lib.scatter_uses_shared.argtypes = [ctypes.c_longlong]
         lib.scatter_uses_shared.restype = ctypes.c_int
+        lib.scatter_hist_branch.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+        lib.scatter_hist_branch.restype = ctypes.c_int
         lib.scatter_error_string.argtypes = [ctypes.c_int]
         lib.scatter_error_string.restype = ctypes.c_char_p
         lib._argtypes_set = True
@@ -120,6 +122,21 @@ def uses_shared_branch(n_cells: int) -> bool:
     if code < 0:
         raise RuntimeError(f"scatter_uses_shared: CUDA error {-code}")
     return bool(code)
+
+
+HIST_BRANCHES = ("global", "shared", "packed")
+
+
+def hist_branch(kernel: str, n: int, n_bins: int) -> str:
+    """The branch ``kernel`` (``"hist_add"`` or ``"hist_max"``) takes on the
+    current CUDA device for ``n`` samples into ``n_bins`` bins: ``"shared"`` (a
+    private table per block), ``"packed"`` (hist_max: int16 slots, a table up
+    to twice a block's int32 slots, N >= B) or ``"global"`` (global atomics).
+    Builds the kernels if needed."""
+    code = _lib().scatter_hist_branch(n, n_bins, int(kernel == "hist_max"))
+    if code < 0:
+        raise RuntimeError(f"scatter_hist_branch: CUDA error {-code}")
+    return HIST_BRANCHES[code]
 
 
 def _flat_int32(what: str, name: str, x: Tensor, device: torch.device, allow_bool: bool = False) -> Tensor:

@@ -3,8 +3,8 @@
 The same seeded numpy inputs go through ``metrics_tpu.kernels.binned_curve``
 (the jnp comparison reference, and the Pallas kernel in interpret mode) and
 through ``metrics_tpu_torch.kernels.binned_curve`` (the plain version, the
-CUDA wrapper, which takes the plain version on CPU tensors, and the registry
-entry). Tolerances: with 0/1 weights every count is an integer, so the
+plain form of the CUDA kernel's sorted-threshold route, the CUDA wrapper,
+which takes the plain version on CPU tensors, and the registry entry). Tolerances: with 0/1 weights every count is an integer, so the
 results must be equal (``torch.equal`` / ``assert_array_equal``); with float
 weights sums are taken in another order, so ``rtol=1e-5, atol=1e-4``. The
 JAX package has no column axis: a ``(M, C)`` call is held column by column
@@ -13,6 +13,7 @@ against JAX's 1-D functions. The CUDA kernel itself runs only on the GPU
 ``meta`` tensors.
 """
 
+import re
 from pathlib import Path
 
 import jax
@@ -56,7 +57,15 @@ def _scores(rng, shape, thr):
 def _thresholds(rng, kind, t):
     if kind == "linspace":
         return np.array(jnp.linspace(0, 1, t, dtype=jnp.float32))
+    if kind == "descending":
+        return np.sort(rng.uniform(size=t).astype(np.float32))[::-1].copy()
     thr = rng.uniform(size=t).astype(np.float32)  # unsorted
+    if kind == "specials":  # NaN, +-inf, -0.0 beside +0.0, and a duplicate, among unsorted values
+        specials = np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, np.nan], np.float32)[:t]
+        thr[rng.choice(t, size=specials.size, replace=False)] = specials
+        if t > 8:
+            thr[7] = thr[8]
+        return thr
     if t > 2:
         thr[1] = thr[0]  # a duplicate
     return thr
@@ -75,6 +84,7 @@ def _jax_counts(fn, p, tw, w, thr, **kw):
 def _port_paths():
     return (
         ("reference", binned_curve.reference_counts),
+        ("sorted route", binned_curve.sorted_route_counts),
         ("cuda wrapper", binned_curve.binned_curve_counts_cuda),
         ("registry", binned_curve.binned_curve_counts),
     )
@@ -92,6 +102,11 @@ CASES_01 = [
     (2049, 10, 100, "linspace", False, False),
     (777, 10, 33, "unsorted", True, False),
     (1, 10, 7, "linspace", True, False),
+    (2000, 1, 12, "specials", False, True),
+    (999, 4, 9, "specials", True, False),
+    (300, 5, 1, "specials", True, False),
+    (1500, 1, 64, "descending", False, True),
+    (640, 3, 20, "descending", False, False),
 ]
 
 
@@ -133,15 +148,18 @@ def test_plain_version_allclose_to_jax_on_float_weights(n, c):
     for got, wnt, pal in ((tp, want[0], pallas[0]), (fp, want[1], pallas[1])):
         np.testing.assert_allclose(got.numpy(), wnt, rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
         np.testing.assert_allclose(got.numpy(), pal, rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
+    for got, wnt in zip(binned_curve.sorted_route_counts(*[torch.from_numpy(a) for a in (p, tw, w, thr)]), want):
+        np.testing.assert_allclose(got.numpy(), wnt, rtol=FLOAT_RTOL, atol=FLOAT_ATOL)
     sum_wy = (w * (tw != 0) * (p >= thr[0])).sum(0)  # what a Σ w·y kernel would give at thr[0]
     assert not np.allclose(tp[0].numpy(), sum_wy, rtol=1e-3)
 
 
-def test_nan_and_infinite_scores_pass_no_threshold_but_minus_inf():
+@pytest.mark.parametrize("route", ["reference_counts", "sorted_route_counts"])
+def test_nan_and_infinite_scores_pass_no_threshold_but_minus_inf(route):
     p = torch.tensor([np.nan, np.inf, -np.inf, -0.0, 0.5])
     ones = torch.ones(5)
     thr = torch.tensor([-np.inf, 0.0, 0.5, 1.0, np.inf, np.nan])
-    tp, fp = binned_curve.reference_counts(p, ones, ones, thr)
+    tp, fp = getattr(binned_curve, route)(p, ones, ones, thr)
     # -inf passes only thr = -inf; -0.0 >= 0.0; +inf passes every threshold but NaN
     np.testing.assert_array_equal(tp.numpy(), [4, 3, 2, 1, 1, 0])
     np.testing.assert_array_equal(fp.numpy(), np.zeros(6))
@@ -225,9 +243,12 @@ def test_registry_raises_for_an_ineligible_non_cpu_call():
 
 def test_kernel_source_exports_what_the_wrapper_binds():
     src = (Path(binned_curve.__file__).parent.parent / "csrc" / f"{binned_curve.KERNEL_NAME}.cu").read_text()
-    for symbol in ("int binned_curve_launch(", "long long binned_curve_row_blocks(", "binned_curve_error_string("):
+    for symbol in ("int binned_curve_launch(", "long long binned_curve_scratch_words(",
+                   "int binned_curve_uses_sorted(", "binned_curve_error_string("):
         assert symbol in src
-    assert "atomicAdd" not in src  # the cross-block sum is a fixed-order pass, never float atomics
+    # float sums run in a fixed order, never by atomics: the atomicAdds are the int counts of the
+    # 0/1 contributions
+    assert re.findall(r"atomicAdd\(([^,]+),", src) == ["&col_counts[k].x", "&col_counts[k].y"]
 
 
 @pytest.mark.parametrize("strided", ["thresholds", "preds"])
@@ -244,3 +265,65 @@ def test_registry_entry_makes_strided_inputs_contiguous_for_the_kernel(strided):
         binned_curve.binned_curve_counts_cuda(p, _meta(8, 3), _meta(8), thr)
     with pytest.raises(ValueError, match="CUDA device or the CPU"):
         binned_curve.binned_curve_counts(p, _meta(8, 3), _meta(8), thr)
+
+
+SORTED_SMEM_BUDGET = 230000  # kSortedSmemBudget of csrc/binned_curve.cu
+
+
+def _hist_units(n_cols):
+    """Float histograms of one column a block of the sorted route keeps (``hist_units`` of the kernel)."""
+    if n_cols <= 8:
+        return 8 // n_cols * n_cols
+    warps = min(n_cols, 16)
+    return warps * -(-n_cols // warps)
+
+
+def _uses_sorted_route(n_cols, n_thr):
+    """The kernel's route rule (``uses_sorted``), for the CPU: the sorted-threshold
+    route while a block's int counts (8 bytes a bucket of each column), its warps'
+    float histograms (12 bytes a bucket, 4 a histogram) and the thresholds with
+    their indices, padded to a power of two, fit ``kSortedSmemBudget`` bytes."""
+    if n_thr > 2**20:
+        return False
+    pad = 1 << max(n_thr - 1, 0).bit_length()
+    units = _hist_units(n_cols)
+    return n_cols * 8 * (n_thr + 1) + units * (12 * (n_thr + 1) + 4) + pad * 8 <= SORTED_SMEM_BUDGET
+
+
+def _sorted_route_max_thresholds(n_cols):
+    """The largest ``T`` that takes the sorted-threshold route for ``C`` columns."""
+    return max(t for t in range(1, 4096) if _uses_sorted_route(n_cols, t))
+
+
+def test_route_crossover_matches_the_kernel_source():
+    """The test's mirror of the kernel's route rule reads the constants and the
+    shared-memory layout the kernel source states: the sorted-threshold route
+    while a block's tables fit ``kSortedSmemBudget`` bytes, the comparison
+    route above."""
+    src = (Path(binned_curve.__file__).parent.parent / "csrc" / f"{binned_curve.KERNEL_NAME}.cu").read_text()
+    assert f"constexpr long long kSortedSmemBudget = {SORTED_SMEM_BUDGET};" in src
+    assert "constexpr int kMaxHistWarps = 16;" in src
+    assert "constexpr int kFewColWarps = 8;" in src
+    assert "(long long)n_cols * buckets * sizeof(int2)" in src  # 8 bytes of int counts a bucket of each column
+    assert "(long long)hist_units(n_cols) * (buckets * (sizeof(float2) + sizeof(int)) + sizeof(int))" in src
+    for c, t_max in ((1, 2048), (3, 2053), (10, 1066), (16, 691), (33, 267)):
+        assert _sorted_route_max_thresholds(c) == t_max
+        assert _uses_sorted_route(c, t_max) and not _uses_sorted_route(c, t_max + 1)
+    assert _uses_sorted_route(10, 200) and _uses_sorted_route(1, 1024)
+    assert not _uses_sorted_route(3, 2**20 + 1)
+
+
+@pytest.mark.parametrize("n_cols,side", [(1, 0), (1, 1), (16, 0), (16, 1)])
+def test_sorted_route_equals_the_plain_version_at_the_crossover(n_cols, side):
+    """Both sides of the route crossover, unsorted thresholds with the special
+    values: the sorted route's plain form equals the comparison form bit for bit."""
+    n_thr = _sorted_route_max_thresholds(n_cols) + side
+    rng = np.random.default_rng(n_cols * 7 + n_thr)
+    thr = _thresholds(rng, "specials", n_thr)
+    shape = (600,) if n_cols == 1 else (600, n_cols)
+    p = _scores(rng, shape, thr)
+    w = rng.integers(0, 2, shape).astype(np.float32)
+    tw = rng.integers(0, 2, shape).astype(np.float32) * w
+    args = [torch.from_numpy(a) for a in (p, tw, w, thr)]
+    for got, want in zip(binned_curve.sorted_route_counts(*args), binned_curve.reference_counts(*args)):
+        assert torch.equal(got, want)

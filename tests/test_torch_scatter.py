@@ -12,6 +12,8 @@ only on the GPU (``chip_smoke.py``); here their wrappers are held to their
 device, dtype and shape checks on ``meta`` tensors.
 """
 
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -241,3 +243,32 @@ def test_registry_entries():
         entry = registry.get(name)
         assert entry.reference is ref and entry.optimized is opt
     assert set(scatter.launches) == {"hist_add", "hist_max", "cms_rows_add"}
+
+
+@pytest.mark.parametrize("op", ["add", "max"])
+@pytest.mark.parametrize("offsets,n,n_bins", [((1, 1), 4099, 2**16), ((1, 2), 4097, 2**17), ((3, 0), 5, 2**16)])
+def test_hist_views_at_a_storage_offset_match_jax(op, offsets, n, n_bins):
+    """idx and val that are views at a storage offset, N % 4 != 0, on tables
+    beyond one block's shared memory on the card (its packed and global
+    branches): on the CPU the wrappers take the plain version, which
+    must read the views as the JAX package reads the same values."""
+    rng = np.random.default_rng(n + n_bins + offsets[1])
+    bins = rng.integers(0, 9, n_bins).astype(np.int32)
+    idx_buf = rng.integers(-3, n_bins + 3, n + offsets[0]).astype(np.int32)
+    val_buf = rng.integers(-40000, 40000, n + offsets[1]).astype(np.int32)  # beyond int16 too
+    ti = torch.from_numpy(idx_buf)[offsets[0]:]
+    tv = torch.from_numpy(val_buf)[offsets[1]:]
+    assert ti.storage_offset() == offsets[0] and tv.storage_offset() == offsets[1] and ti.is_contiguous()
+    jax_ref, _, _, cuda, _ = HIST[op]
+    want = np.asarray(jax_ref(jnp.asarray(bins), jnp.asarray(idx_buf[offsets[0]:]), jnp.asarray(val_buf[offsets[1]:])))
+    np.testing.assert_array_equal(cuda(torch.from_numpy(bins), ti, tv).numpy(), want)
+
+
+def test_kernel_source_exports_what_the_wrapper_binds():
+    src = (Path(scatter.__file__).parent.parent / "csrc" / f"{scatter.KERNEL_NAME}.cu").read_text()
+    for symbol in ("int hist_add_launch(", "int hist_max_launch(", "int cms_rows_add_launch(",
+                   "int scatter_uses_shared(", "int scatter_hist_branch(", "scatter_error_string("):
+        assert symbol in src
+    # the branch codes the wrapper names, in the source's order
+    assert "0 global, 1 shared, 2 packed" in src
+    assert scatter.HIST_BRANCHES == ("global", "shared", "packed")
