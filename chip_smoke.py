@@ -33,20 +33,35 @@ checkout, and then:
   and global atomics),
   ragged and tiny N, N = 0, out-of-range indices, zero weights, int32
   extremes, Zipf-skewed keys, and inputs that are views at a storage offset
-  with N % 4 != 0 (idx and val at one offset and at two).
+  with N % 4 != 0 (idx and val at one offset and at two); the ids route of
+  ``cms_rows_add`` (columns hashed in the kernel, ``csrc/cm_hash.cuh``) on the
+  same count-min shapes, negative ids with the int32 extremes, widths that
+  are no power of two, depth 7 x width 1 and a view at a storage offset; and
+  the heavy-hitter ledger walk (``csrc/cms_walk.cu``) against the plain walk,
+  ``torch.equal`` on the table and the ledger, at up to 2^14 items: Zipf,
+  uniform, one id, negative ids, ties at the ledger's minimum, non-empty
+  starting ledgers (held keys, a duplicate, a negative key), k = 1, 8, 32,
+  33, 100 and 40000 (the ledger in registers, shared and global memory), a
+  table beyond shared memory, a width that is no power of two.
 - Phase E drives the sketch plane at the JAX classes' default sizes through
   the functional API and once through the stateful one: QuantileSketch
   (alpha 0.01, 2048 buckets), CardinalitySketch (p = 12 and 16) and the
   4 x 2048 count-min table on 8 batches of 2^22 values, HeavyHittersSketch
-  (k 32, 4 x 2048) on 4 batches of 4096 ids. Launch counts are zeroed just
+  (k 32, 4 x 2048) on 4 batches of HH_BATCH ids. Launch counts are zeroed just
   before and read just after: 2 hist_add per quantile update, 1 hist_max per
-  cardinality update, 1 cms_rows_add per table update, none for the
-  heavy-hitter ledger walk, and no reference dispatch on a CUDA tensor. The
-  int32 states are held against a CPU recomputation and the merge of two
-  half-streams against the single stream.
+  cardinality update, 1 cms_rows_add (its ids route, past the registry) per
+  table update, 1 cms_walk per heavy-hitter update, and no reference
+  dispatch on a CUDA tensor. The int32 states are held against a CPU
+  recomputation (the heavy hitters through the plain walk) and the merge of
+  two half-streams against the single stream.
 - Phase F times each scatter kernel at the Phase E shapes (call, device,
-  plain version, one PyTorch library call, byte bound), each sketch's update
-  and values/s, the ledger walk per item, and profiles one quantile update.
+  plain version, one PyTorch library call, bound; the ids route's bound is
+  the larger of its bytes and its hash's integer instructions over the
+  card's issue rate, 128 lanes a SM at ``clocks.max.sm``), the ledger walk at
+  4096, HH_BATCH and 2^22 ids (µs per item, the share of items that reached
+  the sequential decision, bound: the ids route's at the same N), each
+  sketch's update and values/s, and profiles a quantile, a count-min table
+  and a heavy-hitter update.
 - Phase G holds the threshold-count kernel of the binned curves
   (``csrc/binned_curve.cu``) against its plain version: ``torch.equal`` on
   0/1 weights at N = 10^6 with T = 100, 200, 400 and 1024 and with 10
@@ -75,7 +90,7 @@ checkout, and then:
   route is timed beside it) and the five binary updates per batch.
 
 The second-to-last line of output is a JSON object with one record per
-kernel (``shapes`` lists every shape a redesigned kernel was timed at); the
+kernel (``shapes`` lists every shape or route a kernel was timed at); the
 last is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
 exits non-zero without those lines. Without a GPU it exits
 non-zero at once. It imports nothing of JAX.
@@ -96,8 +111,13 @@ FLAGSHIP_STEPS = 20
 TIMING_REPS = 5
 SKETCH_BATCH = 2**22  # values per sketch update in Phases E and F
 SKETCH_BATCHES = 8
-HH_BATCH = 4096  # ids per heavy-hitter update: its ledger walk is one item at a time
-HH_BATCHES = 4  # fewer than SKETCH_BATCHES: the walk takes about 0.4 ms per item on the card
+HH_BATCH = 2**17  # ids per heavy-hitter update: the CPU recomputation walks them one at a time (plain version)
+HH_BATCHES = 4  # fewer than SKETCH_BATCHES: the CPU recomputation walks 6 batches, about 45 us an item
+WALK_SHAPES = (4096, HH_BATCH, SKETCH_BATCH)  # ids per ledger walk timed in Phase F
+# Integer instructions per (id, row) of the count-min hash from ids (csrc/cm_hash.cuh) at a
+# power-of-two width: the xor with the row seed, three shift-xor steps (2 each), two
+# multiplies, the modulo (a mask) and the add into the table.
+CM_HASH_OPS = 1 + 3 * 2 + 2 + 1 + 1
 CURVE_N = 10**6  # scores per curve update in Phases G to I
 CURVE_T = 200
 CURVE_UPDATES = 8
@@ -245,6 +265,131 @@ def _cms_cases():
         ("cms_zipf_shared", SKETCH_BATCH, 4, 2048, "zipf"),
         ("cms_zipf_global", 2**20, 4, 65536, "zipf"),
     ]
+
+
+def _cms_ids_cases():
+    """(name, N, depth, width, ids, storage offset) of the Phase A cases of the ids route of
+    cms_rows_add: the count-min shapes of ``_cms_cases``, then negative ids with the int32
+    extremes, widths that are no power of two (the modulo, shared and global) and a view at a
+    storage offset (a scalar head before the 16-byte loads)."""
+    kinds = {"in": "uniform", "out": "negative", "zipf": "zipf"}
+    cases = [(f"ids_{name[4:]}", n, depth, width, kinds[cols], 0) for name, n, depth, width, cols in _cms_cases()]
+    return cases + [
+        ("ids_negative_extremes", 2**20 + 1, 4, 2048, "negative", 0),
+        ("ids_width_2047_zipf", SKETCH_BATCH, 4, 2047, "zipf", 0),
+        ("ids_width_100003_global", 2**20 + 3, 4, 100003, "zipf", 0),
+        ("ids_depth_7_width_1", 4099, 7, 1, "uniform", 0),
+        ("ids_view_offset_3", 2**20 + 5, 4, 2048, "zipf", 3),
+    ]
+
+
+def _ids(torch, kind: str, n: int, gen):
+    """``n`` int32 ids on the card: Zipf over ZIPF_IDS, uniform over ZIPF_IDS, uniform over 64
+    (``few``), one id (``one``), or uniform with 30% negative and the int32 extremes mixed in
+    (``negative``)."""
+    if kind == "zipf":
+        return _zipf(torch, n, gen)
+    if kind == "one":
+        return torch.full((n,), 12345, dtype=torch.int32, device="cuda")
+    ids = torch.randint(0, 64 if kind == "few" else ZIPF_IDS, (n,), generator=gen, device="cuda", dtype=torch.int32)
+    if kind == "negative":
+        ids = torch.where(torch.rand(n, generator=gen, device="cuda") < 0.3, -ids - 1, ids)
+        ids[::1009] = INT32_MIN
+        ids[1::1009] = INT32_MAX
+    return ids
+
+
+def phase_a_cms_ids(torch, scatter) -> int:
+    """The ids route of cms_rows_add against its plain version on the same CUDA inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(8642)
+    worst = 0
+    for name, n, depth, width, kind, offset in _cms_ids_cases():
+        ids = _ids(torch, kind, n + offset, gen)[offset:]
+        _check(ids.storage_offset() == offset, f"{name}: view")
+        counts = torch.randint(0, 9, (depth, width), generator=gen, device="cuda", dtype=torch.int32)
+        before = counts.clone()
+        launched = scatter.launches["cms_rows_add"]
+        got = scatter.cms_ids_add_cuda(counts, ids)
+        torch.cuda.synchronize()
+        want = scatter.cms_ids_add_reference(counts, ids)
+        _check(got.dtype == torch.int32 and got.shape == want.shape, f"{name}: {got.dtype} {tuple(got.shape)}")
+        _check(torch.equal(got, want), f"{name}: the ids route of cms_rows_add differs from its plain version")
+        _check(torch.equal(counts, before), f"{name}: the input table was written")
+        _check(scatter.launches["cms_rows_add"] == launched + (1 if n else 0), f"{name}: launch count")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        branch = "none (N = 0)" if n == 0 else scatter.cms_ids_branch(depth, width)
+        print(f"phase A {name}: kernel=cms_rows_add (ids route) N={n} table=({depth}, {width}) ids={kind} "
+              f"offset={offset} branch={branch} equal=True max_abs_err={err} added={int((got - before).sum())}")
+    return worst
+
+
+def _walk_cases():
+    """(name, N, depth, width, k, ids, starting ledger) of the Phase A cases of the ledger walk."""
+    return [
+        ("walk_zipf_2p14", 2**14, 4, 2048, 32, "zipf", "empty"),  # the heavy-hitter sketch's defaults
+        ("walk_uniform", 4096, 4, 2048, 32, "uniform", "empty"),
+        ("walk_all_one_id", 4096, 4, 2048, 32, "one", "empty"),
+        ("walk_negative_ids", 4096, 4, 2048, 32, "negative", "empty"),
+        ("walk_ties_at_the_minimum", 4096, 4, 2048, 8, "few", "ties"),
+        ("walk_nonempty_ledger", 4096, 4, 2048, 32, "few", "held"),
+        ("walk_k1", 4096, 4, 2048, 1, "zipf", "empty"),
+        ("walk_k8", 4096, 4, 2048, 8, "zipf", "empty"),
+        ("walk_k33_shared_ledger", 4096, 4, 2048, 33, "zipf", "empty"),
+        ("walk_k100_shared_ledger", 4096, 4, 2048, 100, "zipf", "held"),
+        ("walk_global_table", 4096, 4, 65536, 32, "zipf", "empty"),  # 1 MB: the table stays in global memory
+        ("walk_width_2047", 4096, 4, 2047, 32, "few", "held"),
+        ("walk_global_ledger", 1024, 4, 2048, 40000, "zipf", "held"),  # 320 KB of ledger: global memory
+        ("walk_ragged_small_table", 1001, 3, 64, 32, "zipf", "empty"),
+    ]
+
+
+def _start_ledger(torch, kind: str, k: int, ids, gen):
+    """A (k, 2) int32 ledger on the card: empty, every count 3 (``ties``), or (``held``) some of
+    the stream's ids with counts from 0 to 49, one of them twice, and a negative key."""
+    keys = torch.full((k,), -1, dtype=torch.int32, device="cuda")
+    cnts = torch.zeros(k, dtype=torch.int32, device="cuda")
+    if kind == "ties":
+        keys = torch.arange(10**6, 10**6 + k, dtype=torch.int32, device="cuda")
+        cnts.fill_(3)
+    elif kind == "held":
+        m = max(1, min(k // 2, ids.numel()))
+        keys[:m] = ids[:m]
+        cnts[:m] = torch.randint(0, 50, (m,), generator=gen, device="cuda", dtype=torch.int32)
+        if k > 2:
+            keys[m] = keys[0]
+            keys[-1] = -7
+            cnts[-1] = 2
+    return torch.stack([keys, cnts], dim=1)
+
+
+def phase_a_walk(torch, cms_walk) -> int:
+    """The ledger walk kernel against its plain version on the same CUDA inputs."""
+    gen = torch.Generator(device="cuda").manual_seed(5150)
+    worst = 0
+    for name, n, depth, width, k, kind, start in _walk_cases():
+        ids = _ids(torch, kind, n, gen)
+        counts = torch.randint(0, 3, (depth, width), generator=gen, device="cuda", dtype=torch.int32)
+        ledger = _start_ledger(torch, start, k, ids, gen)
+        before_counts, before_ledger = counts.clone(), ledger.clone()
+        decisions = torch.zeros(1, dtype=torch.int64, device="cuda")
+        launched = cms_walk.launches
+        got = cms_walk.cms_walk_cuda(counts, ledger, ids, decisions)
+        torch.cuda.synchronize()
+        _check(cms_walk.launches == launched + 1, f"{name}: launch count")
+        want = cms_walk.cms_walk_reference(counts, ledger, ids)
+        for g, w, what in zip(got, want, ("table", "ledger")):
+            _check(g.dtype == torch.int32 and g.shape == w.shape, f"{name} {what}: {g.dtype} {tuple(g.shape)}")
+            _check(torch.equal(g, w), f"{name}: the walk kernel's {what} differs from the plain walk")
+        _check(torch.equal(counts, before_counts) and torch.equal(ledger, before_ledger), f"{name}: inputs written")
+        err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in zip(got, want))
+        worst = max(worst, err)
+        valid, decided = int((ids >= 0).sum()), int(decisions)
+        _check(0 <= decided <= valid, f"{name}: {decided} decisions for {valid} valid items")
+        print(f"phase A {name}: kernel=cms_walk N={n} table=({depth}, {width}) k={k} ids={kind} ledger={start} "
+              f"placement=({cms_walk.placement(depth, width, k)}) equal=True max_abs_err={err} "
+              f"decided={decided} of {valid} valid; top ledger count {int(got[1][:, 1].max())}")
+    return worst
 
 
 def phase_a_scatter(torch, scatter) -> dict:
@@ -542,6 +687,16 @@ def phase_d_profile(torch, entry_mod, step, args, iters: int = 5):
 ENTRY_OF = {"hist_add": "ddsketch_hist_add", "hist_max": "hll_scatter_max", "cms_rows_add": "cms_row_scatter"}
 
 
+def _zero_launches(scatter, cms_walk) -> None:
+    for k in scatter.launches:
+        scatter.launches[k] = 0
+    cms_walk.launches = 0
+
+
+def _launch_counts(scatter, cms_walk) -> dict:
+    return {**scatter.launches, "cms_walk": cms_walk.launches}
+
+
 def _latencies(torch, gen, n: int):
     """Lognormal latencies with 1% exact zeros, 2% negated, and NaN, +inf and
     -inf every million values."""
@@ -567,7 +722,7 @@ def _fold(init, update, batches):
     return state
 
 
-def phase_e(torch, scatter, obs, instrument):
+def phase_e(torch, scatter, cms_walk, obs, instrument):
     """The sketch plane at the JAX classes' default sizes, counted and verified."""
     from metrics_tpu_torch.sketch import CardinalitySketch, HeavyHittersSketch, QuantileSketch
     from metrics_tpu_torch.sketch import kernels as sk
@@ -586,21 +741,24 @@ def phase_e(torch, scatter, obs, instrument):
     q = QuantileSketch(alpha=0.01, n_buckets=2048, device="cuda")
     c12, c16 = CardinalitySketch(p=12, device="cuda"), CardinalitySketch(p=16, device="cuda")
     hh = HeavyHittersSketch(k=32, depth=4, width=2048, device="cuda")
-    # name: (init, update, merge, batches, launches per update)
+    # name: (init, update, merge, batches, launches per update, registry dispatches per update);
+    # the count-min table takes the ids route of cms_rows_add and the heavy hitters the walk
+    # kernel, neither through the registry
     paths = {
-        "quantile": (q.init_state, q.update_state, q.merge_states, lat, {"hist_add": 2}),
-        "cardinality_p12": (c12.init_state, c12.update_state, c12.merge_states, ids, {"hist_max": 1}),
-        "cardinality_p16": (c16.init_state, c16.update_state, c16.merge_states, ids, {"hist_max": 1}),
-        "count_min_4x2048": (table_zeros, sk.cms_table_update, lambda a, b: a + b, ids, {"cms_rows_add": 1}),
-        "heavy_hitters": (hh.init_state, hh.update_state, hh.merge_states, hh_ids, {}),
+        "quantile": (q.init_state, q.update_state, q.merge_states, lat, {"hist_add": 2}, {"ddsketch_hist_add": 2}),
+        "cardinality_p12": (c12.init_state, c12.update_state, c12.merge_states, ids, {"hist_max": 1},
+                            {"hll_scatter_max": 1}),
+        "cardinality_p16": (c16.init_state, c16.update_state, c16.merge_states, ids, {"hist_max": 1},
+                            {"hll_scatter_max": 1}),
+        "count_min_4x2048": (table_zeros, sk.cms_table_update, lambda a, b: a + b, ids, {"cms_rows_add": 1}, {}),
+        "heavy_hitters": (hh.init_state, hh.update_state, hh.merge_states, hh_ids, {"cms_walk": 1}, {}),
     }
-    states, launches, walls = {}, {k: 0 for k in scatter.launches}, {}
+    states, launches, walls = {}, {k: 0 for k in _launch_counts(scatter, cms_walk)}, {}
     obs.enable()
     try:
-        for name, (init, update, merge, batches, per_update) in paths.items():
+        for name, (init, update, merge, batches, per_update, per_dispatch) in paths.items():
             instrument.KERNEL_DISPATCHES.clear()
-            for k in scatter.launches:  # the main path's run starts here ...
-                scatter.launches[k] = 0
+            _zero_launches(scatter, cms_walk)  # the main path's run starts here ...
             half = len(batches) // 2
             t0 = time.perf_counter()
             first = _fold(init, update, batches[:half])
@@ -610,15 +768,16 @@ def phase_e(torch, scatter, obs, instrument):
             second = _fold(init, update, batches[half:])
             torch.cuda.synchronize()
             walls[name] = time.perf_counter() - t0
-            counted = dict(scatter.launches)  # ... and ends here
+            counted = _launch_counts(scatter, cms_walk)  # ... and ends here
             n_updates = len(batches) + half
             want = {k: per_update.get(k, 0) * n_updates for k in counted}
             _check(counted == want, f"{name}: launches {counted}, expected {want}")
-            for kernel, entry in ENTRY_OF.items():
+            for entry in ENTRY_OF.values():
                 ref = instrument.KERNEL_DISPATCHES.value(kernel=entry, impl="reference")
                 opt = instrument.KERNEL_DISPATCHES.value(kernel=entry, impl="optimized")
+                expected = per_dispatch.get(entry, 0) * n_updates
                 _check(ref == 0, f"{name}: {ref} reference dispatches of {entry} on a CUDA tensor")
-                _check(opt == want[kernel], f"{name}: {opt} kernel dispatches of {entry}, expected {want[kernel]}")
+                _check(opt == expected, f"{name}: {opt} kernel dispatches of {entry}, expected {expected}")
             for k in launches:
                 launches[k] += counted[k]
             states[name] = (first, second, single, merge(first, second))
@@ -695,10 +854,12 @@ def phase_e(torch, scatter, obs, instrument):
     # --- heavy hitters
     first, second, single, merged = states["heavy_hitters"]
     half = HH_BATCHES // 2
+    t0 = time.perf_counter()
     h_cpu = HeavyHittersSketch(k=32, depth=4, width=2048, device="cpu")
     first_cpu = _fold(h_cpu.init_state, h_cpu.update_state, cpu["hh"][:half])
     single_cpu = _fold(lambda: first_cpu, h_cpu.update_state, cpu["hh"][half:])
     second_cpu = _fold(h_cpu.init_state, h_cpu.update_state, cpu["hh"][half:])
+    cpu_s = time.perf_counter() - t0
     for card, host, what in ((first, first_cpu, "first half"), (second, second_cpu, "second half"),
                              (single, single_cpu, "single stream")):
         _equal_states(torch, card, host, f"heavy hitters ({what}) against the CPU recomputation")
@@ -708,9 +869,9 @@ def phase_e(torch, scatter, obs, instrument):
     top_keys, top_counts = hh.compute_from(single)
     cpu_keys, cpu_counts = h_cpu.compute_from(single_cpu)
     _check(torch.equal(top_keys.cpu(), cpu_keys) and torch.equal(top_counts.cpu(), cpu_counts), "hh_rank differs")
-    print(f"phase E heavy_hitters: counts and ledger bit-identical to the CPU (both halves and the single stream); "
-          f"merged counts == single stream, merged ledger == topk_merge on the CPU; top 5 "
-          f"{list(zip(top_keys[:5].tolist(), top_counts[:5].tolist()))}")
+    print(f"phase E heavy_hitters: {HH_BATCHES} batches of {HH_BATCH} ids: counts and ledger bit-identical to the "
+          f"CPU's plain walk ({cpu_s:.1f} s; both halves and the single stream); merged counts == single stream, "
+          f"merged ledger == topk_merge on the CPU; top 5 {list(zip(top_keys[:5].tolist(), top_counts[:5].tolist()))}")
 
     # --- the stateful path, once per sketch
     for make, batch in ((lambda: QuantileSketch(device="cuda"), lat[0]), (lambda: CardinalitySketch(device="cuda"), ids[0]),
@@ -729,14 +890,15 @@ def phase_e(torch, scatter, obs, instrument):
     return launches, {"lat": lat, "ids": ids, "hh_ids": hh_ids, "paths": paths, "states": states, "walls": walls}
 
 
-def _kernel_record(torch, kernel: str, run, plain, library, nbytes: int, ops: int, extra: dict) -> dict:
+def _kernel_record(torch, kernel: str, run, plain, library, nbytes: int, ops: int, extra: dict,
+                   ops_per_s: float = CUDA_CORE_OPS_PER_S) -> dict:
     """Kernel, plain version, library call and bound at one shape."""
     iters = 50
     ms = _time_ms(run, iters)
     plain_ms = _time_ms(plain, 10, warmup=2)
     library_ms = _time_ms(library, iters)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
+    ops_ms = ops / ops_per_s * 1e3
     bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
     device_ms = _per_call_ms(_call_kernels(torch, run, f"{kernel}_", 1))
     rec = {**extra, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -745,8 +907,58 @@ def _kernel_record(torch, kernel: str, run, plain, library, nbytes: int, ops: in
     return rec
 
 
-def phase_f(torch, scatter, data) -> dict:
-    """Each scatter kernel at the Phase E shapes; each sketch's update; one profiled quantile update."""
+def _update_profile(torch, update, state, batch, kernel: str, iters: int = 20, tries: int = 3) -> dict:
+    """Device time by kernel, idle share and launches of one sketch update, under the profiler.
+    The profiler sometimes records few of a window's launches: a window that holds fewer than
+    half of the launches of the update's ``kernel`` (one a call at least) is profiled again,
+    up to ``tries`` times; ``complete`` says whether one held them."""
+    for _ in range(tries):
+        kernels, wall_us = _profile_steps(torch, lambda: update(state, batch), iters)
+        recorded = sum(len(v) for name, v in kernels.items() if kernel in name)
+        if 2 * recorded >= iters:
+            break
+    busy_us = sum(sum(v) for v in kernels.values())
+    return {
+        "complete": 2 * recorded >= iters,
+        f"{kernel}_launches_recorded": recorded,
+        "updates": iters,
+        "device_busy_us_per_update": busy_us / iters,
+        "wall_us_per_update_under_profiler": wall_us / iters,
+        "idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+        "launches_per_update": sum(len(v) for v in kernels.values()) / iters,
+        "top_kernels": [
+            {"name": name[:90], "launches_per_update": len(v) / iters, "us_per_update": sum(v) / iters}
+            for name, v in sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:10]
+        ],
+    }
+
+
+def _walk_record(torch, cms_walk, ids, issue_ops_per_s: float, plain: bool) -> dict:
+    """The ledger walk of ``ids`` into an empty 4 x 2048 table and k = 32 ledger: call and device
+    time, µs per item, the share of items that reached the sequential decision, and the bound
+    (the table half's: the ids route of cms_rows_add at the same N); the plain walk once if asked."""
+    n = ids.numel()
+    table = torch.zeros((4, 2048), dtype=torch.int32, device="cuda")
+    ledger = torch.stack([torch.full((32,), -1, dtype=torch.int32, device="cuda"),
+                          torch.zeros(32, dtype=torch.int32, device="cuda")], dim=1)
+    run = lambda: cms_walk.cms_walk_cuda(table, ledger, ids)  # noqa: E731
+    calls = max(2, min(20, 2**18 // n))
+    ms = _time_ms(run, calls, warmup=1)
+    device_ms = _per_call_ms(_call_kernels(torch, run, "cms_walk_kernel", 1, calls))
+    decisions = torch.zeros(1, dtype=torch.int64, device="cuda")
+    cms_walk.cms_walk_cuda(table, ledger, ids, decisions)
+    valid = int((ids >= 0).sum())
+    nbytes, ops = 4 * n + 8 * 4 * 2048, CM_HASH_OPS * 4 * n
+    bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / issue_ops_per_s * 1e3, "operations"))
+    plain_ms = _time_ms(lambda: cms_walk.cms_walk_reference(table, ledger, ids), 1, warmup=0) if plain else None
+    return {"shape": f"N={n} Zipf ids, 4 x 2048 table, k=32", "ms": ms, "device_ms": device_ms,
+            "us_per_item": device_ms * 1e3 / n if device_ms else None, "decided_share": int(decisions) / valid,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops, "placement": cms_walk.placement(4, 2048, 32)}
+
+
+def phase_f(torch, scatter, cms_walk, data, issue_ops_per_s: float) -> dict:
+    """Each scatter kernel at the Phase E shapes; the ledger walk; each sketch's update; profiled updates."""
     from metrics_tpu_torch.sketch import kernels as sk
 
     lat0, ids0, hh0 = data["lat"][0], data["ids"][0], data["hh_ids"][0]
@@ -781,37 +993,46 @@ def phase_f(torch, scatter, data) -> dict:
     flat = counts.clone().reshape(-1)
     key = (torch.arange(4, device="cuda") * 2048 + cols.to(torch.int64)).reshape(-1)
     inc = valid.to(torch.int32)[:, None].expand(n, 4).reshape(-1).contiguous()
+    # the ids route: the ids read once, the table read and written once; the hash's integer
+    # instructions over the card's issue rate
+    recs["cms_rows_add_ids"] = _kernel_record(
+        torch, "cms_rows_add", lambda: scatter.cms_ids_add_cuda(counts, ids0),
+        lambda: scatter.cms_ids_add_reference(counts, ids0), lambda: flat.index_add_(0, key, inc),
+        4 * n + 8 * 4 * 2048, CM_HASH_OPS * 4 * n,
+        {"shape": f"N={n}, 4 x 2048 table, ids route (columns hashed in the kernel)",
+         "branch": scatter.cms_ids_branch(4, 2048)}, ops_per_s=issue_ops_per_s)
     recs["cms_rows_add"] = _kernel_record(
         torch, "cms_rows_add", lambda: scatter.cms_rows_add_cuda(counts, cols, valid),
         lambda: scatter.cms_rows_add_reference(counts, cols, valid), lambda: flat.index_add_(0, key, inc),
-        4 * 4 * n + n + 8 * 4 * 2048, 3 * 4 * n, {"shape": f"N={n}, 4 x 2048 table"})
+        4 * 4 * n + n + 8 * 4 * 2048, 3 * 4 * n, {"shape": f"N={n}, 4 x 2048 table, columns route (registry entry)"})
+
+    # the ledger walk at 4096 ids, at HH_BATCH (Phase E's heavy-hitter batch) and at 2^22
+    for n_ids in WALK_SHAPES:
+        ids = {n: ids0, HH_BATCH: hh0}.get(n_ids)
+        ids = _zipf(torch, n_ids, torch.Generator(device="cuda").manual_seed(n_ids)) if ids is None else ids
+        recs[f"cms_walk_{n_ids}"] = rec = _walk_record(torch, cms_walk, ids, issue_ops_per_s, plain=n_ids == HH_BATCH)
+        print(f"phase F cms_walk {json.dumps(rec)}")
 
     # per-update time and values/s of each sketch on one batch
     updates = {}
-    for name, (init, update, _, batches, _) in data["paths"].items():
+    for name, (init, update, _, batches, *_) in data["paths"].items():
         state, batch = init(), batches[0]
-        reps = 1 if name == "heavy_hitters" else 10
-        ms = _time_ms(lambda: update(state, batch), reps, warmup=1)
+        ms = _time_ms(lambda: update(state, batch), 10, warmup=1)
         updates[name] = {"values": batch.numel(), "ms_per_update": ms, "values_per_s": batch.numel() / ms * 1e3}
-    updates["heavy_hitters"]["us_per_item"] = updates["heavy_hitters"]["ms_per_update"] * 1e3 / HH_BATCH
+    init, update, _, batches, *_ = data["paths"]["heavy_hitters"]
+    state, batch = init(), batches[0][:4096]
+    ms = _time_ms(lambda: update(state, batch), 10, warmup=1)
+    updates["heavy_hitters_4096"] = {"values": batch.numel(), "ms_per_update": ms,
+                                     "values_per_s": batch.numel() / ms * 1e3}
+    for name in ("heavy_hitters", "heavy_hitters_4096"):
+        updates[name]["us_per_item"] = updates[name]["ms_per_update"] * 1e3 / updates[name]["values"]
     print(f"phase F sketch updates {json.dumps(updates)}")
 
-    # one quantile update under the profiler: device time by kernel and idle share
-    init, update = data["paths"]["quantile"][:2]
-    state = init()
-    kernels, wall_us = _profile_steps(torch, lambda: update(state, lat0), 5)
-    busy_us = sum(sum(v) for v in kernels.values())
-    profile = {
-        "device_busy_us_per_update": busy_us / 5,
-        "wall_us_per_update_under_profiler": wall_us / 5,
-        "idle_share": 1.0 - busy_us / wall_us if wall_us else None,
-        "launches_per_update": sum(len(v) for v in kernels.values()) / 5,
-        "top_kernels": [
-            {"name": name[:90], "launches_per_update": len(v) / 5, "us_per_update": sum(v) / 5}
-            for name, v in sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:10]
-        ],
-    }
-    print(f"phase F quantile update profile {json.dumps(profile)}")
+    # a quantile, a count-min table and a heavy-hitter update under the profiler
+    for name, kernel in (("quantile", "hist_add"), ("count_min_4x2048", "cms_rows_add"), ("heavy_hitters", "cms_walk")):
+        init, update, _, batches, *_ = data["paths"][name]
+        recs[f"{name}_profile"] = profile = _update_profile(torch, update, init(), batches[0], kernel)
+        print(f"phase F {name} update profile {json.dumps(profile)}")
     return recs
 
 
@@ -1191,7 +1412,7 @@ def main() -> int:
 
     import metrics_tpu_torch.entry as entry_mod
     from metrics_tpu_torch import obs
-    from metrics_tpu_torch.kernels import _build, confmat, scatter
+    from metrics_tpu_torch.kernels import _build, cms_walk, confmat, scatter
     from metrics_tpu_torch.kernels import binned_curve as bc
     from metrics_tpu_torch.obs import instrument
 
@@ -1200,11 +1421,19 @@ def main() -> int:
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     print(card)
+    # the card's integer issue rate: 128 lanes of each SM, one instruction each per clock
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    issue_ops_per_s = sms * 128 * clock_mhz * 1e6
+    print(f"issue rate: {sms} SMs x 128 lanes x {clock_mhz} MHz (clocks.max.sm) = {issue_ops_per_s} ops/s")
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     t0 = time.perf_counter()
-    names = (confmat.KERNEL_NAME, scatter.KERNEL_NAME, bc.KERNEL_NAME)
+    names = (confmat.KERNEL_NAME, scatter.KERNEL_NAME, bc.KERNEL_NAME, cms_walk.KERNEL_NAME)
     with ThreadPoolExecutor(len(names)) as pool:  # one nvcc per source, all started together
         libs = dict(zip(names, pool.map(_build.build, names)))
     print(f"build {', '.join(f'{n}.cu' for n in names)}: {time.perf_counter() - t0:.2f} s")
@@ -1216,6 +1445,8 @@ def main() -> int:
 
     max_abs_err = phase_a(torch, confmat)
     scatter_err = phase_a_scatter(torch, scatter)
+    scatter_err["cms_rows_add"] = max(scatter_err["cms_rows_add"], phase_a_cms_ids(torch, scatter))
+    walk_err = phase_a_walk(torch, cms_walk)
     launches, args, step = phase_b(torch, confmat, entry_mod)
     steps = phase_c_steps(torch, entry_mod, step, args)
     main_shape = phase_c_kernel(torch, confmat, n=entry_mod.FULL_CONFIG["batch"],
@@ -1223,8 +1454,8 @@ def main() -> int:
     phase_c_kernel(torch, confmat, n=2**20, rows=100, cols=100)
     phase_d_profile(torch, entry_mod, step, args)
     del args, step
-    sketch_launches, sketch_data = phase_e(torch, scatter, obs, instrument)
-    sketch_recs = phase_f(torch, scatter, sketch_data)
+    sketch_launches, sketch_data = phase_e(torch, scatter, cms_walk, obs, instrument)
+    sketch_recs = phase_f(torch, scatter, cms_walk, sketch_data, issue_ops_per_s)
     del sketch_data
     curve_err = phase_g(torch, bc)
     curve_launches, curve_data = phase_h(torch, bc, obs, instrument)
@@ -1244,7 +1475,9 @@ def main() -> int:
     for kernel, rec, shapes in (
         ("hist_add", sketch_recs["hist_add"], ()),
         ("hist_max", sketch_recs["hist_max_p12"], (sketch_recs["hist_max_p12"], sketch_recs["hist_max_p16"])),
-        ("cms_rows_add", sketch_recs["cms_rows_add"], ()),
+        # the ids route is the main path's (cms_table_update on the card); the columns route the registry's
+        ("cms_rows_add", sketch_recs["cms_rows_add_ids"],
+         (sketch_recs["cms_rows_add_ids"], sketch_recs["cms_rows_add"])),
     ):
         kernels.append({
             "name": kernel,
@@ -1256,6 +1489,18 @@ def main() -> int:
             **{k: rec[k] for k in fields},
             **({"shapes": [{k: r[k] for k in shape_fields} for r in shapes]} if shapes else {}),
         })
+    walk = sketch_recs[f"cms_walk_{HH_BATCH}"]
+    kernels.append({
+        "name": "cms_walk",
+        "route": "cuda",
+        "source": "metrics_tpu_torch/csrc/cms_walk.cu",
+        "replaces": "metrics_tpu/sketch/kernels.py:296",
+        "launches": sketch_launches["cms_walk"],
+        "max_abs_err": walk_err,
+        **{k: walk[k] for k in fields},
+        "shapes": [{k: sketch_recs[f"cms_walk_{n}"][k] for k in (*shape_fields, "us_per_item", "decided_share")}
+                   for n in WALK_SHAPES],
+    })
     main_curve = curve_recs[f"T{CURVE_T}_C1"]
     kernels.append({
         "name": "binned_curve",

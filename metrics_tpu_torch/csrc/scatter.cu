@@ -4,7 +4,11 @@
 //   cms_rows_add: out[j, c] = counts[j, c] + number of n with valid[n] and cols[n, j] == c
 // Samples whose index lies outside [0, B) (or whose column lies outside
 // [0, width)) contribute nothing. The caller hands in `out` as a copy of
-// `bins` / `counts`; the kernels fold the batch into it.
+// `bins` / `counts`; the kernels fold the batch into it. cms_rows_add takes
+// its columns from two sources: a (n, depth) int32 array and n uint8 flags
+// (the columns route), or n int32 ids whose columns it hashes in registers,
+// cols[n, j] = column(ids[n], j) of cm_hash.cuh, valid[n] = ids[n] >= 0 (the
+// ids route).
 //
 // Replaces: metrics_tpu/kernels/scatter.py::_scatter_kernel (the Pallas TPU
 // kernel behind hist_add_pallas, hist_max_pallas and cms_rows_add_pallas).
@@ -56,9 +60,22 @@
 // samples per thread in the global branch (16-byte loads, every slot read
 // before any atomic) made it slower, not faster: more reads of a slot before
 // its atomic lands mean more stale reads and more atomics on hot slots.
-// Left for later: warp-aggregated atomics for skewed (Zipf) keys in the
-// shared branches and in cms_rows_add, and the same batched loads for
-// cms_rows_add.
+//
+// cms_rows_add. The columns route moves 17 bytes a sample at depth 4 (four
+// int32 columns and a flag) and its bound is bytes. The ids route reads 4
+// bytes an id and writes no (n, depth) column array for it to read back, and
+// the least time for its work is the larger of
+//   bytes: 4 * n + 8 * depth * width (the ids read once, the table read and
+//          written once) over 3.35 TB/s, and
+//   operations: 11 * depth * n (per id and row: the xor with the row seed,
+//          three shift-xor steps of 2, two multiplies, the modulo as a mask at
+//          a power-of-two width, the add) over 132 SMs x 128 lanes x the SM
+//          clock;
+// at 2^22 ids into 4 x 2048 that is 5.03 us of bytes against 5.52 us of
+// operations at 1980 MHz: the operations bind. Both routes load 16 bytes at a
+// time, add with one plain atomic per (sample, row) (see add_one for why not
+// warp-aggregated), and in the shared branch take at most one block of 1024
+// threads per SM (see cms_plan).
 //
 // Interface: plain C functions, loaded with ctypes (no PyTorch headers). Each
 // launches on the given stream, does not synchronise, allocates nothing, and
@@ -68,10 +85,12 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "cm_hash.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBigThreads = 1024;  // packed branch: one block fills an SM
+constexpr int kBigThreads = 1024;  // hist_max's packed and cms_rows_add's shared branch: one block fills an SM
 // Cap on resident blocks per SM for the global-atomic grid-stride loops.
 constexpr int kGlobalBlocksPerSm = 8;
 constexpr uint32_t kPackedEmpty = 0x80008000u;  // two int16 slots at -32768: not changed
@@ -251,44 +270,172 @@ hist_max_global_kernel(const int32_t* idx, const int32_t* val, long long n, int 
   hist_global<kMax>(idx, val, n, n_bins, out);
 }
 
-// cols: (n, depth) row-major; valid: n flags. Each thread takes whole samples.
-__global__ void __launch_bounds__(kThreads)
-cms_rows_add_shared_kernel(const int32_t* __restrict__ cols, const uint8_t* __restrict__ valid, long long n,
-                           int depth, int width, int32_t* __restrict__ out) {
-  extern __shared__ int32_t table[];
-  const int cells = depth * width;
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) table[i] = 0;
-  __syncthreads();
+// ---------------------------------------------------------------- count-min table
+//
+// Both column sources fold into one table (a block's private copy in shared
+// memory when it fits, else the output in global memory) through add_one.
 
+// table[cell] += 1: one atomic per (sample, row). Folding a warp's lanes on
+// the same cell first (__match_any_sync, the lowest lane adding the group's
+// popcount) was measured 4.6x slower on the shared branch at 2^22 Zipf(1.1)
+// ids into 4 x 2048 (H100: 124.5 against 27.0 us from ids, 130.6 against
+// 35.4 us from columns): the hottest id takes ~10% of the stream, about 3
+// lanes of a warp, and the match costs more than the atomics it saves.
+__device__ __forceinline__ void add_one(int32_t* table, int cell) { atomicAdd(table + cell, 1); }
+
+// Calls fn(x[e]) for this thread's grid-stride share of x[0, n), and fn(-1)
+// for the padding of a short pass. After a head of up to 3 elements to the
+// 16-byte boundary the elements come 4 to a load, two loads in flight; the
+// head and the n % 4 after the last vector are taken one by one by the first
+// threads.
+template <typename Fn>
+__device__ __forceinline__ void for_each_id(const int32_t* __restrict__ x, long long n, Fn&& fn) {
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += stride) {
-    if (!valid[k]) continue;
-    const int32_t* c = cols + k * depth;
-    for (int j = 0; j < depth; ++j) {
-      const int col = c[j];
-      if ((unsigned)col < (unsigned)width) atomicAdd(&table[j * width + col], 1);
-    }
+  const uintptr_t at = reinterpret_cast<uintptr_t>(x);
+  const long long head = min(n, (long long)(((16 - (at & 15)) & 15) / sizeof(int32_t)));
+  const long long n_vec = (n - head) / 4;
+  const int4* x4 = reinterpret_cast<const int4*>(x + head);
+  for (long long k = tid; k < n_vec; k += 2 * stride) {
+    const int4 a = __ldg(x4 + k);
+    const int4 b = k + stride < n_vec ? __ldg(x4 + k + stride) : make_int4(-1, -1, -1, -1);
+    fn(a.x);
+    fn(a.y);
+    fn(a.z);
+    fn(a.w);
+    fn(b.x);
+    fn(b.y);
+    fn(b.z);
+    fn(b.w);
+  }
+  const long long tail = head + n_vec * 4;  // elements [0, head) and [tail, n) one by one
+  if (tid < head + (n - tail)) fn(x[tid < head ? tid : tail + (tid - head)]);
+}
+
+// The ids route: counts[j, column(id, j)] += 1 for every id >= 0, the columns
+// hashed in registers (cm_hash.cuh). Shared memory holds the row seeds and,
+// in the shared branch, the block's table after them.
+template <bool kPow2, bool kShared>
+__device__ __forceinline__ void cms_ids(const int32_t* __restrict__ ids, long long n, int depth, int width,
+                                        int32_t* __restrict__ out) {
+  extern __shared__ int32_t smem[];
+  uint32_t* seeds = reinterpret_cast<uint32_t*>(smem);
+  int32_t* table = kShared ? smem + depth : out;
+  const int cells = depth * width;
+  for (int j = threadIdx.x; j < depth; j += blockDim.x) seeds[j] = cm_hash::row_seed(j);
+  if (kShared) {
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) table[i] = 0;
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-    const int32_t v = table[i];
-    if (v != 0) atomicAdd(&out[i], v);
+  for_each_id(ids, n, [&](int32_t id) {
+    if (id < 0) return;
+    for (int j = 0; j < depth; ++j) add_one(table, j * width + cm_hash::column<kPow2>(id, seeds[j], (uint32_t)width));
+  });
+
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      const int32_t v = table[i];
+      if (v != 0) atomicAdd(&out[i], v);
+    }
   }
 }
 
+// One __global__ per branch, so that a profile names each one.
+__global__ void __launch_bounds__(kBigThreads)
+cms_rows_add_ids_shared_kernel(const int32_t* ids, long long n, int depth, int width, int32_t* out) {
+  cms_ids<false, true>(ids, n, depth, width, out);
+}
+
+__global__ void __launch_bounds__(kBigThreads)
+cms_rows_add_ids_shared_pow2_kernel(const int32_t* ids, long long n, int depth, int width, int32_t* out) {
+  cms_ids<true, true>(ids, n, depth, width, out);
+}
+
 __global__ void __launch_bounds__(kThreads)
-cms_rows_add_global_kernel(const int32_t* __restrict__ cols, const uint8_t* __restrict__ valid, long long n,
-                           int depth, int width, int32_t* __restrict__ out) {
+cms_rows_add_ids_global_kernel(const int32_t* ids, long long n, int depth, int width, int32_t* out) {
+  cms_ids<false, false>(ids, n, depth, width, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cms_rows_add_ids_global_pow2_kernel(const int32_t* ids, long long n, int depth, int width, int32_t* out) {
+  cms_ids<true, false>(ids, n, depth, width, out);
+}
+
+// The columns route: counts[j, cols[s, j]] += 1 for every s with valid[s]
+// and 0 <= cols[s, j] < width. cols is (n, depth) row-major. When it sits on
+// a 16-byte boundary a lane takes 4 samples at a time: their 4 * depth
+// columns are depth 16-byte loads (up to 4 in flight). The n % 4 samples
+// after the last group, or every sample of an unaligned array, go one by one.
+template <bool kShared>
+__device__ __forceinline__ void cms_cols(const int32_t* __restrict__ cols, const uint8_t* __restrict__ valid,
+                                         long long n, int depth, int width, int32_t* __restrict__ out) {
+  extern __shared__ int32_t smem[];
+  int32_t* table = kShared ? smem : out;
+  const int cells = depth * width;
+  if (kShared) {
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) table[i] = 0;
+    __syncthreads();
+  }
+  const long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long k = (long long)blockIdx.x * blockDim.x + threadIdx.x; k < n; k += stride) {
-    if (!valid[k]) continue;
-    const int32_t* c = cols + k * depth;
-    for (int j = 0; j < depth; ++j) {
-      const int col = c[j];
-      if ((unsigned)col < (unsigned)width) atomicAdd(&out[(long long)j * width + col], 1);
+  const auto add = [&](int col, int row) {
+    if ((unsigned)col < (unsigned)width) add_one(table, row * width + col);
+  };
+
+  const bool aligned = (reinterpret_cast<uintptr_t>(cols) & 15) == 0;
+  const long long groups = aligned ? n / 4 : 0;
+  const int4* cols4 = reinterpret_cast<const int4*>(cols);
+  for (long long g = tid; g < groups; g += stride) {
+    unsigned flags = 0;  // bit q: sample 4g + q is valid
+#pragma unroll
+    for (int q = 0; q < 4; ++q) flags |= (__ldg(valid + 4 * g + q) != 0) << q;
+    int q = 0, row = 0;  // the sample in the group and the row of the next element
+    for (int u0 = 0; u0 < depth; u0 += 4) {
+      int4 c[4];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) c[v] = u0 + v < depth ? __ldg(cols4 + g * depth + u0 + v) : make_int4(0, 0, 0, 0);
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        if (u0 + v < depth) {
+          const int e[4] = {c[v].x, c[v].y, c[v].z, c[v].w};
+#pragma unroll
+          for (int w = 0; w < 4; ++w) {
+            if ((flags >> q) & 1) add(e[w], row);
+            if (++row == depth) {
+              row = 0;
+              ++q;
+            }
+          }
+        }
+      }
     }
   }
+  for (long long s = groups * 4 + tid; s < n; s += stride) {
+    if (__ldg(valid + s) == 0) continue;
+    for (int j = 0; j < depth; ++j) add(__ldg(cols + s * depth + j), j);
+  }
+
+  if (kShared) {
+    __syncthreads();
+    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
+      const int32_t v = table[i];
+      if (v != 0) atomicAdd(&out[i], v);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kBigThreads)
+cms_rows_add_shared_kernel(const int32_t* cols, const uint8_t* valid, long long n, int depth, int width,
+                           int32_t* out) {
+  cms_cols<true>(cols, valid, n, depth, width, out);
+}
+
+__global__ void __launch_bounds__(kThreads)
+cms_rows_add_global_kernel(const int32_t* cols, const uint8_t* valid, long long n, int depth, int width,
+                           int32_t* out) {
+  cms_cols<false>(cols, valid, n, depth, width, out);
 }
 
 long long ceil_div(long long a, long long b) { return (a + b - 1) / b; }
@@ -310,31 +457,28 @@ int uses_shared(long long cells) {
 // that fit on the card at once, each streaming at least max(cells, 4 *
 // kThreads) samples, which keeps the zeroing and merging of the private table
 // small against the stream; for the global branch up to kGlobalBlocksPerSm
-// blocks per SM. Sets *smem to the dynamic shared memory to launch with.
-cudaError_t plan(const void* kernel, bool shared, long long samples, long long cells, unsigned* grid,
-                 size_t* smem) {
+// blocks per SM. `smem` is the dynamic shared memory a block launches with.
+cudaError_t plan(const void* kernel, bool shared, long long samples, long long cells, size_t smem, unsigned* grid) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
   long long blocks = 0;
   if (shared) {
-    *smem = (size_t)cells * sizeof(int32_t);
-    if (*smem > 48 * 1024) {
-      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
-      if (err != cudaSuccess) return err;
-    }
     int per_sm = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, *smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
     if (err != cudaSuccess) return err;
     if (per_sm < 1) per_sm = 1;
     const long long per_block = cells > 4 * kThreads ? cells : 4 * kThreads;
     blocks = ceil_div(samples, per_block);
     if (blocks > (long long)sms * per_sm) blocks = (long long)sms * per_sm;
   } else {
-    *smem = 0;
     blocks = ceil_div(samples, kThreads);
     if (blocks > (long long)sms * kGlobalBlocksPerSm) blocks = (long long)sms * kGlobalBlocksPerSm;
   }
@@ -377,6 +521,27 @@ cudaError_t sm_count(int* sms) {
   return cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
 }
 
+// The grid and block of a count-min kernel: the global branch as plan() sets
+// it out; the shared branch at most one block of kBigThreads per SM, each
+// streaming at least max(cells, 4 * kBigThreads) samples. A block's table
+// costs one global atomic per cell at the end, so fewer, larger blocks fold
+// less: at 2^22 ids into 4 x 2048 this took the ids route from 27.2 to 19.0
+// us and the columns route from 35.7 to 29.5 (H100, against up to 7 blocks of
+// 256 threads a SM).
+cudaError_t cms_plan(const void* kernel, bool shared, long long n, long long cells, size_t smem, unsigned* grid,
+                     int* threads) {
+  *threads = kThreads;
+  cudaError_t err = plan(kernel, shared, n, cells, smem, grid);
+  if (err != cudaSuccess || !shared) return err;
+  int sms = 0;
+  err = sm_count(&sms);
+  if (err != cudaSuccess) return err;
+  const long long blocks = ceil_div(n, cells > 4 * kBigThreads ? cells : 4 * kBigThreads);
+  *grid = (unsigned)(blocks < sms ? blocks : sms);
+  *threads = kBigThreads;
+  return cudaSuccess;
+}
+
 int hist_launch(int op, HistKernel shared_kernel, HistKernel global_kernel, const void* idx, const void* val,
                 long long n, int n_bins, void* out, void* stream) {
   const int branch = hist_branch(n, n_bins, op);
@@ -396,9 +561,9 @@ int hist_launch(int op, HistKernel shared_kernel, HistKernel global_kernel, cons
     return (int)cudaGetLastError();
   }
   HistKernel kernel = branch == 1 ? shared_kernel : global_kernel;
+  const size_t smem = branch == 1 ? (size_t)n_bins * sizeof(int32_t) : 0;
   unsigned grid = 0;
-  size_t smem = 0;
-  err = plan((const void*)kernel, branch == 1, n, n_bins, &grid, &smem);
+  err = plan((const void*)kernel, branch == 1, n, n_bins, smem, &grid);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kThreads, smem, s>>>(i, v, n, n_bins, o);
   return (int)cudaGetLastError();
@@ -433,19 +598,46 @@ int cms_rows_add_launch(const void* cols, const void* valid, long long n, int de
   const int shared = uses_shared(cells);
   if (shared < 0) return -shared;
   const void* kernel = shared ? (const void*)cms_rows_add_shared_kernel : (const void*)cms_rows_add_global_kernel;
+  const size_t smem = shared ? (size_t)cells * sizeof(int32_t) : 0;
   unsigned grid = 0;
-  size_t smem = 0;
-  cudaError_t err = plan(kernel, shared, n, cells, &grid, &smem);
+  int threads = 0;
+  cudaError_t err = cms_plan(kernel, shared, n, cells, smem, &grid, &threads);
   if (err != cudaSuccess) return (int)err;
   const int32_t* c = static_cast<const int32_t*>(cols);
   const uint8_t* v = static_cast<const uint8_t*>(valid);
   int32_t* o = static_cast<int32_t*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (shared) {
-    cms_rows_add_shared_kernel<<<grid, kThreads, smem, s>>>(c, v, n, depth, width, o);
+    cms_rows_add_shared_kernel<<<grid, threads, smem, s>>>(c, v, n, depth, width, o);
   } else {
-    cms_rows_add_global_kernel<<<grid, kThreads, smem, s>>>(c, v, n, depth, width, o);
+    cms_rows_add_global_kernel<<<grid, threads, smem, s>>>(c, v, n, depth, width, o);
   }
+  return (int)cudaGetLastError();
+}
+
+// 1 when the ids route keeps the table in a block's shared memory (the table
+// and the depth row seeds fit), 0 when it keeps it in global memory, a
+// negative CUDA error code when the device cannot be queried.
+int scatter_cms_ids_shared(int depth, int width) { return uses_shared((long long)depth * width + depth); }
+
+// ids: n int32 on the device; out: depth * width int32, a copy of counts. The
+// caller guarantees 1 <= n < 2^31, 1 <= depth <= 4096, width >= 1 and
+// depth * width < 2^31. Ids below 0 count nowhere.
+int cms_ids_add_launch(const void* ids, long long n, int depth, int width, void* out, void* stream) {
+  const int shared = scatter_cms_ids_shared(depth, width);
+  if (shared < 0) return -shared;
+  const bool pow2 = (width & (width - 1)) == 0;
+  typedef void (*IdsKernel)(const int32_t*, long long, int, int, int32_t*);
+  const IdsKernel kernel = shared ? (pow2 ? cms_rows_add_ids_shared_pow2_kernel : cms_rows_add_ids_shared_kernel)
+                                  : (pow2 ? cms_rows_add_ids_global_pow2_kernel : cms_rows_add_ids_global_kernel);
+  const long long cells = (long long)depth * width;
+  const size_t smem = (size_t)(depth + (shared ? cells : 0)) * sizeof(int32_t);
+  unsigned grid = 0;
+  int threads = 0;
+  cudaError_t err = cms_plan((const void*)kernel, shared, n, cells, smem, &grid, &threads);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(static_cast<const int32_t*>(ids), n, depth,
+                                                                     width, static_cast<int32_t*>(out));
   return (int)cudaGetLastError();
 }
 

@@ -63,7 +63,10 @@ def _adjust_threshold_arg(thresholds: Thresholds = None, device: Optional[torch.
     if isinstance(thresholds, (list, tuple)):
         return torch.tensor(thresholds, dtype=torch.float32, device=device)
     if thresholds is not None:
-        return torch.as_tensor(thresholds).to(device=device, dtype=torch.float32)
+        thresholds = torch.as_tensor(thresholds).to(device=device, dtype=torch.float32)
+        if thresholds.ndim > 1:  # the JAX package's searchsorted raises ValueError on it
+            raise ValueError(f"Expected `thresholds` to be 1-dimensional, got shape {tuple(thresholds.shape)}.")
+        return thresholds
     return None
 
 
@@ -80,6 +83,10 @@ def _binary_clf_curve(preds: Tensor, target: Tensor, pos_label: int = 1) -> Tupl
     keep = preds != _EXACT_IGNORE_SENTINEL
     if not bool(keep.all()):
         preds, target = preds[keep], target[keep]
+    if preds.shape[0] == 0:
+        # the JAX package's gather of the last index raises TypeError here (an
+        # accident of its code that the port copies, so both raise the same type)
+        raise TypeError("An exact-mode curve needs at least one score that is not ignored, got none.")
     order = torch.argsort(preds, stable=True).flip(0)
     preds = preds[order]
     target = (target[order] == pos_label).to(torch.float32)

@@ -96,6 +96,9 @@ def _multiclass_stat_scores_tensor_validation(
                          " (N, ...) and `preds` should be (N, C, ...).")
 
     if _value_check_possible(target):
+        if ignore_index is None and target.numel() == 0:
+            # the JAX package's check takes the minimum of the empty target, which raises ValueError
+            raise ValueError("Expected a non-empty `target`: an empty batch has no minimum to check against 0.")
         num_unique = max(int(target.max()), 0) + 1 if target.numel() else 1
         check = num_unique > (num_classes if ignore_index is None else num_classes + 1)
         if (ignore_index is None and int(target.min()) < 0) or check:
@@ -107,7 +110,14 @@ def _multiclass_stat_scores_tensor_validation(
 
 
 def _multiclass_stat_scores_format(preds: Tensor, target: Tensor, top_k: int = 1) -> Tuple[Tensor, Tensor]:
-    """Flatten extra dims: preds ``(N, C, X)`` probs (or ``(N, X)`` labels), target ``(N, X)``."""
+    """Flatten extra dims: preds ``(N, C, X)`` probs (or ``(N, X)`` labels), target ``(N, X)``.
+
+    An empty batch raises ZeroDivisionError, as ``jnp.reshape(x, (0, -1))``
+    does in the JAX package (an accident of its shape arithmetic that the port
+    copies, so that both packages raise the same type).
+    """
+    if preds.shape[0] == 0:
+        raise ZeroDivisionError("An empty batch cannot be flattened to (N, -1): the size of -1 is ambiguous.")
     if preds.is_floating_point():
         if top_k == 1:
             preds = torch.argmax(preds, dim=1)

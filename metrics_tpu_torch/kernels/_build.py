@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into a shared library, then loaded with ``ctypes``.
 The build happens at first use, from the sources in the checkout, into
 ``build/metrics_tpu_torch/`` at the root of the checkout. The library's file
-name carries a hash of the source and the flags, so an edited source
-rebuilds. Nothing here runs at import time.
+name carries a hash of the source, the headers in ``csrc/`` and the flags,
+so an edited source or header rebuilds. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -40,8 +40,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where the library built from ``csrc/<name>.cu`` lives for this source."""
+    """Where the library built from ``csrc/<name>.cu`` lives for this source
+    and the headers beside it."""
     digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 

@@ -7,7 +7,11 @@ Every sketch update is an int32 scatter:
 - ``hist_max``: ``bins[i] = max(bins[i], max of v)`` over the samples with
   ``idx == i`` (the HyperLogLog rank registers);
 - ``cms_rows_add``: ``counts[j, cols[n, j]] += valid[n]`` for every depth row
-  ``j`` (the count-min table).
+  ``j`` (the count-min table). Its kernel takes the columns from two sources:
+  a ``(N, depth)`` array (``cms_rows_add_cuda``, the registry entry), or ids
+  hashed inside the kernel (``cms_ids_add_cuda``, the ids route that
+  ``sketch.kernels.cms_table_update`` calls on the card: one launch per
+  update, and no ``(N, depth)`` array in device memory).
 
 Indices outside ``[0, B)`` contribute nothing. Each comes three ways:
 
@@ -36,6 +40,7 @@ from __future__ import annotations
 import ctypes
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -46,7 +51,10 @@ KERNEL_NAME = "scatter"  # csrc/scatter.cu
 MAX_CUDA_SIZE = 2**31 - 1  # N and the table size are indexed within int32 range
 _INT32_MIN = -(2**31)
 
-# Launches of each CUDA kernel, counted by its wrapper where it launches.
+CMS_MAX_DEPTH = 4096  # count-min rows a kernel takes: their hash seeds sit in shared memory
+
+# Launches of each CUDA kernel, counted by its wrapper where it launches
+# (``cms_rows_add`` by both of its column sources).
 launches: Dict[str, int] = {"hist_add": 0, "hist_max": 0, "cms_rows_add": 0}
 
 _INT_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8)
@@ -91,6 +99,41 @@ def cms_rows_add_reference(counts: Tensor, cols: Tensor, valid: Tensor) -> Tenso
     return flat.reshape(depth, width)
 
 
+def cms_ids_add_reference(counts: Tensor, ids: Tensor) -> Tensor:
+    """``counts[j, column(id, j)] += 1`` for every ``id >= 0`` and depth row
+    ``j``: ``sketch.kernels._cm_columns`` and :func:`cms_rows_add_reference`."""
+    from metrics_tpu_torch.sketch.kernels import _cm_columns  # the sketch plane imports this module
+
+    depth, width = counts.shape
+    i = ids.reshape(-1).to(torch.int32)
+    return cms_rows_add_reference(counts, _cm_columns(i, depth, width), i >= 0)
+
+
+_GOLD = 0x9E3779B9
+
+
+def _mix32_u32(x: np.ndarray) -> np.ndarray:
+    x = x ^ (x >> np.uint32(16))
+    x = x * np.uint32(0x85EBCA6B)
+    x = x ^ (x >> np.uint32(13))
+    x = x * np.uint32(0xC2B2AE35)
+    return x ^ (x >> np.uint32(16))
+
+
+def ids_route_columns(ids: Tensor, depth: int, width: int) -> Tensor:
+    """The ``(N, depth)`` int32 columns as ``csrc/cm_hash.cuh`` computes them,
+    in its own arithmetic: uint32 lanes, the row seed ``mix32((j + 1) *
+    0x9E3779B9)`` wrapped in 32 bits, ``% width`` (a mask for a power of two).
+    For CPU tensors; the CPU tests hold it against the JAX package's
+    ``_cm_columns``."""
+    x = ids.reshape(-1).to(torch.int32).numpy().view(np.uint32)
+    with np.errstate(over="ignore"):
+        seeds = _mix32_u32(np.arange(1, depth + 1, dtype=np.uint32) * np.uint32(_GOLD))
+        h = _mix32_u32(x[:, None] ^ seeds[None, :])
+    col = h & np.uint32(width - 1) if width & (width - 1) == 0 else h % np.uint32(width)
+    return torch.from_numpy(col.astype(np.int32))
+
+
 # --------------------------------------------------------------------- CUDA wrappers
 
 
@@ -105,6 +148,12 @@ def _lib() -> ctypes.CDLL:
             ctypes.c_void_p, ctypes.c_void_p,
         ]
         lib.cms_rows_add_launch.restype = ctypes.c_int
+        lib.cms_ids_add_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ]
+        lib.cms_ids_add_launch.restype = ctypes.c_int
+        lib.scatter_cms_ids_shared.argtypes = [ctypes.c_int, ctypes.c_int]
+        lib.scatter_cms_ids_shared.restype = ctypes.c_int
         lib.scatter_uses_shared.argtypes = [ctypes.c_longlong]
         lib.scatter_uses_shared.restype = ctypes.c_int
         lib.scatter_hist_branch.argtypes = [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
@@ -137,6 +186,17 @@ def hist_branch(kernel: str, n: int, n_bins: int) -> str:
     if code < 0:
         raise RuntimeError(f"scatter_hist_branch: CUDA error {-code}")
     return HIST_BRANCHES[code]
+
+
+def cms_ids_branch(depth: int, width: int) -> str:
+    """The branch the ids route of ``cms_rows_add`` takes on the current CUDA
+    device for a ``depth x width`` table: ``"shared"`` (a private table per
+    block, beside the row seeds) or ``"global"`` (global atomics). Builds the
+    kernels if needed."""
+    code = _lib().scatter_cms_ids_shared(depth, width)
+    if code < 0:
+        raise RuntimeError(f"scatter_cms_ids_shared: CUDA error {-code}")
+    return "shared" if code else "global"
 
 
 def _flat_int32(what: str, name: str, x: Tensor, device: torch.device, allow_bool: bool = False) -> Tensor:
@@ -247,6 +307,40 @@ def cms_rows_add_cuda(counts: Tensor, cols: Tensor, valid: Tensor) -> Tensor:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = _lib().cms_rows_add_launch(c.data_ptr(), flags.data_ptr(), n, depth, width, out.data_ptr(), stream)
+    _raise_on(code, "cms_rows_add")
+    _counted("cms_rows_add")
+    return out
+
+
+def cms_ids_add_cuda(counts: Tensor, ids: Tensor) -> Tensor:
+    """:func:`cms_ids_add_reference` by the CUDA kernel ``csrc/scatter.cu``
+    (``cms_rows_add``, its ids route): one launch hashes each id's columns in
+    registers (``csrc/cm_hash.cuh``) and folds them into the table.
+
+    On a CPU tensor this is the plain version. On a CUDA tensor the kernel is
+    launched on the current stream or the call raises: on another device, a
+    table that is not 2-D int32, more than ``CMS_MAX_DEPTH`` rows, non-integer
+    or non-contiguous ids, N >= 2**31, or a launch error.
+    """
+    if counts.device.type == "cpu":
+        return cms_ids_add_reference(counts, ids)
+    what = "cms_ids_add_cuda"
+    _check_table(what, counts, 2)
+    depth, width = counts.shape
+    if depth > CMS_MAX_DEPTH:
+        raise ValueError(f"{what}: depth {depth} is above CMS_MAX_DEPTH = {CMS_MAX_DEPTH}")
+    device = counts.device
+    i = _flat_int32(what, "ids", ids, device)
+    n = i.numel()
+    if n > MAX_CUDA_SIZE:
+        raise ValueError(f"{what}: N = {n} >= 2**31 is not supported")
+    _require_cuda(what, device)
+    out = counts.clone(memory_format=torch.contiguous_format)
+    if n == 0:
+        return out
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = _lib().cms_ids_add_launch(i.data_ptr(), n, depth, width, out.data_ptr(), stream)
     _raise_on(code, "cms_rows_add")
     _counted("cms_rows_add")
     return out

@@ -25,15 +25,19 @@ multiply is taken in 16-bit halves so that no int64 product overflows: the
 bits are the JAX package's, on the CPU and on the card. :func:`hash32`
 returns those int64 lanes.
 
-The scatter updates (DDSketch bucket scatter-add, HLL register scatter-max,
-count-min row scatter-adds) dispatch through the kernel registry under the
-JAX names ``ddsketch_hist_add`` / ``hll_scatter_max`` / ``cms_row_scatter``:
-the CUDA kernels of ``csrc/scatter.cu`` on CUDA tensors, the plain versions on
-CPU tensors. The ledger walk of :func:`cms_update` (a ``lax.scan`` in the JAX
-package, with no Pallas body) is a plain loop over the batch here: each
-replacement decision reads the count-min estimate including its own item's
-increment, a sequential dependency no batched scatter can honour. The loop
-never reads a tensor value on the host, so on the card it only enqueues.
+The DDSketch bucket scatter-add and the HLL register scatter-max dispatch
+through the kernel registry under the JAX names ``ddsketch_hist_add`` /
+``hll_scatter_max``: the CUDA kernels of ``csrc/scatter.cu`` on CUDA tensors,
+the plain versions on CPU tensors. The count-min table update
+(:func:`cms_table_update`) takes the registry entry ``cms_row_scatter`` on
+the CPU and, on the card, the ids route of the same kernel, which hashes the
+columns itself (see there). The ledger walk of :func:`cms_update` (a
+``lax.scan`` in the JAX package, with no Pallas body) is one launch of the
+CUDA kernel ``csrc/cms_walk.cu`` on the card and a plain loop over the batch
+on the CPU (:mod:`metrics_tpu_torch.kernels.cms_walk`): each replacement
+decision reads the count-min estimate including its own item's increment, a
+sequential dependency no batched scatter can honour. Neither reads a tensor
+value on the host, so on the card they only enqueue.
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.kernels import cms_walk, scatter
 from metrics_tpu_torch.kernels import registry as _kernel_registry  # the package registers every entry
 
 __all__ = [
@@ -301,46 +306,35 @@ def cms_update(counts: Tensor, ledger: Tensor, values: Any) -> Tuple[Tensor, Ten
     estimate; otherwise it evicts the first minimum slot iff its estimate
     exceeds that slot's count. Empty slots are ``[-1, 0]``, so they go first.
     A negative id is invalid and changes nothing. ``counts`` and ``ledger``
-    are left as they were.
+    are left as they were. One launch of the walk kernel on the card
+    (:func:`metrics_tpu_torch.kernels.cms_walk.cms_walk_cuda`), the plain loop
+    on the CPU.
     """
-    depth, width = counts.shape
-    k = ledger.shape[0]
-    ids = torch.as_tensor(values, device=counts.device).reshape(-1).to(torch.int32)
+    ids = torch.as_tensor(values, device=counts.device).reshape(-1).to(torch.int32).contiguous()
     if ids.numel() == 0:
         return counts, ledger
-    device = counts.device
-    # every item's flat (depth,) cells, hashed in one batch: the same columns
-    # the JAX scan hashes one item at a time
-    cells = _cm_columns(ids, depth, width).to(torch.int64) + torch.arange(depth, device=device) * width
-    valid = ids >= 0
-    inc = valid.to(counts.dtype)[:, None].expand(-1, depth).contiguous()  # (N, depth)
-    slot = torch.arange(k, device=device)
-    counts = counts.clone(memory_format=torch.contiguous_format)
-    flat = counts.view(-1)  # updated in place: this clone is the function's own
-    keys, cnts = ledger[:, 0], ledger[:, 1]
-    for n in range(ids.shape[0]):
-        x, ok, at = ids[n], valid[n], cells[n]
-        flat.index_add_(0, at, inc[n])  # one kernel (an accumulating index_put_ sorts first on the card)
-        est = flat[at].min()
-        present = (keys == x) & ok
-        cnts = torch.where(present, torch.maximum(cnts, est), cnts)
-        # cnts[argmin(cnts)] is cnts.min(); argmin takes the first minimum, as jnp.argmin does
-        evict = ok & ~present.any() & (est > cnts.min())
-        sel = (slot == torch.argmin(cnts)) & evict
-        keys = torch.where(sel, x, keys)
-        cnts = torch.where(sel, est, cnts)
-    return counts, torch.stack([keys, cnts], dim=1)
+    return cms_walk.cms_walk_cuda(counts, ledger, ids)
 
 
 def cms_table_update(counts: Tensor, values: Any) -> Tensor:
     """Bulk count-min TABLE update: no candidate ledger, one batched scatter.
 
     Bit-identical to the counts of :func:`cms_update` on the same batch
-    (integer adds commute); the row scatters dispatch ``cms_row_scatter``.
+    (integer adds commute). On a CUDA tensor this is one launch of the ids
+    route of ``cms_rows_add`` (:func:`metrics_tpu_torch.kernels.scatter.cms_ids_add_cuda`),
+    which hashes each id's columns in registers: no ``(N, depth)`` column
+    array is written and read back, and the hash is not the ~30 elementwise
+    int64 passes of :func:`_cm_columns`. That route does not go through the
+    registry entry ``cms_row_scatter``, whose contract (columns in, as in the
+    JAX package) it cannot keep; on the CPU the update hashes with
+    :func:`_cm_columns` and dispatches ``cms_row_scatter`` as the JAX package
+    does.
     """
-    ids = torch.as_tensor(values, device=counts.device).reshape(-1).to(torch.int32)
+    ids = torch.as_tensor(values, device=counts.device).reshape(-1).to(torch.int32).contiguous()
     if ids.numel() == 0:
         return counts
+    if counts.device.type == "cuda":
+        return scatter.cms_ids_add_cuda(counts, ids)
     depth, width = counts.shape
     cols = _cm_columns(ids, depth, width)  # (N, depth)
     valid = ids >= 0  # negative ids are invalid (the ledger's sentinel) everywhere

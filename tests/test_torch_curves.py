@@ -420,6 +420,50 @@ def test_bad_input_raises_the_same_error(name, arrays, kw):
     assert str(got.value)[:30] == str(want.value)[:30]  # the rest names dtypes and shapes in each stack's spelling
 
 
+_SCORES2 = np.array([0.2, 0.4], np.float32)
+_SCORES3 = np.array([0.2, 0.4, 0.9], np.float32)
+_PROBS3 = np.array([[0.2, 0.3, 0.5], [0.6, 0.3, 0.1], [0.1, 0.1, 0.8]], np.float32)
+DEGENERATE_INPUTS = [
+    # exact mode with no row kept: JAX's gather of the last index raises TypeError (an
+    # accident of its code that the port copies)
+    ("binary_roc", (_SCORES2, np.array([-1, -1], np.int32)), {"ignore_index": -1}, TypeError),
+    ("binary_precision_recall_curve", (_SCORES2, np.array([-1, -1], np.int32)), {"ignore_index": -1}, TypeError),
+    ("binary_auroc", (np.zeros(0, np.float32), np.zeros(0, np.int32)), {}, TypeError),
+    ("binary_average_precision", (np.zeros(0, np.float32), np.zeros(0, np.int32)), {}, TypeError),
+    # a 2-D thresholds tensor: ValueError from JAX's searchsorted, from the port's argument check
+    ("binary_precision_recall_curve", (_SCORES3, np.array([1, 0, 1], np.int32)),
+     {"thresholds": np.array([[0.1, 0.5]], np.float32)}, ValueError),
+    ("binary_roc", (_SCORES3, np.array([1, 0, 1], np.int32)),
+     {"thresholds": np.array([[0.1], [0.5]], np.float32), "validate_args": False}, ValueError),
+    ("multiclass_precision_recall_curve", (_PROBS3, np.array([0, 1, 2], np.int32)),
+     {"num_classes": 3, "thresholds": np.array([[0.1, 0.5]], np.float32)}, ValueError),
+]
+
+
+@pytest.mark.parametrize("name,arrays,kw,error", DEGENERATE_INPUTS)
+def test_degenerate_input_raises_the_jax_type(name, arrays, kw, error):
+    """Inputs on which the port once raised another type than the JAX package."""
+    jax_kw = {k: jnp.asarray(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    port_kw = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in kw.items()}
+    with pytest.raises(Exception) as want:
+        getattr(jf, name)(*[jnp.asarray(a) for a in arrays], **jax_kw)
+    assert want.type is error
+    with pytest.raises(error):
+        getattr(tf, name)(*[torch.from_numpy(a) for a in arrays], **port_kw)
+
+
+def test_exact_class_with_no_row_kept_raises_the_jax_type_at_compute():
+    preds, target = _SCORES2, np.array([-1, -1], np.int32)
+    jm = jc.BinaryROC(thresholds=None, ignore_index=-1)
+    jm.update(jnp.asarray(preds), jnp.asarray(target))
+    with pytest.raises(TypeError):
+        jm.compute()
+    tm = tc.BinaryROC(thresholds=None, ignore_index=-1, device="cpu")
+    tm.update(torch.from_numpy(preds), torch.from_numpy(target))
+    with pytest.raises(TypeError):
+        tm.compute()
+
+
 @pytest.mark.parametrize("thresholds", [11])
 def test_merge_of_two_half_streams_equals_the_single_stream(thresholds):
     batches = [binary_data(s, n=N if thresholds else 80, exact=thresholds is None) for s in (20, 21, 22, 23)]

@@ -30,7 +30,7 @@ from metrics_tpu.sketch import HeavyHittersSketch as JaxHeavyHitters
 from metrics_tpu.sketch import QuantileSketch as JaxQuantile
 from metrics_tpu.sketch import kernels as J
 from metrics_tpu_torch.functional import approx_count_distinct, approx_heavy_hitters, approx_quantiles
-from metrics_tpu_torch.kernels import scatter
+from metrics_tpu_torch.kernels import cms_walk, scatter
 from metrics_tpu_torch.sketch import CardinalitySketch, HeavyHittersSketch, QuantileSketch
 from metrics_tpu_torch.sketch import kernels as T
 from metrics_tpu_torch.utils.params_io import metric_state_from_jax
@@ -260,12 +260,18 @@ def test_topk_merge_of_many_ledgers_with_shared_keys():
 
 
 def test_cms_update_never_reads_a_tensor_on_the_host():
-    """On ``meta`` tensors any ``.item()`` or Python ``if`` on a tensor raises:
-    the ledger walk only enqueues work, so on the card it never waits."""
+    """On ``meta`` tensors any ``.item()`` or Python ``if`` on a tensor raises.
+    The plain ledger walk only enqueues work; ``cms_update`` off the CPU
+    goes to the walk kernel's wrapper, which gets to its device check (and
+    raises there on ``meta``) without a host read, so on the card it never
+    waits."""
     counts = torch.zeros((4, 64), dtype=torch.int32, device="meta")
     ledger = torch.zeros((8, 2), dtype=torch.int32, device="meta")
-    out_counts, out_ledger = T.cms_update(counts, ledger, torch.zeros(5, dtype=torch.int32, device="meta"))
+    ids = torch.zeros(5, dtype=torch.int32, device="meta")
+    out_counts, out_ledger = cms_walk.cms_walk_reference(counts, ledger, ids)
     assert out_counts.shape == (4, 64) and out_ledger.shape == (8, 2)
+    with pytest.raises(ValueError, match="cms_walk_cuda: tensors must lie on a CUDA device or the CPU, got meta"):
+        T.cms_update(counts, ledger, ids)
 
 
 def test_cms_update_leaves_its_inputs_alone():

@@ -160,20 +160,53 @@ def _bad_tensors():
         "target_out_of_range": (labels, labels + NUM_CLASSES, "global"),
         "negative_target": (labels, labels - NUM_CLASSES, "global"),
         "preds_out_of_range": (labels + NUM_CLASSES, labels, "global"),
+        # an empty batch: JAX raises ValueError (the minimum of an empty target) without
+        # ignore_index, and ZeroDivisionError (jnp.reshape(x, (0, -1))) with it; the port
+        # copies both types
+        "empty_batch": (labels[:0], labels[:0], "global"),
+        "empty_batch_ignore_index": (labels[:0], labels[:0], "global", 1),
+        "empty_batch_probs": (probs[:0], labels[:0], "global"),
     }
 
 
 @pytest.mark.parametrize("case", sorted(_bad_tensors()))
 def test_tensor_validation_raises_the_same_type(case):
-    preds, target, mda = _bad_tensors()[case]
+    preds, target, mda, *ignore = _bad_tensors()[case]
+    kw = {"multidim_average": mda, "ignore_index": ignore[0] if ignore else None}
     (jp, tp), (jt, tt) = _pair(preds), _pair(target)
-    want = _raised(lambda: jax_multiclass_stat_scores(jp, jt, NUM_CLASSES, multidim_average=mda))
-    got = _raised(lambda: multiclass_stat_scores(tp, tt, NUM_CLASSES, multidim_average=mda))
+    want = _raised(lambda: jax_multiclass_stat_scores(jp, jt, NUM_CLASSES, **kw))
+    got = _raised(lambda: multiclass_stat_scores(tp, tt, NUM_CLASSES, **kw))
     assert want is not None and got is want
     if mda == "global":
-        want_cm = _raised(lambda: jax_multiclass_confusion_matrix(jp, jt, NUM_CLASSES))
-        got_cm = _raised(lambda: multiclass_confusion_matrix(tp, tt, NUM_CLASSES))
+        want_cm = _raised(lambda: jax_multiclass_confusion_matrix(jp, jt, NUM_CLASSES, ignore_index=kw["ignore_index"]))
+        got_cm = _raised(lambda: multiclass_confusion_matrix(tp, tt, NUM_CLASSES, ignore_index=kw["ignore_index"]))
         assert got_cm is want_cm
+
+
+@pytest.mark.parametrize("validate_args", [True, False])
+@pytest.mark.parametrize("ignore_index", [None, 1])
+@pytest.mark.parametrize(
+    "jax_fn,port_fn",
+    [
+        (jax_multiclass_accuracy, multiclass_accuracy),
+        (jax_multiclass_f1_score, multiclass_f1_score),
+        (jax_multiclass_stat_scores, multiclass_stat_scores),
+        (jax_multiclass_confusion_matrix, multiclass_confusion_matrix),
+    ],
+    ids=["accuracy", "f1_score", "stat_scores", "confusion_matrix"],
+)
+def test_empty_batch_raises_the_jax_type(jax_fn, port_fn, ignore_index, validate_args):
+    """``preds = target = int64 zeros(0)``: ValueError from the validation
+    without ``ignore_index``, else ZeroDivisionError from the flattening, in
+    both packages (JAX's ZeroDivisionError is an accident of ``jnp.reshape``
+    that the port copies)."""
+    empty = np.zeros(0, np.int64)
+    (jp, tp), (jt, tt) = _pair(empty), _pair(empty)
+    kw = {"ignore_index": ignore_index, "validate_args": validate_args}
+    want = _raised(lambda: jax_fn(jp, jt, num_classes=3, **kw))
+    got = _raised(lambda: port_fn(tp, tt, num_classes=3, **kw))
+    assert want is (ValueError if ignore_index is None and validate_args else ZeroDivisionError)
+    assert got is want
 
 
 def test_invalid_normalize_raises_the_same_type():
