@@ -8,7 +8,8 @@ It builds every CUDA kernel of the port's main path from the sources in the
 checkout, and then:
 
 - Phase A holds each kernel against its plain PyTorch version on the card
-  (``torch.equal`` on int32 counts) at the training step's shape and others:
+  (``torch.equal`` on int32 counts) at the training step's shape, at the
+  six-metric collection's (Phase J2) and others:
   both branches of the pair-count kernel, a ragged length, a mask,
   out-of-range and negative indices, and N = 0.
 - Phase B drives the main path through the user's entry point
@@ -88,6 +89,27 @@ checkout, and then:
   least work that computes the function; no single PyTorch call
   computes the function, so the three-call bucketize + bincount + cumsum
   route is timed beside it) and the five binary updates per batch.
+- Phase J drives the metric core. J1: the flagship step at full width with
+  its three metrics in a ``MetricCollection`` (one eager ``update`` forms
+  the groups the JAX package forms, {accuracy, f1} and {confmat}; then
+  ``init_state`` / ``update_state`` / ``compute_from``): 20 chained steps of
+  ``sgd_step`` + ``argmax`` + ``update_state``, 2 pair-count launches per
+  step against 3 for the same metrics as a dict on the same predictions,
+  states and values equal to the dict path's (``torch.equal``), and the
+  step timed beside the bare and the dict step as Phase C times it. J2: the
+  six-metric collection of ``benchmarks/collections_vs_reference.py``
+  (accuracy micro; precision, recall, F1, specificity macro; a confusion
+  matrix) at N = 10^6, C = 100, with compute groups on and off: the groups
+  at construction and after the first update as the JAX package forms them,
+  2 against 6 launches per update (4 in the update that forms the groups,
+  one per group seeded at construction), int32 states equal in both modes
+  and to a CPU recomputation, ``compute()`` equal, and 8 updates timed by
+  CUDA events (groups on and off interleaved, minimum of 5). J3: Sum, Mean,
+  Max, Min and Cat on 2^22 float32 values with NaN under "warn", "ignore"
+  and a float imputation (Max, Min and Cat exact, Sum and Mean within rtol
+  1e-5 of a float64 CPU sum), every state on the card, and
+  ``MulticlassPrecision + MulticlassRecall`` and ``2 * MeanMetric`` equal to
+  the operator on their children's values.
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
@@ -126,6 +148,14 @@ EXACT_N = 2**20
 ZIPF_IDS = 10**7
 ZIPF_S = 1.1
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+SIX_N = 10**6  # labels per update of the six-metric collection (benchmarks/collections_vs_reference.py)
+SIX_C = 100
+SIX_UPDATES = 8  # timed updates after the one that forms the groups
+AGG_N = 2**22  # values per aggregator update in Phase J3
+# the compute groups the JAX package forms for the same collections on the CPU
+FLAGSHIP_GROUPS = {0: ["accuracy", "f1"], 1: ["confmat"]}
+SIX_GROUPS_BUILT = {0: ["acc"], 1: ["cm"], 2: ["f1"], 3: ["prec", "rec", "spec"]}
+SIX_GROUPS = {0: ["acc", "f1", "prec", "rec", "spec"], 1: ["cm"]}
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -155,6 +185,7 @@ def _pair_count_cases():
     return [
         ("train_step", 1024, 1000, 1000, (0, 1000), False),  # the main path's global-atomic branch
         ("shared_1M", 2**20, 100, 100, (0, 100), False),  # the shared-memory branch
+        ("six_metric_update", SIX_N, SIX_C, SIX_C, (0, SIX_C), False),  # Phase J2's shape
         ("ragged", 4097, 7, 23, (0, 23), False),
         ("masked", 65539, 50, 50, (0, 50), True),
         ("out_of_range", 10000, 20, 20, (-5, 25), False),
@@ -1401,6 +1432,245 @@ def phase_i(torch, bc, data) -> dict:
     return recs
 
 
+def _pair_count_launches(instrument) -> int:
+    return int(instrument.KERNEL_LAUNCHES.value(kernel="pair_count"))
+
+
+def phase_j1(torch, entry_mod, obs, instrument, steps_c: dict, dev: str = "cuda", **config) -> dict:
+    """The flagship step at full width with its three metrics in a MetricCollection,
+    against the same three as a dict, counted, verified and timed."""
+    from metrics_tpu_torch import MetricCollection
+
+    cfg = {**entry_mod.FULL_CONFIG, **config}
+    params, x, y = entry_mod.make_inputs(0, cfg["batch"], cfg["hidden"], cfg["classes"], cfg["layers"], dev)
+    col = MetricCollection(entry_mod.make_metrics(cfg["classes"], dev))
+    metrics = entry_mod.make_metrics(cfg["classes"], dev)
+    built = {k: list(v) for k, v in col.compute_groups.items()}
+    # one eager update forms the groups; the functional states start from init_state() after it
+    col.update(torch.argmax(entry_mod.forward(params, x, y)[1], dim=-1), y)
+    groups = {k: list(v) for k, v in col.compute_groups.items()}
+    print(f"phase J1 compute groups: built {built}, after one update {groups}")
+    _check(groups == FLAGSHIP_GROUPS, f"flagship groups {groups}, the JAX package forms {FLAGSHIP_GROUPS}")
+    col_states = col.init_state()
+    _check(sorted(col_states) == ["accuracy", "confmat"], f"collection states {sorted(col_states)}")
+    dict_states = {name: m.init_state() for name, m in metrics.items()}
+
+    # sgd_step + argmax + col.update_state, chained; the dict path's three update_state calls on the
+    # same predictions; pair-count launches counted around each
+    col_launches, dict_launches = [], []
+    obs.enable()
+    try:
+        instrument.KERNEL_LAUNCHES.clear()  # the main path's run starts here ...
+        for _ in range(FLAGSHIP_STEPS):
+            params, loss, logits = entry_mod.sgd_step(params, x, y)
+            preds = torch.argmax(logits, dim=-1)
+            before = _pair_count_launches(instrument)
+            col_states = col.update_state(col_states, preds, y)
+            mid = _pair_count_launches(instrument)
+            dict_states = {name: m.update_state(dict_states[name], preds, y) for name, m in metrics.items()}
+            col_launches.append(mid - before)
+            dict_launches.append(_pair_count_launches(instrument) - mid)
+        total = _pair_count_launches(instrument)  # ... and ends here
+    finally:
+        obs.disable()
+    print(f"phase J1 {FLAGSHIP_STEPS} steps: pair_count launches per step {col_launches[0]} through the collection, "
+          f"{dict_launches[0]} through the dict; {total} in all")
+    _check(col_launches == [2] * FLAGSHIP_STEPS, f"collection launches per step {col_launches}")
+    _check(dict_launches == [3] * FLAGSHIP_STEPS, f"dict launches per step {dict_launches}")
+    _check(bool(torch.isfinite(loss)), f"non-finite loss {loss}")
+    for name in metrics:
+        got = col_states["accuracy" if name == "f1" else name]
+        for key, want in dict_states[name].items():
+            _check(got[key].dtype == want.dtype and got[key].device == want.device, f"{name}.{key} dtype/device")
+            _check(torch.equal(got[key], want), f"{name}.{key}: collection state differs from the dict path's")
+    values = col.compute_from(col_states)
+    for name, m in metrics.items():
+        want = m.compute_from(dict_states[name])
+        _check(torch.equal(values[name], want), f"{name}: collection value {values[name]} vs dict {want}")
+    print(f"phase J1 states and compute_from values equal the dict path's (torch.equal); accuracy="
+          f"{float(values['accuracy'])} f1={float(values['f1'])} confmat total={int(values['confmat'].sum())}")
+
+    # time: bare, dict and collection steps, interleaved repetitions, minimum of each
+    col_step, dict_step = entry_mod.make_step(col), entry_mod.make_step(metrics)
+    reps = {"bare": [], "dict": [], "collection": []}
+    st = {"dict": dict_states, "collection": col_states}
+
+    def run(kind):
+        def go():
+            nonlocal params
+            if kind == "bare":
+                params, _, _ = entry_mod.sgd_step(params, x, y)
+            else:
+                _, params, st[kind] = (dict_step if kind == "dict" else col_step)(params, st[kind], x, y)
+        return go
+
+    for _ in range(TIMING_REPS):
+        for kind in reps:
+            reps[kind].append(_time_ms(run(kind), FLAGSHIP_STEPS, warmup=1))
+    t = {k: min(v) for k, v in reps.items()}
+    rec = {"bare_ms": t["bare"], "dict_ms": t["dict"], "collection_ms": t["collection"],
+           "dict_overhead_pct": (t["dict"] - t["bare"]) / t["bare"] * 100.0,
+           "collection_overhead_pct": (t["collection"] - t["bare"]) / t["bare"] * 100.0,
+           "phase_c_overhead_pct": steps_c["overhead_pct"],
+           "launches_per_step": {"collection": col_launches[0], "dict": dict_launches[0]},
+           "launches": total}
+    print(f"phase J1 step {json.dumps(rec)} (min of {TIMING_REPS} reps x {FLAGSHIP_STEPS} steps; reps {reps})")
+    return rec
+
+
+def _six_metrics(dev: str, num_classes: int) -> dict:
+    """The six-metric set of benchmarks/collections_vs_reference.py, argument validation off."""
+    from metrics_tpu_torch.classification import (
+        MulticlassAccuracy, MulticlassConfusionMatrix, MulticlassF1Score, MulticlassPrecision, MulticlassRecall,
+        MulticlassSpecificity,
+    )
+
+    kw = {"validate_args": False, "device": dev}
+    return {
+        "acc": MulticlassAccuracy(num_classes, average="micro", **kw),
+        "prec": MulticlassPrecision(num_classes, average="macro", **kw),
+        "rec": MulticlassRecall(num_classes, average="macro", **kw),
+        "f1": MulticlassF1Score(num_classes, average="macro", **kw),
+        "spec": MulticlassSpecificity(num_classes, average="macro", **kw),
+        "cm": MulticlassConfusionMatrix(num_classes, **kw),
+    }
+
+
+def phase_j2(torch, obs, instrument, dev: str = "cuda", n: int = SIX_N, num_classes: int = SIX_C) -> dict:
+    """The six-metric collection with compute groups on and off: groups, launches, states, time."""
+    import numpy as np
+    from metrics_tpu_torch import MetricCollection
+
+    rng = np.random.default_rng(7)
+    batches = [tuple(torch.from_numpy(rng.integers(0, num_classes, n)).to(dev) for _ in range(2))
+               for _ in range(1 + SIX_UPDATES)]
+    print(f"phase J2 data: {len(batches)} batches of {n} int64 preds and targets in [0, {num_classes}) from seed 7")
+    cols = {"groups": MetricCollection(_six_metrics(dev, num_classes)),
+            "no_groups": MetricCollection(_six_metrics(dev, num_classes), compute_groups=False)}
+    built = {k: list(v) for k, v in cols["groups"].compute_groups.items()}
+    _check(built == SIX_GROUPS_BUILT, f"groups at construction {built}, the JAX package seeds {SIX_GROUPS_BUILT}")
+    launches = {}
+    obs.enable()
+    try:
+        for mode, col in cols.items():
+            instrument.KERNEL_LAUNCHES.clear()  # the main path's run starts here ...
+            per_update = []
+            for preds, target in batches:
+                before = _pair_count_launches(instrument)
+                col.update(preds, target)
+                per_update.append(_pair_count_launches(instrument) - before)
+            launches[mode] = per_update  # ... and ends here
+    finally:
+        obs.disable()
+    groups = {k: list(v) for k, v in cols["groups"].compute_groups.items()}
+    print(f"phase J2 compute groups: built {built}, after one update {groups}; pair_count launches per update: "
+          f"{launches['groups'][1]} with groups (the first, which forms them, {launches['groups'][0]}: one per "
+          f"group at construction), {launches['no_groups'][0]} without")
+    _check(groups == SIX_GROUPS, f"six-metric groups {groups}, the JAX package forms {SIX_GROUPS}")
+    _check(launches["groups"] == [len(built)] + [2] * SIX_UPDATES, f"launches with groups {launches['groups']}")
+    _check(launches["no_groups"] == [6] * len(batches), f"launches without groups {launches['no_groups']}")
+
+    # int32 states: with groups == without == a CPU recomputation through the plain pair count
+    cpu = MetricCollection(_six_metrics("cpu", num_classes), compute_groups=False)
+    for preds, target in batches:
+        cpu.update(preds.cpu(), target.cpu())
+    on = dict(cols["groups"].items(keep_base=True))
+    off = dict(cols["no_groups"].items(keep_base=True))
+    host = dict(cpu.items(keep_base=True))
+    for name in on:
+        for key in on[name]._defaults:
+            a, b, c = getattr(on[name], key), getattr(off[name], key), getattr(host[name], key)
+            _check(a.dtype == b.dtype == c.dtype == torch.int32 and a.device.type == dev, f"{name}.{key} dtype/device")
+            _check(torch.equal(a, b), f"{name}.{key}: groups on differs from groups off")
+            _check(torch.equal(a.cpu(), c), f"{name}.{key}: differs from the CPU recomputation")
+    val_on, val_off, val_cpu = cols["groups"].compute(), cols["no_groups"].compute(), cpu.compute()
+    for name in val_on:
+        _check(torch.equal(val_on[name], val_off[name]), f"{name}: compute() with groups {val_on[name]} vs without")
+        _check(torch.allclose(val_on[name].cpu().double(), val_cpu[name].double(), rtol=1e-6, atol=0),
+               f"{name}: card {val_on[name]} vs CPU {val_cpu[name]}")
+    print(f"phase J2 int32 states equal with groups, without, and on the CPU; compute() equal with and without "
+          f"groups; {json.dumps({k: float(v) for k, v in val_on.items() if v.numel() == 1})}")
+
+    # time SIX_UPDATES updates of each collection with CUDA events, interleaved, minimum of TIMING_REPS
+    rec = {"n": n, "classes": num_classes, "launches_per_update": {k: v[-1] for k, v in launches.items()},
+           "launches_forming_update": launches["groups"][0]}
+    times = {mode: [] for mode in cols}
+    for _ in range(TIMING_REPS):
+        for mode, col in cols.items():
+            times[mode].append(_time_ms(lambda: col.update(*batches[0]), SIX_UPDATES, warmup=1))
+    for mode in cols:
+        rec[f"{mode}_ms_per_update"] = min(times[mode])
+    rec["speedup"] = rec["no_groups_ms_per_update"] / rec["groups_ms_per_update"]
+    print(f"phase J2 updates {json.dumps(rec)} (min of {TIMING_REPS} runs of {SIX_UPDATES} updates; runs {times})")
+    return rec
+
+
+def phase_j3(torch, dev: str = "cuda", n: int = AGG_N) -> None:
+    """The aggregators and a composition on the card against the CPU."""
+    import warnings
+    from metrics_tpu_torch import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
+    from metrics_tpu_torch.classification import MulticlassPrecision, MulticlassRecall
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    values = torch.rand(n, generator=gen, device=dev) * 10.0 - 2.0
+    values[torch.rand(n, generator=gen, device=dev) < 0.01] = float("nan")
+    weights = torch.rand(n, generator=gen, device=dev)
+    host_v, host_w = values.cpu(), weights.cpu()
+    nans = torch.isnan(host_v)
+    rtol = 1e-5  # float32 sums of 2^22 values in the card's order against a float64 sum on the CPU
+    for strategy in ("warn", "ignore", 0.5):
+        kept = host_v[~nans] if strategy in ("warn", "ignore") else torch.where(nans, 0.5, host_v)
+        kept_w = host_w[~nans] if strategy in ("warn", "ignore") else host_w
+        aggs = {cls.__name__: cls(nan_strategy=strategy, device=dev)
+                for cls in (SumMetric, MeanMetric, MaxMetric, MinMetric, CatMetric)}
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            for name, m in aggs.items():
+                if name == "MeanMetric":
+                    m.update(values, weights)
+                else:
+                    m.update(values)
+        if strategy == "warn":
+            _check(sum("nan" in str(w.message) for w in caught) == len(aggs), f"warn: {len(caught)} warnings")
+        got = {name: m.compute() for name, m in aggs.items()}
+        for name, m in aggs.items():
+            for key in m._defaults:
+                state = getattr(m, key)
+                on_card = all(s.device.type == dev for s in state) if isinstance(state, list) else state.device.type == dev
+                _check(on_card, f"{name}({strategy}).{key} is not on {dev}")
+        want_sum = kept.double().sum()
+        want_mean = (kept.double() * kept_w.double()).sum() / kept_w.double().sum()
+        _check(torch.allclose(got["SumMetric"].cpu().double(), want_sum, rtol=rtol, atol=0),
+               f"Sum({strategy}) {got['SumMetric']} vs {want_sum}")
+        _check(torch.allclose(got["MeanMetric"].cpu().double(), want_mean, rtol=rtol, atol=0),
+               f"Mean({strategy}) {got['MeanMetric']} vs {want_mean}")
+        _check(torch.equal(got["MaxMetric"].cpu(), kept.max()), f"Max({strategy}) {got['MaxMetric']}")
+        _check(torch.equal(got["MinMetric"].cpu(), kept.min()), f"Min({strategy}) {got['MinMetric']}")
+        _check(torch.equal(got["CatMetric"].cpu(), kept), f"Cat({strategy}) differs from the kept values")
+        print(f"phase J3 aggregators nan_strategy={strategy!r} on {n} float32 values ({int(nans.sum())} NaN): "
+              f"Sum {float(got['SumMetric'])} (float64 CPU {float(want_sum)}), Mean {float(got['MeanMetric'])} "
+              f"(float64 CPU {float(want_mean)}), rtol {rtol}; Max, Min and Cat exact")
+
+    prec, rec = (cls(SIX_C, average="macro", device=dev) for cls in (MulticlassPrecision, MulticlassRecall))
+    mean = MeanMetric(device=dev)
+    pr_sum, twice_mean = prec + rec, 2 * mean
+    g = torch.Generator().manual_seed(11)
+    preds, target = (torch.randint(0, SIX_C, (SIX_N,), generator=g).to(dev) for _ in range(2))
+    pr_sum.update(preds, target)
+    twice_mean.update(values[~torch.isnan(values)])
+    for combo, children in ((pr_sum, (prec, rec)), (twice_mean, (twice_mean.metric_a, mean))):
+        _check(combo.device.type == dev, f"{combo.op.__name__}: device {combo.device}")
+        got = combo.compute()
+        a, b = (c.compute() if hasattr(c, "compute") else c for c in children)
+        want = combo.op(a, b)
+        _check(got.device.type == dev and torch.equal(got, want), f"{combo.op.__name__}: {got} vs {want}")
+    _check(twice_mean.metric_a.dtype == torch.int32 and twice_mean.metric_a.device.type == dev,
+           f"constant 2: {twice_mean.metric_a.dtype} on {twice_mean.metric_a.device}")
+    print(f"phase J3 compositions on {dev}: precision + recall = {float(pr_sum.compute())}, "
+          f"2 * mean = {float(twice_mean.compute())} (int32 constant on {dev}); each equals the operator on its "
+          f"children's values")
+
+
 def main() -> int:
     import torch
 
@@ -1451,7 +1721,7 @@ def main() -> int:
     steps = phase_c_steps(torch, entry_mod, step, args)
     main_shape = phase_c_kernel(torch, confmat, n=entry_mod.FULL_CONFIG["batch"],
                                 rows=entry_mod.FULL_CONFIG["classes"], cols=entry_mod.FULL_CONFIG["classes"])
-    phase_c_kernel(torch, confmat, n=2**20, rows=100, cols=100)
+    six_shape = phase_c_kernel(torch, confmat, n=SIX_N, rows=SIX_C, cols=SIX_C)  # Phase J2's shape, shared memory
     phase_d_profile(torch, entry_mod, step, args)
     del args, step
     sketch_launches, sketch_data = phase_e(torch, scatter, cms_walk, obs, instrument)
@@ -1460,6 +1730,10 @@ def main() -> int:
     curve_err = phase_g(torch, bc)
     curve_launches, curve_data = phase_h(torch, bc, obs, instrument)
     curve_recs = phase_i(torch, bc, curve_data)
+    del curve_data
+    collection_step = phase_j1(torch, entry_mod, obs, instrument, steps)
+    six = phase_j2(torch, obs, instrument)
+    phase_j3(torch)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     kernels = [{
@@ -1470,6 +1744,17 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": max_abs_err,
         **{k: main_shape[k] for k in fields},
+        "shapes": [{"shape": f"N={r['n']}, {r['rows']} x {r['cols']} ({what})", **{k: r[k] for k in fields}}
+                   for r, what in ((main_shape, "train step, global atomics"),
+                                   (six_shape, "six-metric collection update, shared memory"))],
+        # pair-count launches of each path's run: the dict step (Phase B), the same three metrics in a
+        # collection (J1), the six-metric collection with groups on and off (J2)
+        "launches_by_path": {
+            "phase_b_dict_step": launches,
+            "phase_j1_collection_and_dict_steps": collection_step["launches"],
+            "phase_j1_per_step": collection_step["launches_per_step"],
+            "phase_j2_per_update": six["launches_per_update"],
+        },
     }]
     shape_fields = ("shape", *fields)
     for kernel, rec, shapes in (
@@ -1513,7 +1798,7 @@ def main() -> int:
         "shapes": [{k: curve_recs[key][k] for k in shape_fields}
                    for key in (f"T{CURVE_T}_C1", "T1024_C1", f"T{CURVE_T}_C{CURVE_COLS}")],
     })
-    print(json.dumps({"step": steps, "card": card}))
+    print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

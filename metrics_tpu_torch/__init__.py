@@ -12,3 +12,30 @@ tensors only.
 """
 
 __version__ = "0.1.0"
+
+from metrics_tpu_torch import functional
+from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
+from metrics_tpu_torch.classification import AUROC, ROC, AveragePrecision, PrecisionRecallCurve
+from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.sketch import CardinalitySketch, HeavyHittersSketch, QuantileSketch
+
+# the names of ``metrics_tpu.__all__`` that the port has so far
+__all__ = [
+    "functional",
+    "AUROC",
+    "AveragePrecision",
+    "CardinalitySketch",
+    "CatMetric",
+    "CompositionalMetric",
+    "HeavyHittersSketch",
+    "MaxMetric",
+    "MeanMetric",
+    "Metric",
+    "MetricCollection",
+    "MinMetric",
+    "PrecisionRecallCurve",
+    "QuantileSketch",
+    "ROC",
+    "SumMetric",
+]

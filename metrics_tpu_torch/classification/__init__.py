@@ -1,5 +1,5 @@
 """Classification module metrics (port of ``metrics_tpu/classification``): the
-multiclass flagship metrics and the curve family."""
+multiclass stat-score metrics and the curve family."""
 
 from metrics_tpu_torch.classification.accuracy import MulticlassAccuracy
 from metrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
@@ -11,6 +11,7 @@ from metrics_tpu_torch.classification.average_precision import (
 )
 from metrics_tpu_torch.classification.confusion_matrix import MulticlassConfusionMatrix
 from metrics_tpu_torch.classification.f_beta import MulticlassF1Score, MulticlassFBetaScore
+from metrics_tpu_torch.classification.precision_recall import MulticlassPrecision, MulticlassRecall
 from metrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -30,6 +31,7 @@ from metrics_tpu_torch.classification.specificity_at_sensitivity import (
     MultilabelSpecificityAtSensitivity,
     SpecificityAtSensitivity,
 )
+from metrics_tpu_torch.classification.specificity import MulticlassSpecificity
 from metrics_tpu_torch.classification.stat_scores import MulticlassStatScores
 
 __all__ = [
@@ -47,9 +49,12 @@ __all__ = [
     "MulticlassConfusionMatrix",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
+    "MulticlassRecall",
     "MulticlassRecallAtFixedPrecision",
     "MulticlassROC",
+    "MulticlassSpecificity",
     "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
     "MultilabelAUROC",

@@ -26,6 +26,8 @@ class MulticlassFBetaScore(MulticlassStatScores):
     is_differentiable = False
     higher_is_better = True
     full_state_update = False
+    plot_lower_bound = 0.0
+    plot_upper_bound = 1.0
 
     def __init__(
         self,

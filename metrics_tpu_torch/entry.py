@@ -8,6 +8,10 @@ linear head, cross-entropy loss, autograd backward, the SGD update
 ``MulticlassAccuracy(average="micro")``, ``MulticlassF1Score(average="macro")``
 and ``MulticlassConfusionMatrix``. Each of the three updates runs one pair
 count, so on the GPU a step launches the CUDA pair-count kernel three times.
+With the three metrics in a ``MetricCollection`` whose compute groups are
+formed (one eager ``update``), accuracy and F1 share one state, and a step
+launches the kernel twice: the confusion matrix's ``(C, C)`` state joins no
+group.
 
 Weights keep the JAX layout ``(fan_in, fan_out)`` and are applied as
 ``h @ w``. The matrix products stay ``torch.matmul`` with autograd, as the
@@ -24,6 +28,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from metrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix, MulticlassF1Score
+from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import Metric
 from metrics_tpu_torch.utils.device import DeviceLike, resolve_device
 
@@ -66,13 +71,19 @@ def sgd_step(params: Params, x: Tensor, y: Tensor) -> Tuple[Params, Tensor, Tens
     return {"ws": new[:n], "head": new[n]}, loss.detach(), logits.detach()
 
 
-def make_step(metrics: Dict[str, Metric]) -> Callable[..., Tuple[Tensor, Params, Dict[str, Any]]]:
+def make_step(
+    metrics: Union[Dict[str, Metric], MetricCollection],
+) -> Callable[..., Tuple[Tensor, Params, Dict[str, Any]]]:
     """The fused step ``(params, states, x, y) -> (loss, new_params, new_states)``;
-    ``step.metrics`` holds ``metrics`` for ``compute_from``."""
+    ``step.metrics`` holds ``metrics`` for ``compute_from``. ``metrics`` is a
+    dict of metrics (``states`` keyed by its names) or a ``MetricCollection``
+    (``states`` from its ``init_state``)."""
 
     def step(params: Params, states: Dict[str, Any], x: Tensor, y: Tensor) -> Tuple[Tensor, Params, Dict[str, Any]]:
         params, loss, logits = sgd_step(params, x, y)
         preds = torch.argmax(logits, dim=-1)
+        if isinstance(metrics, MetricCollection):
+            return loss, params, metrics.update_state(states, preds, y)
         new_states = {name: m.update_state(states[name], preds, y) for name, m in metrics.items()}
         return loss, params, new_states
 

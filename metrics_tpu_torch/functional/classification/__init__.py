@@ -1,5 +1,5 @@
 """Classification functionals (port of ``metrics_tpu/functional/classification``):
-the multiclass flagship metrics and the curve family."""
+the multiclass stat-score metrics and the curve family."""
 
 from metrics_tpu_torch.functional.classification.accuracy import multiclass_accuracy
 from metrics_tpu_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc, multilabel_auroc
@@ -11,6 +11,7 @@ from metrics_tpu_torch.functional.classification.average_precision import (
 )
 from metrics_tpu_torch.functional.classification.confusion_matrix import multiclass_confusion_matrix
 from metrics_tpu_torch.functional.classification.f_beta import multiclass_f1_score, multiclass_fbeta_score
+from metrics_tpu_torch.functional.classification.precision_recall import multiclass_precision, multiclass_recall
 from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     binary_precision_recall_curve,
     multiclass_precision_recall_curve,
@@ -23,6 +24,7 @@ from metrics_tpu_torch.functional.classification.recall_at_fixed_precision impor
     multilabel_recall_at_fixed_precision,
 )
 from metrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
+from metrics_tpu_torch.functional.classification.specificity import multiclass_specificity
 from metrics_tpu_torch.functional.classification.specificity_at_sensitivity import (
     binary_specificity_at_sensitivity,
     multiclass_specificity_at_sensitivity,
@@ -45,9 +47,12 @@ __all__ = [
     "multiclass_confusion_matrix",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
+    "multiclass_precision",
     "multiclass_precision_recall_curve",
+    "multiclass_recall",
     "multiclass_recall_at_fixed_precision",
     "multiclass_roc",
+    "multiclass_specificity",
     "multiclass_specificity_at_sensitivity",
     "multiclass_stat_scores",
     "multilabel_auroc",

@@ -18,24 +18,32 @@ metric without one raises unless ``device="cpu"`` (or another device) is given.
 Count states and the functional ``_update_count`` are int32, as in the JAX
 package with x64 off.
 
-Not ported in this slice: ``jitted_update_state`` (PyTorch runs eagerly),
-in-trace ``sync_state``, ``CompositionalMetric`` and the operator overloads,
-nested metrics in ``state_dict``/``persistent``, the ``compute_on_cpu``
-option, ``save``/``restore`` and ``plot``.
+The arithmetic and comparison operators on a metric build a
+:class:`CompositionalMetric`, as in the JAX package. So ``m1 == m2`` is a
+metric, not a bool: code that compares metrics compares them by identity.
+
+Not ported yet: ``jitted_update_state`` (it waits for the engine's CUDA-graph
+cache), in-trace ``sync_state`` and ``compute_from`` with an ``axis_name``
+(they wait for the comm plane), and ``save``/``restore`` (they wait for the
+checkpoint format).
 """
 
 from __future__ import annotations
 
 import functools
+import inspect
+import operator
 from abc import ABC, abstractmethod
 from contextlib import contextmanager
 from copy import deepcopy
-from typing import Any, Callable, Dict, Generator, List, Optional, Union
+from typing import Any, Callable, Dict, Generator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.obs import instrument as _obs
+from metrics_tpu_torch.obs.registry import OBS as _OBS
 from metrics_tpu_torch.utils.data import (
     _flatten,
     _squeeze_if_scalar,
@@ -92,17 +100,25 @@ def _as_state_tensor(value: Any, device: torch.device) -> Tensor:
 class Metric(ABC):
     """Base class for all metrics.
 
-    Kwargs: ``device`` (default: the GPU), ``dist_sync_on_step``,
-    ``process_group``, ``dist_sync_fn``, ``distributed_available_fn``,
-    ``sync_on_compute``.
+    Kwargs: ``device`` (default: the GPU), ``compute_on_cpu``,
+    ``dist_sync_on_step``, ``process_group``, ``dist_sync_fn``,
+    ``distributed_available_fn``, ``sync_on_compute``.
     """
 
     is_differentiable: Optional[bool] = None
     higher_is_better: Optional[bool] = None
     full_state_update: Optional[bool] = False
+    # Metric.plot() bounds and legend; subclasses with a known value range override them
+    plot_lower_bound: Optional[float] = None
+    plot_upper_bound: Optional[float] = None
+    plot_legend_name: Optional[str] = None
 
     def __init__(self, **kwargs: Any) -> None:
         self._device = resolve_device(kwargs.pop("device", None))
+
+        self.compute_on_cpu = kwargs.pop("compute_on_cpu", False)
+        if not isinstance(self.compute_on_cpu, bool):
+            raise ValueError(f"Expected keyword argument `compute_on_cpu` to be a `bool` but got {self.compute_on_cpu}")
 
         self.dist_sync_on_step = kwargs.pop("dist_sync_on_step", False)
         if not isinstance(self.dist_sync_on_step, bool):
@@ -199,9 +215,22 @@ class Metric(ABC):
                 raise MetricsTPUUserError(
                     "The Metric has already been synced. HINT: call `unsync()` before modifying the state."
                 )
-            update(*args, **kwargs)
+            if _OBS.enabled:
+                with _obs.metric_op("update", self):
+                    update(*args, **kwargs)
+            else:
+                update(*args, **kwargs)
+            if self.compute_on_cpu:
+                self._move_list_states_to_cpu()
 
         return wrapped_func
+
+    def _move_list_states_to_cpu(self) -> None:
+        """Move the entries of list states to host memory."""
+        for key in self._defaults:
+            current = getattr(self, key)
+            if isinstance(current, list):
+                setattr(self, key, [c.cpu() if isinstance(c, Tensor) else c for c in current])
 
     def _wrap_compute(self, compute: Callable) -> Callable:
         @functools.wraps(compute)
@@ -214,13 +243,14 @@ class Metric(ABC):
                 )
             if self._computed is not None:
                 return self._computed
-            with self.sync_context(
-                dist_sync_fn=self.dist_sync_fn,
-                process_group=self.process_group,
-                should_sync=self._to_sync,
-                should_unsync=self._should_unsync,
-            ):
-                self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
+            with _obs.metric_op("compute", self):
+                with self.sync_context(
+                    dist_sync_fn=self.dist_sync_fn,
+                    process_group=self.process_group,
+                    should_sync=self._to_sync,
+                    should_unsync=self._should_unsync,
+                ):
+                    self._computed = _squeeze_if_scalar(compute(*args, **kwargs))
             return self._computed
 
         return wrapped_func
@@ -278,6 +308,35 @@ class Metric(ABC):
         self._update_count = _update_count + 1
         self._reduce_states(global_state)
         self._restore_after_forward(batch_val)
+        return batch_val
+
+    def _compute_batch_value(self, batch_state: Dict[str, StateValue]) -> Any:
+        """This metric's per-batch forward value from a batch-only state that
+        another metric supplies (a compute-group leader's ``_batch_state``).
+
+        MetricCollection's grouped ``forward`` uses it: a group member shares
+        its leader's state evolution, so its batch value is its own ``compute``
+        over the leader's batch state, with no second update. This metric's
+        global state is left as it was (the collection aliases it from the
+        leader at the next read).
+        """
+        saved = {attr: getattr(self, attr) for attr in self._defaults}
+        saved_count = self._update_count
+        for attr, val in batch_state.items():
+            setattr(self, attr, val)
+        self._update_count = 1
+        self._update_called = True
+        self._to_sync = self.dist_sync_on_step
+        self._should_unsync = False
+        self._computed = None
+        batch_val = None
+        try:
+            batch_val = self.compute()
+        finally:
+            for attr, val in saved.items():
+                setattr(self, attr, val)
+            self._update_count = saved_count
+            self._restore_after_forward(batch_val)
         return batch_val
 
     def _reduce_states(self, incoming_state: Dict[str, StateValue]) -> None:
@@ -354,7 +413,8 @@ class Metric(ABC):
         if dist_sync_fn is None:
             dist_sync_fn = gather_all_tensors
         self._cache = self._snapshot_state()
-        self._sync_dist(dist_sync_fn, process_group=process_group)
+        with _obs.metric_op("sync", self):
+            self._sync_dist(dist_sync_fn, process_group=process_group)
         self._is_synced = True
 
     def unsync(self, should_unsync: bool = True) -> None:
@@ -433,8 +493,18 @@ class Metric(ABC):
             new_state = self._swap_out(snapshot)
         return new_state
 
-    def compute_from(self, state: Dict[str, Any]) -> Any:
-        """Pure: the final value from a state dict."""
+    def compute_from(self, state: Dict[str, Any], axis_name: Optional[Any] = None) -> Any:
+        """Pure: the final value from a state dict.
+
+        ``axis_name`` (the JAX package's in-trace sync over mesh axes) is not
+        ported yet: it waits for the comm plane (ROADMAP A.8), and a non-None
+        value raises.
+        """
+        if axis_name is not None:
+            raise NotImplementedError(
+                "compute_from(state, axis_name=...) syncs through the comm plane, which is not ported yet "
+                "(ROADMAP A.8); sync host-side with sync()/compute() instead"
+            )
         snapshot = self._swap_in(state)
         try:
             return _squeeze_if_scalar(self._raw_compute()())
@@ -481,29 +551,106 @@ class Metric(ABC):
         """Deep copy of the metric."""
         return deepcopy(self)
 
+    def plot(self, val: Optional[Any] = None, ax: Optional[Any] = None) -> Any:
+        """Plot a single computed value or a list of values as a time series.
+
+        With ``val=None`` the current ``compute()`` result is plotted. Needs
+        matplotlib; returns ``(fig, ax)``.
+        """
+        from metrics_tpu_torch.utils.plot import plot_single_or_multi_val
+
+        val = val if val is not None else self.compute()
+        return plot_single_or_multi_val(
+            val,
+            ax=ax,
+            higher_is_better=self.higher_is_better,
+            lower_bound=self.plot_lower_bound,
+            upper_bound=self.plot_upper_bound,
+            legend_name=self.plot_legend_name,
+            name=self.__class__.__name__,
+        )
+
+    def _map_states(self, fn: Callable[[Tensor], Tensor]) -> None:
+        """Apply ``fn`` to every tensor of the states and of their defaults."""
+
+        def _apply(value: StateValue) -> StateValue:
+            return [fn(v) for v in value] if isinstance(value, list) else fn(value)
+
+        for attr in self._defaults:
+            setattr(self, attr, _apply(getattr(self, attr)))
+        self._defaults = {k: _apply(v) for k, v in self._defaults.items()}
+
+    def to_device(self, device: DeviceLike) -> "Metric":
+        """Move all states (and defaults) to ``device``."""
+        self._device = resolve_device(device)
+        self._map_states(lambda x: x.to(self._device))
+        return self
+
+    def set_dtype(self, dst_type: torch.dtype) -> "Metric":
+        """Convert the floating-point states (and defaults) to ``dst_type``."""
+        self._map_states(lambda x: x.to(dst_type) if x.is_floating_point() else x)
+        return self
+
     # ------------------------------------------------------------------ persistence
+
+    def _child_metrics(self) -> Generator[Tuple[str, "Metric"], None, None]:
+        """Directly held child metrics (compositional operands, wrapped bases),
+        as ``(attr_path, metric)`` pairs: their states go through ``state_dict``
+        and ``persistent`` with this metric's."""
+        for name, val in self.__dict__.items():
+            if isinstance(val, Metric):
+                yield name, val
+            elif isinstance(val, (list, tuple)):
+                for i, v in enumerate(val):
+                    if isinstance(v, Metric):
+                        yield f"{name}.{i}", v
+
+    def persistent(self, mode: bool = False) -> None:
+        """Set the persistence of all states, the child metrics' included."""
+        for key in self._persistent:
+            self._persistent[key] = mode
+        for _name, child in self._child_metrics():
+            child.persistent(mode)
+
+    def _any_persistent(self) -> bool:
+        """True if any state here or in any nested child metric is persistent."""
+        if any(self._persistent.values()):
+            return True
+        return any(child._any_persistent() for _name, child in self._child_metrics())
 
     def state_dict(self, destination: Optional[Dict] = None, prefix: str = "") -> Dict[str, Any]:
         """Persistent states (only those registered ``persistent=True``) as a
-        flat dict of detached tensor copies (lists of them for list states)."""
+        flat dict of detached tensor copies (lists of them for list states),
+        the child metrics' under ``"<attr>."``."""
         destination = {} if destination is None else destination
         for key in self._defaults:
             if not self._persistent[key]:
                 continue
             current = getattr(self, key)
             if isinstance(current, list):
-                destination[prefix + key] = [c.detach().clone() for c in current]
+                destination[prefix + key] = [c.detach().clone() if isinstance(c, Tensor) else c for c in current]
             else:
                 destination[prefix + key] = current.detach().clone()
+        for name, child in self._child_metrics():
+            child.state_dict(destination, prefix=f"{prefix}{name}.")
         return destination
 
-    def load_state_dict(self, state_dict: Dict[str, Any], prefix: str = "", strict: bool = True) -> None:
+    def load_state_dict(
+        self,
+        state_dict: Dict[str, Any],
+        prefix: str = "",
+        strict: bool = True,
+        _consumed: Optional[set] = None,
+    ) -> None:
         """Inverse of :meth:`state_dict`; values may be tensors or numpy arrays.
 
         ``strict=True`` raises on missing persistent keys and on unexpected keys
-        under this instance's prefix.
+        under this instance's prefix. ``_consumed`` is internal: nested metrics
+        record the keys they restored, and only the outermost call checks for
+        unexpected keys.
         """
-        consumed: set = set()
+        owns_check = _consumed is None
+        consumed: set = set() if owns_check else _consumed
         for key in self._defaults:
             name = prefix + key
             if name in state_dict:
@@ -515,12 +662,17 @@ class Metric(ABC):
                     setattr(self, key, _as_state_tensor(val, self._device))
             elif strict and self._persistent[key]:
                 raise KeyError(f"Missing key {name} in state_dict")
-        if strict:
+        for name, child in self._child_metrics():
+            child.load_state_dict(state_dict, prefix=f"{prefix}{name}.", strict=strict, _consumed=consumed)
+        if owns_check and strict:
             _raise_on_unconsumed(state_dict, prefix, consumed)
 
     def __getstate__(self) -> Dict[str, Any]:
-        """Drop the instance-wrapped ``update``/``compute`` for pickling and deepcopy."""
-        return {k: v for k, v in self.__dict__.items() if k not in ("update", "compute")}
+        """Drop the instance-wrapped ``update``/``compute`` for pickling and
+        deepcopy, and the obs instance label, so that a clone gets its own
+        telemetry series."""
+        drop = ("update", "compute", "_obs_instance_label")
+        return {k: v for k, v in self.__dict__.items() if k not in drop}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:
         self.__dict__.update(state)
@@ -532,6 +684,26 @@ class Metric(ABC):
             raise RuntimeError(f"Can't change const `{name}`.")
         super().__setattr__(name, value)
 
+    # ------------------------------------------------------------------ misc protocol
+
+    def _filter_kwargs(self, **kwargs: Any) -> Dict[str, Any]:
+        """The kwargs that the (unwrapped) ``update`` signature takes; all of
+        them if it takes ``**kwargs``."""
+        _params = (inspect.Parameter.VAR_POSITIONAL, inspect.Parameter.VAR_KEYWORD)
+        _sign_params = self._update_signature.parameters
+        if any(v.kind == inspect.Parameter.VAR_KEYWORD for v in _sign_params.values()):
+            return kwargs
+        return {k: v for k, v in kwargs.items() if k in _sign_params and _sign_params[k].kind not in _params}
+
+    @property
+    def _update_signature(self) -> inspect.Signature:
+        return inspect.signature(type(self).update)
+
+    @property
+    def metric_state(self) -> Dict[str, StateValue]:
+        """Current value of all registered states."""
+        return {attr: getattr(self, attr) for attr in self._defaults}
+
     @property
     def update_called(self) -> bool:
         return self._update_called
@@ -540,5 +712,240 @@ class Metric(ABC):
     def update_count(self) -> int:
         return self._update_count
 
+    def __hash__(self) -> int:
+        # ``__eq__`` builds a CompositionalMetric, which would drop the default
+        # hash; id(self) keeps distinct instances apart
+        hash_vals: List[Any] = [self.__class__.__name__, id(self)]
+        for key in self._defaults:
+            val = getattr(self, key)
+            if isinstance(val, list):
+                hash_vals.append(id(val))
+                hash_vals.extend(id(v) for v in val)
+            else:
+                hash_vals.append(id(val))
+        return hash(tuple(hash_vals))
+
     def __repr__(self) -> str:
         return f"{self.__class__.__name__}()"
+
+    # Precision is managed explicitly (``set_dtype``); these keep the JAX
+    # package's no-op meanings, not ``nn.Module``'s.
+    def type(self, dst_type: Any) -> "Metric":  # noqa: A003
+        return self
+
+    def float(self) -> "Metric":
+        return self
+
+    def double(self) -> "Metric":
+        return self
+
+    def half(self) -> "Metric":
+        return self
+
+    # ------------------------------------------------------------------ operator overloads -> CompositionalMetric
+
+    def __add__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.add, self, other)
+
+    def __radd__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.add, other, self)
+
+    def __sub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.sub, self, other)
+
+    def __rsub__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.sub, other, self)
+
+    def __mul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mul, self, other)
+
+    def __rmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mul, other, self)
+
+    def __truediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.truediv, self, other)
+
+    def __rtruediv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.truediv, other, self)
+
+    def __floordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.floordiv, self, other)
+
+    def __rfloordiv__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.floordiv, other, self)
+
+    def __mod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mod, self, other)
+
+    def __rmod__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.mod, other, self)
+
+    def __pow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.pow, self, other)
+
+    def __rpow__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.pow, other, self)
+
+    def __matmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.matmul, self, other)
+
+    def __rmatmul__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.matmul, other, self)
+
+    def __and__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.and_, self, other)
+
+    def __rand__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.and_, other, self)
+
+    def __or__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.or_, self, other)
+
+    def __ror__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.or_, other, self)
+
+    def __xor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.xor, self, other)
+
+    def __rxor__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.xor, other, self)
+
+    def __lt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.lt, self, other)
+
+    def __le__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.le, self, other)
+
+    def __gt__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.gt, self, other)
+
+    def __ge__(self, other: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.ge, self, other)
+
+    def __eq__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(operator.eq, self, other)
+
+    def __ne__(self, other: Any) -> "CompositionalMetric":  # type: ignore[override]
+        return CompositionalMetric(operator.ne, self, other)
+
+    def __abs__(self) -> "CompositionalMetric":
+        return CompositionalMetric(operator.abs, self, None)
+
+    def __neg__(self) -> "CompositionalMetric":
+        return CompositionalMetric(_neg, self, None)
+
+    def __pos__(self) -> "CompositionalMetric":
+        return CompositionalMetric(operator.abs, self, None)
+
+    def __inv__(self) -> "CompositionalMetric":
+        return CompositionalMetric(operator.inv, self, None)
+
+    __invert__ = __inv__
+
+    def __getitem__(self, idx: Any) -> "CompositionalMetric":
+        return CompositionalMetric(operator.itemgetter(idx), self, None)
+
+    def __getnewargs__(self) -> tuple:
+        return ()
+
+
+def _neg(x: Tensor) -> Tensor:
+    # the JAX package's unary minus (and so the reference's) is -|x|
+    return -torch.abs(x)
+
+
+# Constants an operator captures become tensors of the dtype ``jnp.asarray``
+# gives them with x64 off: int32 for a Python int, float32 for a float, and the
+# 32-bit type for a 64-bit numpy array.
+_NARROWED = {np.dtype(np.int64): np.int32, np.dtype(np.uint64): np.uint32, np.dtype(np.float64): np.float32,
+             np.dtype(np.complex128): np.complex64}
+
+
+def _operand(value: Any, device: torch.device) -> Any:
+    if isinstance(value, bool) or not isinstance(value, (int, float, np.ndarray)):
+        return value  # a Metric, a tensor, a bool, None or another object stays as it is
+    if isinstance(value, np.ndarray):
+        return torch.from_numpy(np.array(value, dtype=_NARROWED.get(value.dtype, value.dtype), copy=True)).to(device)
+    return torch.tensor(value, dtype=torch.int32 if isinstance(value, int) else torch.float32, device=device)
+
+
+class CompositionalMetric(Metric):
+    """Lazy composition of metrics through an elementwise operator.
+
+    ``update``/``compute``/``reset``/``persistent`` recurse into the child
+    metrics; its own ``_sync_dist`` does nothing (the children sync themselves
+    inside their own ``compute``). It lives on its first child metric's device,
+    where the constants it captures are put too.
+
+    Built by the operator overloads on :class:`Metric`:
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch import MeanMetric
+        >>> m1, m2 = MeanMetric(device="cpu"), MeanMetric(device="cpu")
+        >>> combo = m1 + 2 * m2
+        >>> m1.update(torch.tensor(1.0))
+        >>> m2.update(torch.tensor(3.0))
+        >>> combo.compute()
+        tensor(7.)
+    """
+
+    def __init__(
+        self,
+        operator: Callable,
+        metric_a: Union[Metric, float, Tensor, None],
+        metric_b: Union[Metric, float, Tensor, None],
+    ) -> None:
+        device = next((m.device for m in (metric_a, metric_b) if isinstance(m, Metric)), None)
+        super().__init__(device=device)
+        self.op = operator
+        self.metric_a = _operand(metric_a, self.device)
+        self.metric_b = _operand(metric_b, self.device)
+
+    def _sync_dist(self, dist_sync_fn: Optional[Callable] = None, process_group: Optional[Any] = None) -> None:
+        pass  # No syncing required: children sync themselves.
+
+    def update(self, *args: Any, **kwargs: Any) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.update(*args, **self.metric_a._filter_kwargs(**kwargs))
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.update(*args, **self.metric_b._filter_kwargs(**kwargs))
+
+    def compute(self) -> Any:
+        val_a = self.metric_a.compute() if isinstance(self.metric_a, Metric) else self.metric_a
+        val_b = self.metric_b.compute() if isinstance(self.metric_b, Metric) else self.metric_b
+        if val_b is None:
+            return self.op(val_a)
+        return self.op(val_a, val_b)
+
+    def forward(self, *args: Any, **kwargs: Any) -> Any:
+        val_a = (
+            self.metric_a(*args, **self.metric_a._filter_kwargs(**kwargs))
+            if isinstance(self.metric_a, Metric)
+            else self.metric_a
+        )
+        val_b = (
+            self.metric_b(*args, **self.metric_b._filter_kwargs(**kwargs))
+            if isinstance(self.metric_b, Metric)
+            else self.metric_b
+        )
+        if val_a is None:
+            self._forward_cache = None
+        elif val_b is None:
+            self._forward_cache = None if isinstance(self.metric_b, Metric) else self.op(val_a)
+        else:
+            self._forward_cache = self.op(val_a, val_b)
+        return self._forward_cache
+
+    def reset(self) -> None:
+        if isinstance(self.metric_a, Metric):
+            self.metric_a.reset()
+        if isinstance(self.metric_b, Metric):
+            self.metric_b.reset()
+
+    def __repr__(self) -> str:
+        op_name = self.op.__name__ if hasattr(self.op, "__name__") else self.op
+        return f"{self.__class__.__name__}(\n  {op_name}(\n    {self.metric_a!r},\n    {self.metric_b!r}\n  )\n)"
+
+    def _wrap_compute(self, compute: Callable) -> Callable:
+        return compute

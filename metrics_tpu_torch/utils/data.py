@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 from collections.abc import Mapping, Sequence
-from typing import Any, Callable, List, Union
+from typing import Any, Callable, Dict, List, Tuple, Union
 
 import torch
 from torch import Tensor
@@ -37,6 +37,23 @@ def dim_zero_min(x: Tensor) -> Tensor:
 def _flatten(x: Sequence) -> list:
     """Flatten list of lists into a single list."""
     return [item for sublist in x for item in sublist]
+
+
+def _flatten_dict(x: Dict) -> Tuple[Dict, bool]:
+    """Flatten a dict of dicts one level; returns (flat, whether a key repeated)."""
+    new_dict = {}
+    duplicates = False
+    for key, value in x.items():
+        if isinstance(value, dict):
+            for k, v in value.items():
+                if k in new_dict:
+                    duplicates = True
+                new_dict[k] = v
+        else:
+            if key in new_dict:
+                duplicates = True
+            new_dict[key] = value
+    return new_dict, duplicates
 
 
 def _one_hot(labels: Tensor, num_classes: int, dtype: torch.dtype) -> Tensor:

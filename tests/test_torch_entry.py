@@ -144,3 +144,38 @@ def test_entry_builds_the_full_width_config_on_the_gpu_by_default():
     assert torch.isfinite(loss) and set(states) == {"accuracy", "f1", "confmat"}
     assert states["confmat"]["confmat"].shape == (5, 5) and int(states["confmat"]["confmat"].sum()) == 16
     assert set(step.metrics) == set(states)
+
+
+def test_collection_step_matches_the_jax_collection_step():
+    """The three metrics in a ``MetricCollection`` on both sides: one eager
+    update forms the same groups ({accuracy, f1}, {confmat}); then the port's
+    ``make_step(collection)`` runs against ``collection.update_state`` in the
+    JAX step, with states bit-identical and values within rtol=1e-6."""
+    from metrics_tpu.collections import MetricCollection as JaxCollection
+    from metrics_tpu_torch.collections import MetricCollection
+
+    params, x, y = _numpy_inputs()  # seed 0: no argmax tie within STEPS steps
+    jcol, tcol = JaxCollection(_jax_metrics()), MetricCollection(port.make_metrics(CLASSES, "cpu"))
+    first = np.array(jnp.argmax(_jax_forward(jax.tree_util.tree_map(jnp.asarray, params), jnp.asarray(x),
+                                               jnp.asarray(y))[1], axis=-1))
+    jcol.update(jnp.asarray(first), jnp.asarray(y))
+    tcol.update(torch.from_numpy(first), torch.from_numpy(y))
+    assert tcol.compute_groups == jcol.compute_groups == {0: ["accuracy", "f1"], 1: ["confmat"]}
+    jax_params, torch_params = jax.tree_util.tree_map(jnp.asarray, params), params_from_jax(params, device="cpu")
+    js, ts = jcol.init_state(), tcol.init_state()
+    assert sorted(ts) == sorted(js) == ["accuracy", "confmat"]
+    step = port.make_step(tcol)
+    assert step.metrics is tcol
+    jx, jy, tx, ty = jnp.asarray(x), jnp.asarray(y), torch.from_numpy(x), torch.from_numpy(y)
+    for _ in range(STEPS):
+        (jloss, logits), grads = jax.value_and_grad(_jax_forward, has_aux=True)(jax_params, jx, jy)
+        _assert_argmax_is_robust(logits)
+        jax_params = jax.tree_util.tree_map(lambda p, g: p - 0.01 * g, jax_params, grads)
+        js = jcol.update_state(js, jnp.argmax(logits, axis=-1), jy)
+        tloss, torch_params, ts = step(torch_params, ts, tx, ty)
+        np.testing.assert_allclose(float(tloss), float(jloss), atol=1e-5, rtol=0)
+        _assert_states_equal(ts, js)
+    jv, tv = jcol.compute_from(js), tcol.compute_from(ts)
+    assert list(tv) == list(jv)
+    for name in jv:
+        np.testing.assert_allclose(tv[name].numpy(), np.asarray(jv[name]), rtol=1e-6, atol=0)

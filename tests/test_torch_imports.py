@@ -57,6 +57,20 @@ def test_curve_modules_are_scanned(relpath):
     assert relpath in SOURCES
 
 
+CORE_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("metric", "aggregation", "collections", "entry", "utils/imports", "utils/plot", "utils/data",
+                 "obs/instrument", "obs/registry", "functional/classification/precision_recall",
+                 "functional/classification/specificity", "classification/precision_recall",
+                 "classification/specificity")
+]
+
+
+@pytest.mark.parametrize("relpath", CORE_MODULES)
+def test_core_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
 @pytest.mark.parametrize("relpath", SOURCES)
 def test_no_jax_or_reference_package_import(relpath):
     assert forbidden_imports((ROOT / relpath).read_text()) == []

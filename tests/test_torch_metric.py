@@ -224,3 +224,156 @@ def test_sync_with_a_custom_gather_reduces_like_two_ranks():
     local = tm.compute()  # compute syncs, then restores the local state
     assert int(tm.total) == 21
     assert float(local[0]) == 42.0 and float(local[1]) == 4 + 5 + 6 and float(local[3]) == 2 * (1 + 4)
+
+
+# ---------------------------------------------------------------------- the members added with the metric core
+
+
+def test_compute_on_cpu_moves_list_states_to_the_host_after_each_update():
+    tm = TorchProbe(device="cpu", compute_on_cpu=True)
+    tm.update(torch.ones(2, 3, dtype=torch.int32))
+    assert tm.compute_on_cpu and all(s.device.type == "cpu" for s in tm.seen)
+    with pytest.raises(ValueError, match="compute_on_cpu"):
+        TorchProbe(device="cpu", compute_on_cpu="yes")
+    assert JaxProbe(compute_on_cpu=True).compute_on_cpu
+
+
+def test_set_dtype_converts_float_states_only_and_the_dtype_methods_do_nothing():
+    tm = TorchProbe(device="cpu")
+    tm.update(torch.ones(2, 3, dtype=torch.int32))
+    assert tm.set_dtype(torch.float64) is tm
+    assert tm.avg.dtype == tm._defaults["avg"].dtype == torch.float64
+    assert tm.total.dtype == tm.peak.dtype == torch.int32
+    for method in (tm.float, tm.double, tm.half):
+        assert method() is tm
+    assert tm.type(torch.float16) is tm and tm.avg.dtype == torch.float64  # the JAX package's no-ops
+
+
+def test_to_device_moves_states_and_defaults():
+    tm = TorchProbe(device="cpu")
+    tm.update(torch.ones(2, 3, dtype=torch.int32))
+    assert tm.to_device("meta") is tm and tm.device == torch.device("meta")
+    assert tm.total.device.type == tm._defaults["total"].device.type == "meta"
+    assert all(s.device.type == "meta" for s in tm.seen)
+
+
+def test_metric_state_filter_kwargs_and_update_signature_match_jax():
+    jm, tm = JaxProbe(), TorchProbe(device="cpu")
+    x = _batches(seed=5, n=1)[0]
+    jm.update(jnp.asarray(x))
+    tm.update(torch.from_numpy(x))
+    assert list(tm.metric_state) == list(jm.metric_state) == ["total", "peak", "avg", "seen"]
+    _assert_state_equal(jm.metric_state, tm.metric_state)
+    assert tm._filter_kwargs(x=1, y=2) == jm._filter_kwargs(x=1, y=2) == {"x": 1}
+    assert list(tm._update_signature.parameters) == list(jm._update_signature.parameters)
+
+
+def test_nested_state_dict_and_persistent_reach_child_metrics():
+    """A metric holding other metrics (a wrapper's base, a list of them) saves,
+    loads and sets persistence through them, under ``"<attr>."`` keys."""
+
+    class TorchHolder(TorchProbe):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.base = TorchProbe(**kwargs)
+            self.more = [TorchProbe(**kwargs)]
+
+    class JaxHolder(JaxProbe):
+        def __init__(self, **kwargs):
+            super().__init__(**kwargs)
+            self.base = JaxProbe(**kwargs)
+            self.more = [JaxProbe(**kwargs)]
+
+    jm, tm = JaxHolder(), TorchHolder(device="cpu")
+    assert [n for n, _ in tm._child_metrics()] == [n for n, _ in jm._child_metrics()] == ["base", "more.0"]
+    x = _batches(seed=6, n=1)[0]
+    for m, conv in ((jm, jnp.asarray), (tm, torch.from_numpy)):
+        m.update(conv(x))
+        m.base.update(conv(x))
+        m.more[0].update(conv(x + 1))
+        m.persistent(False)
+    assert not tm._any_persistent() and tm.state_dict() == {}
+    tm.base.persistent(True)
+    assert tm._any_persistent()
+    jm.persistent(True)
+    tm.persistent(True)
+    jsd, tsd = jm.state_dict(), tm.state_dict()
+    assert list(tsd) == list(jsd)
+    _assert_state_equal(jsd, tsd)
+    fresh = TorchHolder(device="cpu")
+    fresh.persistent(True)
+    fresh.load_state_dict(jsd)
+    np.testing.assert_array_equal(fresh.more[0].compute().numpy(), np.asarray(jm.more[0].compute()))
+    with pytest.raises(KeyError, match="Unexpected"):
+        fresh.load_state_dict({**tsd, "base.nope": tsd["total"]})
+    with pytest.raises(KeyError, match="Missing key base.total"):
+        fresh.load_state_dict({k: v for k, v in tsd.items() if k != "base.total"})
+
+
+def test_compute_batch_value_leaves_the_global_state_as_it_was():
+    tm = TorchProbe(device="cpu")
+    for x in _batches(seed=7):
+        tm.update(torch.from_numpy(x))
+    before = {k: getattr(tm, k) for k in tm._defaults}
+    donor = TorchProbe(device="cpu")
+    donor(torch.from_numpy(_batches(seed=8, n=1)[0]))
+    got = tm._compute_batch_value(donor._batch_state)
+    assert torch.equal(got, donor._forward_cache)
+    assert all(getattr(tm, k) is v for k, v in before.items()) and tm.update_count == 4
+
+
+def test_compute_from_with_an_axis_name_waits_for_the_comm_plane():
+    tm = TorchProbe(device="cpu")
+    with pytest.raises(NotImplementedError, match="A.8"):
+        tm.compute_from(tm.init_state(), axis_name="dp")
+
+
+def test_hash_and_clone_keep_instances_apart():
+    a, b = TorchProbe(device="cpu"), TorchProbe(device="cpu")
+    assert hash(a) != hash(b) and len({a, b, a}) == 2
+    twin = a.clone()
+    assert hash(twin) != hash(a) and twin.seen is not a.seen
+
+
+def test_plot_draws_a_value_and_a_series():
+    pytest.importorskip("matplotlib")
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    from metrics_tpu_torch.classification import MulticlassConfusionMatrix, MulticlassPrecision
+    from metrics_tpu_torch.utils.plot import plot_confusion_matrix
+
+    m = MulticlassPrecision(3, average=None, device="cpu")
+    m.update(torch.tensor([0, 1, 2, 2]), torch.tensor([0, 1, 1, 2]))
+    fig, ax = m.plot()
+    assert fig is not None and ax.get_ylabel() == "MulticlassPrecision"
+    fig2, ax2 = m.plot([m.compute(), m.compute() / 2])
+    assert ax2.get_xlabel() == "Step"
+    cm = MulticlassConfusionMatrix(3, device="cpu")
+    cm.update(torch.tensor([0, 1, 2, 2]), torch.tensor([0, 1, 1, 2]))
+    fig3, _ = plot_confusion_matrix(cm.compute(), labels=["a", "b", "c"])
+    with pytest.raises(ValueError, match="labels"):
+        plot_confusion_matrix(cm.compute(), labels=["a"])
+    plt.close("all")
+
+
+def test_metric_op_times_update_compute_and_sync_only_while_obs_is_on():
+    from metrics_tpu_torch import obs
+    from metrics_tpu_torch.obs import instrument
+
+    tm = TorchProbe(device="cpu", distributed_available_fn=lambda: True, dist_sync_fn=lambda t, group=None: [t])
+    x = torch.ones(2, 3, dtype=torch.int32)
+    tm.update(x)
+    assert not hasattr(tm, "_obs_instance_label")  # nothing labelled, nothing timed while obs is off
+    obs.enable()
+    try:
+        tm.update(x)
+        tm.compute()
+    finally:
+        obs.disable()
+    label = tm._obs_instance_label
+    for op in ("update", "compute", "sync"):
+        assert instrument.OP_SECONDS.count(op=op, metric="TorchProbe", instance=label) == 1, op
+    assert "_obs_instance_label" not in tm.clone().__dict__  # a clone gets its own series
