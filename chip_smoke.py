@@ -8,25 +8,36 @@ It builds every CUDA kernel of the port's main path from the sources in the
 checkout, and then:
 
 - Phase A holds each kernel against its plain PyTorch version on the card
-  (``torch.equal`` on int32 counts) at the training step's shape, at the
-  six-metric collection's (Phase J2) and others:
-  both branches of the pair-count kernel, a ragged length, a mask,
-  out-of-range and negative indices, and N = 0.
+  (``torch.equal`` on int32 counts). Both routes of ``csrc/pair_count.cu``:
+  the table route (the confusion matrix) and the stat-score route (int32
+  tp/fp/tn/fn without the table), each at the training step's shape and at
+  the six-metric collection's (Phase J2), on int64 and int32 labels, mixed
+  label types, ``ignore_index`` None, in range, -1 and at or above C,
+  out-of-range and negative labels, int64 labels at and above 2^31 (they
+  count by their low 32 bits), C = 2, N = 1, N = 0, views at a storage
+  offset (no 16-byte loads), the table route's two branches (shared memory
+  in clusters of two blocks, up to the largest table a block holds, and
+  global atomics) with and without a mask, and the stat-score route's two
+  (counters in shared memory, up to the largest C a block holds, and in the
+  output for C = 20000); tables and counters above 48 KB of dynamic shared
+  memory included.
 - Phase B drives the main path through the user's entry point
   (``metrics_tpu_torch.entry.entry``): the fused Accuracy + F1 +
   ConfusionMatrix training step at batch 1024, hidden 4096, 1000 classes,
   8 layers. Kernel launch counts are zeroed just before and read just after;
-  each step must launch the pair-count kernel exactly 3 times. The card's
+  each step must launch the stat-score route twice (accuracy, F1) and the
+  table route once (the confusion matrix). The card's
   metric states are held bit for bit against a CPU recomputation from the
   same predictions. The stateful ``update``/``forward``/``compute``/``reset``
   path runs once on the card too.
-- Phase C times the bare and the fused step, and each kernel against its
-  plain version, one PyTorch library call, and its memory bound. ``ms`` is
+- Phase C times the bare and the fused step, and both routes at the two
+  shapes on int64 labels against their plain versions, ``torch.bincount``
+  of the pair keys (the library call), and their memory bounds. ``ms`` is
   the wrapper's call time by CUDA events over back-to-back calls;
   ``device_ms`` is the kernel's own device time from ``torch.profiler``.
 - Phase D profiles the bare step, the fused step and the fused step's metric
   updates alone: device busy time and idle share per step, and device time
-  by kernel.
+  by kernel; the metric updates must run no int64 reduction.
 - Phase A also holds each scatter kernel of the sketch plane (``hist_add``,
   ``hist_max``, ``cms_rows_add`` of ``csrc/scatter.cu``) against its plain
   version: every branch (a shared-memory table, one above 48 KB of dynamic
@@ -60,7 +71,9 @@ checkout, and then:
   the larger of its bytes and its hash's integer instructions over the
   card's issue rate, 128 lanes a SM at ``clocks.max.sm``), the ledger walk at
   4096, HH_BATCH and 2^22 ids (µs per item, the share of items that reached
-  the sequential decision, bound: the ids route's at the same N), each
+  the sequential decision, bound: those items times the fewest dependent
+  cycles of one decision over ``clocks.max.sm``, plus the ids route's bound
+  at the same N), each
   sketch's update and values/s, and profiles a quantile, a count-min table
   and a heavy-hitter update.
 - Phase G holds the threshold-count kernel of the binned curves
@@ -93,16 +106,18 @@ checkout, and then:
   its three metrics in a ``MetricCollection`` (one eager ``update`` forms
   the groups the JAX package forms, {accuracy, f1} and {confmat}; then
   ``init_state`` / ``update_state`` / ``compute_from``): 20 chained steps of
-  ``sgd_step`` + ``argmax`` + ``update_state``, 2 pair-count launches per
-  step against 3 for the same metrics as a dict on the same predictions,
+  ``sgd_step`` + ``argmax`` + ``update_state``, 1 stat-score and 1 table
+  launch per step against 2 and 1 for the same metrics as a dict on the
+  same predictions, no reference dispatch,
   states and values equal to the dict path's (``torch.equal``), and the
   step timed beside the bare and the dict step as Phase C times it. J2: the
   six-metric collection of ``benchmarks/collections_vs_reference.py``
   (accuracy micro; precision, recall, F1, specificity macro; a confusion
   matrix) at N = 10^6, C = 100, with compute groups on and off: the groups
   at construction and after the first update as the JAX package forms them,
-  2 against 6 launches per update (4 in the update that forms the groups,
-  one per group seeded at construction), int32 states equal in both modes
+  1 stat-score and 1 table launch per update against 5 and 1 (3 and 1 in
+  the update that forms the groups, one per group seeded at construction),
+  no reference dispatch, int32 states equal in both modes
   and to a CPU recomputation, ``compute()`` equal, and 8 updates timed by
   CUDA events (groups on and off interleaved, minimum of 5). J3: Sum, Mean,
   Max, Min and Cat on 2^22 float32 values with NaN under "warn", "ignore"
@@ -140,6 +155,12 @@ WALK_SHAPES = (4096, HH_BATCH, SKETCH_BATCH)  # ids per ledger walk timed in Pha
 # power-of-two width: the xor with the row seed, three shift-xor steps (2 each), two
 # multiplies, the modulo (a mask) and the add into the table.
 CM_HASH_OPS = 1 + 3 * 2 + 2 + 1 + 1
+# The fewest dependent cycles one sequential decision of the ledger walk needs with the ledger in
+# registers (csrc/cms_walk.cu, RegLedger::decide): a decision reads the ledger the one before it
+# may have written, so the key compare (ISETP), the warp vote that joins the 32 lanes' compares
+# (VOTE.ANY) and the select that writes the slot follow one another: 3 dependent instructions, at
+# least 4 cycles each (the shortest time from an issue to a dependent issue on the SM's pipes).
+WALK_DECISION_CYCLES = 3 * 4
 CURVE_N = 10**6  # scores per curve update in Phases G to I
 CURVE_T = 200
 CURVE_UPDATES = 8
@@ -156,6 +177,7 @@ AGG_N = 2**22  # values per aggregator update in Phase J3
 FLAGSHIP_GROUPS = {0: ["accuracy", "f1"], 1: ["confmat"]}
 SIX_GROUPS_BUILT = {0: ["acc"], 1: ["cm"], 2: ["f1"], 3: ["prec", "rec", "spec"]}
 SIX_GROUPS = {0: ["acc", "f1", "prec", "rec", "spec"], 1: ["cm"]}
+ROUTES = ("stat_scores", "pair_count")  # the two routes of csrc/pair_count.cu, as launch counts name them
 
 
 def _check(cond: bool, msg: str) -> None:
@@ -181,41 +203,123 @@ def _time_ms(fn, iters: int, warmup: int = 5) -> float:
 
 
 def _pair_count_cases():
-    """(name, n, rows, cols, index range, masked) of the Phase A cases."""
+    """(name, N, rows, cols, label range, row / col dtype, ignore_index, masked, storage offset,
+    high) of the Phase A table-route cases; ``high`` adds multiples of 2^31 to int64 labels."""
+    i32, i64 = "int32", "int64"
     return [
-        ("train_step", 1024, 1000, 1000, (0, 1000), False),  # the main path's global-atomic branch
-        ("shared_1M", 2**20, 100, 100, (0, 100), False),  # the shared-memory branch
-        ("six_metric_update", SIX_N, SIX_C, SIX_C, (0, SIX_C), False),  # Phase J2's shape
-        ("ragged", 4097, 7, 23, (0, 23), False),
-        ("masked", 65539, 50, 50, (0, 50), True),
-        ("out_of_range", 10000, 20, 20, (-5, 25), False),
-        ("out_of_range_global_masked", 9999, 1000, 1000, (-7, 1007), True),
-        ("empty", 0, 5, 5, (0, 5), False),
+        ("train_step", 1024, 1000, 1000, (0, 1000), i64, i64, None, False, 0, False),  # main path, global
+        ("train_step_int32", 1024, 1000, 1000, (0, 1000), i32, i32, None, False, 0, False),
+        ("six_metric_update", SIX_N, SIX_C, SIX_C, (0, SIX_C), i64, i64, None, False, 0, False),  # J2, shared
+        ("six_metric_update_int32", SIX_N, SIX_C, SIX_C, (0, SIX_C), i32, i32, None, False, 0, False),
+        ("shared_1M_ignore", 2**20, 100, 100, (-5, 105), i64, i64, 7, False, 0, False),
+        ("ragged", 4097, 7, 23, (0, 23), i32, i32, None, False, 0, False),
+        ("classes_2", 100003, 2, 2, (0, 2), i64, i64, None, False, 0, False),
+        ("mixed_types", 65541, 50, 50, (-2, 52), i32, i64, 3, False, 0, False),
+        ("masked", 65539, 50, 50, (0, 50), i32, i32, None, True, 0, False),
+        ("masked_ignore_global", 9999, 1000, 1000, (-7, 1007), i64, i64, 5, True, 0, False),
+        ("out_of_range", 10000, 20, 20, (-5, 25), i32, i32, None, False, 0, False),
+        ("ignore_minus_one", 30001, 7, 7, (-3, 10), i64, i64, -1, False, 0, False),
+        ("ignore_above", 30001, 7, 7, (-3, 10), i64, i64, 9, False, 0, False),
+        ("int64_high_shared", 70001, 100, 100, (0, 100), i64, i64, 3, False, 0, True),
+        ("int64_high_global", 70001, 1000, 1000, (0, 1000), i64, i64, 3, False, 0, True),
+        ("offset_shared", 2**20 + 3, 100, 100, (0, 100), i64, i64, None, False, 1, False),
+        ("offset_global", 4099, 1000, 1000, (0, 1000), i64, i32, 11, False, 3, False),
+        # shared tables above 48 KB (opt-in dynamic shared memory): 200 x 200 is 160 KB,
+        # 241 x 241 the largest square table a block holds on an H100 (227 KB)
+        ("shared_200", 2**20, 200, 200, (-3, 203), i64, i64, 17, False, 0, False),
+        ("shared_200_int32_masked", 400003, 200, 200, (0, 200), i32, i32, None, True, 0, False),
+        ("shared_241_offset", 2**19 + 1, 241, 241, (0, 241), i64, i64, 5, False, 1, False),
+        ("n_1", 1, 7, 7, (0, 7), i64, i64, None, False, 0, False),
+        ("empty", 0, 5, 5, (0, 5), i32, i32, None, False, 0, False),
     ]
 
 
-def phase_a(torch, confmat) -> int:
-    """Every pair-count case: kernel vs plain version on the same CUDA inputs."""
+def _stat_score_cases():
+    """(name, N, classes, label range, target / preds dtype, ignore_index, storage offset, high)
+    of the Phase A stat-score cases."""
+    i32, i64 = "int32", "int64"
+    return [
+        ("train_step", 1024, 1000, (0, 1000), i64, i64, None, 0, False),  # main path: argmax + target
+        ("train_step_int32", 1024, 1000, (0, 1000), i32, i32, None, 0, False),
+        ("six_metric_update", SIX_N, SIX_C, (0, SIX_C), i64, i64, None, 0, False),  # J2
+        ("six_metric_update_int32", SIX_N, SIX_C, (0, SIX_C), i32, i32, None, 0, False),
+        ("classes_2", 100003, 2, (0, 2), i64, i64, None, 0, False),
+        ("classes_7_ignore", 4097, 7, (-2, 9), i64, i64, 3, 0, False),
+        ("classes_100_ignore_minus_one", 70001, 100, (-3, 103), i64, i64, -1, 0, False),
+        ("classes_100_ignore_above", 70001, 100, (-3, 103), i64, i64, 100, 0, False),
+        ("mixed_types", 65541, 50, (0, 50), i32, i64, 7, 0, False),
+        ("int64_high", 70001, 7, (0, 7), i64, i64, 3, 0, True),
+        ("offset", 2**20 + 3, 100, (0, 100), i64, i64, 5, 1, False),
+        ("offset_int32", 4099, 1000, (0, 1000), i32, i32, None, 3, False),
+        # shared counters above 48 KB (opt-in dynamic shared memory): 96 KB at C = 8000, and the
+        # largest C whose 3 * C counters a block holds on an H100 (227 KB)
+        ("shared_8000", 2**20, 8000, (-2, 8002), i64, i64, 17, 0, False),
+        ("shared_8000_int32_offset", 300001, 8000, (0, 8000), i32, i32, None, 3, False),
+        ("shared_19370", 2**20, 19370, (0, 19370), i64, i64, None, 0, False),
+        ("global_counters", 2**20, 20000, (0, 20000), i64, i64, 17, 0, False),  # 3 * C * 4 B > shared memory
+        ("n_1", 1, 7, (0, 7), i64, i64, None, 0, False),
+        ("empty", 0, 5, (0, 5), i64, i64, None, 0, False),
+    ]
+
+
+def _labels(torch, gen, n: int, lo: int, hi: int, dtype: str, offset: int = 0, high: bool = False, like=None):
+    """n labels in [lo, hi) on the card, a view at ``offset`` into its storage; ``high`` adds
+    0, 1, 2 or 3 times 2^31 (int64); ``like``: copy that many of them (a diagonal share)."""
+    x = torch.randint(lo, hi, (n + offset,), generator=gen)
+    if like is not None:
+        x[offset:] = torch.where(torch.rand(n, generator=gen) < 0.3, like, x[offset:])
+    if high:
+        x = x + torch.randint(0, 4, (n + offset,), generator=gen) * 2**31
+    return x.to(getattr(torch, dtype)).cuda()[offset:]
+
+
+def phase_a(torch, confmat) -> dict:
+    """Every case of both routes of csrc/pair_count.cu: kernel vs plain version on the same CUDA inputs."""
     gen = torch.Generator().manual_seed(1234)
-    worst = 0
-    for name, n, rows, cols, (lo, hi), masked in _pair_count_cases():
-        r = torch.randint(lo, hi, (n,), generator=gen).to(torch.int32).cuda()
-        c = torch.randint(lo, hi, (n,), generator=gen).to(torch.int32).cuda()
+    worst = {"pair_count": 0, "stat_scores": 0}
+
+    def err(got, want) -> int:
+        return int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
+
+    for name, n, rows, cols, (lo, hi), rt, ct, ignore, masked, offset, high in _pair_count_cases():
+        r = _labels(torch, gen, n, lo, hi, rt, offset, high)
+        c = _labels(torch, gen, n, lo, hi, ct, offset, high)
         m = torch.randint(0, 2, (n,), generator=gen).bool().cuda() if masked else None
+        shared = confmat.uses_shared_branch(rows, cols)
+        want = confmat.pair_count_bincount(r, c, rows, cols, m, ignore)
         before = confmat.launches
-        got = confmat.pair_count_cuda(r, c, rows, cols, m)
+        got = confmat.pair_count_cuda(r, c, rows, cols, m, ignore)
         torch.cuda.synchronize()
-        want = confmat.pair_count_bincount(r, c, rows, cols, m)
         _check(got.dtype == torch.int32 and got.shape == (rows, cols), f"{name}: {got.dtype} {tuple(got.shape)}")
+        worst["pair_count"] = max(worst["pair_count"], err(got, want))
         _check(torch.equal(got, want), f"{name}: kernel differs from pair_count_bincount")
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max()) if got.numel() else 0
-        worst = max(worst, err)
         _check(confmat.launches == before + (1 if n else 0), f"{name}: launch count")
-        branch = "none (N = 0)" if n == 0 else ("shared" if confmat.uses_shared_branch(rows, cols) else "global")
-        print(f"phase A {name}: N={n} R={rows} C={cols} mask={masked} branch={branch} "
-              f"equal=True max_abs_err={err} total={int(want.sum())}")
+        branch = "none (N = 0)" if n == 0 else ("shared" if shared else "global")
+        aligned = r.data_ptr() % 16 == 0 and c.data_ptr() % 16 == 0
+        print(f"phase A pair_count {name}: N={n} R={rows} C={cols} {rt}/{ct} ignore_index={ignore} mask={masked} "
+              f"offset={offset} 16-byte loads={aligned} branch={branch} equal=True total={int(want.sum())}")
     _check(not confmat.uses_shared_branch(1000, 1000), "1000x1000 must take the global-atomic branch")
     _check(confmat.uses_shared_branch(100, 100), "100x100 must take the shared-memory branch")
+    _check(confmat.uses_shared_branch(241, 241), "241x241 must take the shared-memory branch")
+
+    for name, n, classes, (lo, hi), tt, pt, ignore, offset, high in _stat_score_cases():
+        t = _labels(torch, gen, n, lo, hi, tt, offset, high)
+        p = _labels(torch, gen, n, lo, hi, pt, offset, high, like=t.cpu().to(torch.int64))
+        want = confmat.stat_scores_bincount(t, p, classes, ignore)
+        before = confmat.stat_score_launches
+        got = confmat.stat_scores_cuda(t, p, classes, ignore)
+        torch.cuda.synchronize()
+        for what, g, w in zip(("tp", "fp", "tn", "fn"), got, want):
+            _check(g.dtype == torch.int32 and g.shape == (classes,), f"{name}.{what}: {g.dtype} {tuple(g.shape)}")
+            worst["stat_scores"] = max(worst["stat_scores"], err(g, w))
+            _check(torch.equal(g, w), f"{name}.{what}: kernel differs from stat_scores_bincount")
+        _check(confmat.stat_score_launches == before + (1 if n else 0), f"{name}: launch count")
+        branch = "none (N = 0)" if n == 0 else ("shared" if confmat.stat_scores_uses_shared(classes) else "global")
+        n_valid = int(sum(x[0] for x in want))  # tp + fp + tn + fn of any class
+        print(f"phase A stat_scores {name}: N={n} C={classes} {tt}/{pt} ignore_index={ignore} offset={offset} "
+              f"branch={branch} equal=True tp={int(want[0].sum())} valid={n_valid}")
+    _check(confmat.stat_scores_uses_shared(1000) and confmat.stat_scores_uses_shared(19370)
+           and not confmat.stat_scores_uses_shared(20000), "stat-score branches")
     return worst
 
 
@@ -509,7 +613,7 @@ def phase_b(torch, confmat, entry_mod):
 
     spied.update_state = recording_update_state
 
-    confmat.launches = 0  # the main path's run starts here
+    confmat.launches = confmat.stat_score_launches = 0  # the main path's run starts here
     t0 = time.perf_counter()
     losses = []
     for _ in range(FLAGSHIP_STEPS + 1):
@@ -517,11 +621,13 @@ def phase_b(torch, confmat, entry_mod):
         losses.append(loss)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = confmat.launches  # ... and ends here
+    launches = {"stat_scores": confmat.stat_score_launches, "pair_count": confmat.launches}  # ... and ends here
     del spied.update_state
     n_steps = FLAGSHIP_STEPS + 1
-    print(f"phase B ran {n_steps} steps in {wall:.3f} s; pair_count launches={launches}")
-    _check(launches == 3 * n_steps, f"expected {3 * n_steps} pair_count launches, got {launches}")
+    print(f"phase B ran {n_steps} steps in {wall:.3f} s; launches {launches}")
+    # accuracy and F1 take the stat-score route, the confusion matrix the table route
+    _check(launches == {"stat_scores": 2 * n_steps, "pair_count": n_steps},
+           f"expected {2 * n_steps} stat-score and {n_steps} table launches, got {launches}")
     losses = torch.stack(losses).cpu()
     _check(bool(torch.isfinite(losses).all()), f"non-finite loss {losses.tolist()}")
     _check(len(seen) == n_steps, "recorded predictions")
@@ -592,28 +698,43 @@ def phase_c_steps(torch, entry_mod, step, args):
     return {"bare_ms": t_bare, "fused_ms": t_fused, "overhead_pct": overhead}
 
 
-def phase_c_kernel(torch, confmat, n, rows, cols):
-    """Kernel, plain version, library call and bound at one shape."""
+def _bound(nbytes: int, ops: int, ops_per_s: float = CUDA_CORE_OPS_PER_S):
+    """(ms, "bytes" or "operations"): the larger of the bytes over the memory rate and the operations
+    over ``ops_per_s``."""
+    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / ops_per_s * 1e3, "operations"))
+
+
+def phase_c_kernel(torch, confmat, n: int, classes: int) -> dict:
+    """Both routes of csrc/pair_count.cu at one shape, on int64 labels as the main path hands
+    them over: call time, device time, plain version, torch.bincount of the pair keys (the
+    library call), bound."""
     gen = torch.Generator().manual_seed(99)
-    r = torch.randint(0, rows, (n,), generator=gen).to(torch.int32).cuda()
-    c = torch.randint(0, cols, (n,), generator=gen).to(torch.int32).cuda()
-    key = r.to(torch.int64) * cols + c
+    t = torch.randint(0, classes, (n,), generator=gen).cuda()
+    p = torch.randint(0, classes, (n,), generator=gen).cuda()
+    key = t * classes + p
     iters = 200
-    ms = _time_ms(lambda: confmat.pair_count_cuda(r, c, rows, cols), iters)
-    plain_ms = _time_ms(lambda: confmat.pair_count_bincount(r, c, rows, cols), iters)
-    library_ms = _time_ms(lambda: torch.bincount(key, minlength=rows * cols + 1), iters)
-    nbytes = 2 * 4 * n + 4 * rows * cols  # two int32 index streams read, the int32 table written
-    ops = 4 * n  # per pair: two range compares, one key multiply-add, one increment
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = ops / CUDA_CORE_OPS_PER_S * 1e3
-    bound_ms, bound_by = max((bytes_ms, "bytes"), (ops_ms, "operations"))
-    kernels, _ = _profile_steps(torch, lambda: confmat.pair_count_cuda(r, c, rows, cols), 20)
-    launches = [us for name, v in kernels.items() if "pair_count" in name for us in v]
-    device_ms = sum(launches) / len(launches) / 1e3 if launches else None
-    rec = {"n": n, "rows": rows, "cols": cols, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
-           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
-    print(f"phase C pair_count {json.dumps(rec)}")
-    return rec
+    library_ms = _time_ms(lambda: torch.bincount(key, minlength=classes * classes + 1), iters)
+    recs = {}
+    routes = {
+        # two int64 label streams read, the int32 table written; per pair two range compares, a key, an add
+        "pair_count": (lambda: confmat.pair_count_cuda(t, p, classes, classes),
+                       lambda: confmat.pair_count_bincount(t, p, classes, classes),
+                       "pair_count_", 16 * n + 4 * classes * classes, 4 * n),
+        # two int64 label streams read, four int32 (C,) counts written; per pair two range compares,
+        # the hit compare, one or two adds
+        "stat_scores": (lambda: confmat.stat_scores_cuda(t, p, classes),
+                        lambda: confmat.stat_scores_bincount(t, p, classes),
+                        "stat_scores_kernel", 16 * n + 16 * classes, 4 * n),
+    }
+    for route, (run, plain, match, nbytes, ops) in routes.items():
+        bound_ms, bound_by = _bound(nbytes, ops)
+        recs[route] = rec = {
+            "n": n, "rows": classes, "cols": classes, "label_dtype": "int64", "ms": _time_ms(run, iters),
+            "device_ms": _per_call_ms(_call_kernels(torch, run, match, 1)),
+            "plain_ms": _time_ms(plain, iters), "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes, "ops": ops}
+        print(f"phase C {route} {json.dumps(rec)}")
+    return recs
 
 
 def _per_call_ms(kernels: dict):
@@ -690,8 +811,12 @@ def phase_d_profile(torch, entry_mod, step, args, iters: int = 5):
         states = {name: m.update_state(states[name], preds, y) for name, m in step.metrics.items()}
 
     metric_kernels, _ = _profile_steps(torch, run_metrics, iters)
-    pair = [us for name, v in metric_kernels.items() if "pair_count" in name for us in v]
+    pair = [us for name, v in metric_kernels.items() if "pair_count_" in name for us in v]
+    stat = [us for name, v in metric_kernels.items() if "stat_scores_kernel" in name for us in v]
     top = sorted(metric_kernels.items(), key=lambda kv: -sum(kv[1]))[:12]
+    # the stat-score route replaced the int64 sums of the (C, C) table and the casts around them
+    long_sums = [name for name in metric_kernels if "ReduceOp<long" in name]
+    _check(not long_sums, f"int64 reductions left in the metric updates: {long_sums}")
     rec = {
         "bare_step_device_busy_us": bare_busy_us / iters,
         "bare_step_wall_us_under_profiler": bare_wall_us / iters,
@@ -703,6 +828,8 @@ def phase_d_profile(torch, entry_mod, step, args, iters: int = 5):
         "metric_kernel_launches_per_step": sum(len(v) for v in metric_kernels.values()) / iters,
         "pair_count_device_us_per_launch": sum(pair) / len(pair) if pair else None,
         "pair_count_launches_profiled": len(pair),
+        "stat_scores_device_us_per_launch": sum(stat) / len(stat) if stat else None,
+        "stat_scores_launches_profiled": len(stat),
         "metric_top_kernels": [
             {"name": name[:90], "launches_per_step": len(v) / iters, "us_per_step": sum(v) / iters} for name, v in top
         ],
@@ -964,10 +1091,11 @@ def _update_profile(torch, update, state, batch, kernel: str, iters: int = 20, t
     }
 
 
-def _walk_record(torch, cms_walk, ids, issue_ops_per_s: float, plain: bool) -> dict:
+def _walk_record(torch, cms_walk, ids, issue_ops_per_s: float, clock_hz: float, plain: bool) -> dict:
     """The ledger walk of ``ids`` into an empty 4 x 2048 table and k = 32 ledger: call and device
-    time, µs per item, the share of items that reached the sequential decision, and the bound
-    (the table half's: the ids route of cms_rows_add at the same N); the plain walk once if asked."""
+    time, µs per item, the share of items that reached the sequential decision, and the bound:
+    those items times WALK_DECISION_CYCLES over the SM clock (``clocks.max.sm``), plus the table
+    half's bound (the ids route of cms_rows_add at the same N); the plain walk once if asked."""
     n = ids.numel()
     table = torch.zeros((4, 2048), dtype=torch.int32, device="cuda")
     ledger = torch.stack([torch.full((32,), -1, dtype=torch.int32, device="cuda"),
@@ -978,17 +1106,20 @@ def _walk_record(torch, cms_walk, ids, issue_ops_per_s: float, plain: bool) -> d
     device_ms = _per_call_ms(_call_kernels(torch, run, "cms_walk_kernel", 1, calls))
     decisions = torch.zeros(1, dtype=torch.int64, device="cuda")
     cms_walk.cms_walk_cuda(table, ledger, ids, decisions)
+    decided = int(decisions)
     valid = int((ids >= 0).sum())
     nbytes, ops = 4 * n + 8 * 4 * 2048, CM_HASH_OPS * 4 * n
-    bound_ms, bound_by = max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"), (ops / issue_ops_per_s * 1e3, "operations"))
+    table_ms, table_by = _bound(nbytes, ops, issue_ops_per_s)
+    sequential_ms = decided * WALK_DECISION_CYCLES / clock_hz * 1e3
     plain_ms = _time_ms(lambda: cms_walk.cms_walk_reference(table, ledger, ids), 1, warmup=0) if plain else None
     return {"shape": f"N={n} Zipf ids, 4 x 2048 table, k=32", "ms": ms, "device_ms": device_ms,
-            "us_per_item": device_ms * 1e3 / n if device_ms else None, "decided_share": int(decisions) / valid,
-            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": ops, "placement": cms_walk.placement(4, 2048, 32)}
+            "us_per_item": device_ms * 1e3 / n if device_ms else None, "decided_share": decided / valid,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": sequential_ms + table_ms, "bound_by": "operations",
+            "sequential_bound_ms": sequential_ms, "table_bound_ms": table_ms, "table_bound_by": table_by,
+            "bytes": nbytes, "ops": ops, "placement": cms_walk.placement(4, 2048, 32)}
 
 
-def phase_f(torch, scatter, cms_walk, data, issue_ops_per_s: float) -> dict:
+def phase_f(torch, scatter, cms_walk, data, issue_ops_per_s: float, clock_hz: float) -> dict:
     """Each scatter kernel at the Phase E shapes; the ledger walk; each sketch's update; profiled updates."""
     from metrics_tpu_torch.sketch import kernels as sk
 
@@ -1041,7 +1172,8 @@ def phase_f(torch, scatter, cms_walk, data, issue_ops_per_s: float) -> dict:
     for n_ids in WALK_SHAPES:
         ids = {n: ids0, HH_BATCH: hh0}.get(n_ids)
         ids = _zipf(torch, n_ids, torch.Generator(device="cuda").manual_seed(n_ids)) if ids is None else ids
-        recs[f"cms_walk_{n_ids}"] = rec = _walk_record(torch, cms_walk, ids, issue_ops_per_s, plain=n_ids == HH_BATCH)
+        recs[f"cms_walk_{n_ids}"] = rec = _walk_record(torch, cms_walk, ids, issue_ops_per_s, clock_hz,
+                                                       plain=n_ids == HH_BATCH)
         print(f"phase F cms_walk {json.dumps(rec)}")
 
     # per-update time and values/s of each sketch on one batch
@@ -1432,8 +1564,19 @@ def phase_i(torch, bc, data) -> dict:
     return recs
 
 
-def _pair_count_launches(instrument) -> int:
-    return int(instrument.KERNEL_LAUNCHES.value(kernel="pair_count"))
+def _route_launches(instrument) -> tuple:
+    """(stat-score, table) launches of csrc/pair_count.cu counted so far."""
+    return tuple(int(instrument.KERNEL_LAUNCHES.value(kernel=k)) for k in ("stat_scores", "pair_count"))
+
+
+def _diff(after: tuple, before: tuple) -> tuple:
+    return tuple(a - b for a, b in zip(after, before))
+
+
+def _no_reference_dispatch(instrument, what: str) -> None:
+    for entry in ("stat_scores_cuda", "pair_count_cuda"):
+        n = int(instrument.KERNEL_DISPATCHES.value(kernel=entry, impl="reference"))
+        _check(n == 0, f"{what}: {n} reference dispatches of {entry} on a CUDA tensor")
 
 
 def phase_j1(torch, entry_mod, obs, instrument, steps_c: dict, dev: str = "cuda", **config) -> dict:
@@ -1456,27 +1599,29 @@ def phase_j1(torch, entry_mod, obs, instrument, steps_c: dict, dev: str = "cuda"
     dict_states = {name: m.init_state() for name, m in metrics.items()}
 
     # sgd_step + argmax + col.update_state, chained; the dict path's three update_state calls on the
-    # same predictions; pair-count launches counted around each
+    # same predictions; (stat-score, table) launches counted around each
     col_launches, dict_launches = [], []
     obs.enable()
     try:
         instrument.KERNEL_LAUNCHES.clear()  # the main path's run starts here ...
+        instrument.KERNEL_DISPATCHES.clear()
         for _ in range(FLAGSHIP_STEPS):
             params, loss, logits = entry_mod.sgd_step(params, x, y)
             preds = torch.argmax(logits, dim=-1)
-            before = _pair_count_launches(instrument)
+            before = _route_launches(instrument)
             col_states = col.update_state(col_states, preds, y)
-            mid = _pair_count_launches(instrument)
+            mid = _route_launches(instrument)
             dict_states = {name: m.update_state(dict_states[name], preds, y) for name, m in metrics.items()}
-            col_launches.append(mid - before)
-            dict_launches.append(_pair_count_launches(instrument) - mid)
-        total = _pair_count_launches(instrument)  # ... and ends here
+            col_launches.append(_diff(mid, before))
+            dict_launches.append(_diff(_route_launches(instrument), mid))
+        total = _route_launches(instrument)  # ... and ends here
+        _no_reference_dispatch(instrument, "phase J1")
     finally:
         obs.disable()
-    print(f"phase J1 {FLAGSHIP_STEPS} steps: pair_count launches per step {col_launches[0]} through the collection, "
-          f"{dict_launches[0]} through the dict; {total} in all")
-    _check(col_launches == [2] * FLAGSHIP_STEPS, f"collection launches per step {col_launches}")
-    _check(dict_launches == [3] * FLAGSHIP_STEPS, f"dict launches per step {dict_launches}")
+    print(f"phase J1 {FLAGSHIP_STEPS} steps: (stat-score, table) launches per step {col_launches[0]} through the "
+          f"collection, {dict_launches[0]} through the dict; {total} in all")
+    _check(col_launches == [(1, 1)] * FLAGSHIP_STEPS, f"collection launches per step {col_launches}")
+    _check(dict_launches == [(2, 1)] * FLAGSHIP_STEPS, f"dict launches per step {dict_launches}")
     _check(bool(torch.isfinite(loss)), f"non-finite loss {loss}")
     for name in metrics:
         got = col_states["accuracy" if name == "f1" else name]
@@ -1512,8 +1657,9 @@ def phase_j1(torch, entry_mod, obs, instrument, steps_c: dict, dev: str = "cuda"
            "dict_overhead_pct": (t["dict"] - t["bare"]) / t["bare"] * 100.0,
            "collection_overhead_pct": (t["collection"] - t["bare"]) / t["bare"] * 100.0,
            "phase_c_overhead_pct": steps_c["overhead_pct"],
-           "launches_per_step": {"collection": col_launches[0], "dict": dict_launches[0]},
-           "launches": total}
+           "launches_per_step": {"collection": dict(zip(ROUTES, col_launches[0])),
+                                 "dict": dict(zip(ROUTES, dict_launches[0]))},
+           "launches": dict(zip(ROUTES, total))}
     print(f"phase J1 step {json.dumps(rec)} (min of {TIMING_REPS} reps x {FLAGSHIP_STEPS} steps; reps {reps})")
     return rec
 
@@ -1554,21 +1700,24 @@ def phase_j2(torch, obs, instrument, dev: str = "cuda", n: int = SIX_N, num_clas
     try:
         for mode, col in cols.items():
             instrument.KERNEL_LAUNCHES.clear()  # the main path's run starts here ...
+            instrument.KERNEL_DISPATCHES.clear()
             per_update = []
             for preds, target in batches:
-                before = _pair_count_launches(instrument)
+                before = _route_launches(instrument)
                 col.update(preds, target)
-                per_update.append(_pair_count_launches(instrument) - before)
+                per_update.append(_diff(_route_launches(instrument), before))
             launches[mode] = per_update  # ... and ends here
+            _no_reference_dispatch(instrument, f"phase J2 {mode}")
     finally:
         obs.disable()
     groups = {k: list(v) for k, v in cols["groups"].compute_groups.items()}
-    print(f"phase J2 compute groups: built {built}, after one update {groups}; pair_count launches per update: "
-          f"{launches['groups'][1]} with groups (the first, which forms them, {launches['groups'][0]}: one per "
-          f"group at construction), {launches['no_groups'][0]} without")
+    print(f"phase J2 compute groups: built {built}, after one update {groups}; (stat-score, table) launches per "
+          f"update: {launches['groups'][1]} with groups (the first, which forms them, {launches['groups'][0]}: one "
+          f"per group at construction), {launches['no_groups'][0]} without")
     _check(groups == SIX_GROUPS, f"six-metric groups {groups}, the JAX package forms {SIX_GROUPS}")
-    _check(launches["groups"] == [len(built)] + [2] * SIX_UPDATES, f"launches with groups {launches['groups']}")
-    _check(launches["no_groups"] == [6] * len(batches), f"launches without groups {launches['no_groups']}")
+    # groups at construction: {acc}, {cm}, {f1}, {prec, rec, spec}: three stat-score updates and the table
+    _check(launches["groups"] == [(3, 1)] + [(1, 1)] * SIX_UPDATES, f"launches with groups {launches['groups']}")
+    _check(launches["no_groups"] == [(5, 1)] * len(batches), f"launches without groups {launches['no_groups']}")
 
     # int32 states: with groups == without == a CPU recomputation through the plain pair count
     cpu = MetricCollection(_six_metrics("cpu", num_classes), compute_groups=False)
@@ -1592,8 +1741,9 @@ def phase_j2(torch, obs, instrument, dev: str = "cuda", n: int = SIX_N, num_clas
           f"groups; {json.dumps({k: float(v) for k, v in val_on.items() if v.numel() == 1})}")
 
     # time SIX_UPDATES updates of each collection with CUDA events, interleaved, minimum of TIMING_REPS
-    rec = {"n": n, "classes": num_classes, "launches_per_update": {k: v[-1] for k, v in launches.items()},
-           "launches_forming_update": launches["groups"][0]}
+    rec = {"n": n, "classes": num_classes,
+           "launches_per_update": {k: dict(zip(ROUTES, v[-1])) for k, v in launches.items()},
+           "launches_forming_update": dict(zip(ROUTES, launches["groups"][0]))}
     times = {mode: [] for mode in cols}
     for _ in range(TIMING_REPS):
         for mode, col in cols.items():
@@ -1713,19 +1863,18 @@ def main() -> int:
             if "ptxas" in ln or "spill" in ln:
                 print(f"    {ln.strip()}")
 
-    max_abs_err = phase_a(torch, confmat)
+    route_err = phase_a(torch, confmat)
     scatter_err = phase_a_scatter(torch, scatter)
     scatter_err["cms_rows_add"] = max(scatter_err["cms_rows_add"], phase_a_cms_ids(torch, scatter))
     walk_err = phase_a_walk(torch, cms_walk)
     launches, args, step = phase_b(torch, confmat, entry_mod)
     steps = phase_c_steps(torch, entry_mod, step, args)
-    main_shape = phase_c_kernel(torch, confmat, n=entry_mod.FULL_CONFIG["batch"],
-                                rows=entry_mod.FULL_CONFIG["classes"], cols=entry_mod.FULL_CONFIG["classes"])
-    six_shape = phase_c_kernel(torch, confmat, n=SIX_N, rows=SIX_C, cols=SIX_C)  # Phase J2's shape, shared memory
+    main_shape = phase_c_kernel(torch, confmat, n=entry_mod.FULL_CONFIG["batch"], classes=entry_mod.FULL_CONFIG["classes"])
+    six_shape = phase_c_kernel(torch, confmat, n=SIX_N, classes=SIX_C)  # Phase J2's shape, shared memory
     phase_d_profile(torch, entry_mod, step, args)
     del args, step
     sketch_launches, sketch_data = phase_e(torch, scatter, cms_walk, obs, instrument)
-    sketch_recs = phase_f(torch, scatter, cms_walk, sketch_data, issue_ops_per_s)
+    sketch_recs = phase_f(torch, scatter, cms_walk, sketch_data, issue_ops_per_s, clock_mhz * 1e6)
     del sketch_data
     curve_err = phase_g(torch, bc)
     curve_launches, curve_data = phase_h(torch, bc, obs, instrument)
@@ -1736,26 +1885,34 @@ def main() -> int:
     phase_j3(torch)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
-    kernels = [{
-        "name": "pair_count",
-        "route": "cuda",
-        "source": "metrics_tpu_torch/csrc/pair_count.cu",
-        "replaces": "metrics_tpu/kernels/confmat.py:126",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        **{k: main_shape[k] for k in fields},
-        "shapes": [{"shape": f"N={r['n']}, {r['rows']} x {r['cols']} ({what})", **{k: r[k] for k in fields}}
-                   for r, what in ((main_shape, "train step, global atomics"),
-                                   (six_shape, "six-metric collection update, shared memory"))],
-        # pair-count launches of each path's run: the dict step (Phase B), the same three metrics in a
-        # collection (J1), the six-metric collection with groups on and off (J2)
-        "launches_by_path": {
-            "phase_b_dict_step": launches,
-            "phase_j1_collection_and_dict_steps": collection_step["launches"],
-            "phase_j1_per_step": collection_step["launches_per_step"],
-            "phase_j2_per_update": six["launches_per_update"],
-        },
-    }]
+    what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
+            "stat_scores": ("train step, one block", "six-metric collection update")}
+    replaces = {"pair_count": "metrics_tpu/kernels/confmat.py:126",
+                "stat_scores": "metrics_tpu/kernels/confmat.py:126, "
+                               "metrics_tpu/functional/classification/stat_scores.py:334-339"}
+    kernels = []
+    for route in ROUTES:
+        main, six_rec = main_shape[route], six_shape[route]
+        kernels.append({
+            "name": route,
+            "route": "cuda",
+            "source": "metrics_tpu_torch/csrc/pair_count.cu",
+            "replaces": replaces[route],
+            "launches": launches[route],
+            "max_abs_err": route_err[route],
+            **{k: main[k] for k in fields},
+            "shapes": [{"shape": f"N={r['n']}, {r['rows']} x {r['cols']} int64 labels ({w})",
+                        **{k: r[k] for k in fields}} for r, w in zip((main, six_rec), what[route])],
+            # launches of each path's run: the dict step (Phase B), the same three metrics in a
+            # collection (J1), the six-metric collection with groups on and off (J2)
+            "launches_by_path": {
+                "phase_b_dict_step": launches[route],
+                "phase_j1_collection_and_dict_steps": collection_step["launches"][route],
+                "phase_j1_per_step": {k: v[route] for k, v in collection_step["launches_per_step"].items()},
+                "phase_j2_per_update": {k: v[route] for k, v in six["launches_per_update"].items()},
+                "phase_j2_forming_update": six["launches_forming_update"][route],
+            },
+        })
     shape_fields = ("shape", *fields)
     for kernel, rec, shapes in (
         ("hist_add", sketch_recs["hist_add"], ()),

@@ -4,8 +4,9 @@
 The multiclass count is the kernel plane's pair count
 (:mod:`metrics_tpu_torch.kernels.confmat`): the CUDA kernel on CUDA tensors,
 the bincount reference on CPU tensors. Rows are the true class, columns the
-predicted class; ignored pairs carry a 0 row mask, and out-of-range class
-indices (reachable only with ``validate_args=False``) are dropped.
+predicted class; ignored pairs and out-of-range class
+indices (reachable only with ``validate_args=False``) are dropped. Labels count
+by their low 32 bits, as the JAX package sees them with x64 off.
 """
 
 from __future__ import annotations
@@ -42,14 +43,10 @@ def _confusion_matrix_reduce(confmat: Tensor, normalize: Optional[str] = None) -
 def _multiclass_confusion_matrix_update(
     preds: Tensor, target: Tensor, num_classes: int, ignore_index: Optional[int] = None
 ) -> Tensor:
-    """(C, C) int32 counts, rows = true class, by one pair count."""
-    p = preds.reshape(-1).to(torch.int32)
-    t = target.reshape(-1)
-    if ignore_index is None:  # an all-ones mask: pass none, the kernel then reads no mask
-        return pair_count(t.to(torch.int32), p, num_classes, num_classes)
-    mask = t != ignore_index
-    t = torch.where(mask, t, 0).to(torch.int32)
-    return pair_count(t, p, num_classes, num_classes, row_mask=mask)
+    """(C, C) int32 counts, rows = true class, by one pair count. The labels
+    go to it as they are (the kernel reads int32 and int64), and so does
+    ``ignore_index``, which it compares with the target's low 32 bits."""
+    return pair_count(target.reshape(-1), preds.reshape(-1), num_classes, num_classes, ignore_index=ignore_index)
 
 
 def multiclass_confusion_matrix(

@@ -13,6 +13,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
+from metrics_tpu_torch.kernels.confmat import stat_scores
 from metrics_tpu_torch.utils.checks import _value_check_possible
 from metrics_tpu_torch.utils.data import _one_hot, select_topk
 
@@ -141,30 +142,25 @@ def _multiclass_stat_scores_update(
 ) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
     """Per-class int32 tp/fp/tn/fn. Output shapes: global ``(C,)``; samplewise ``(N, C)``.
 
-    With label preds and a global reduce, every count derives from the (C, C)
-    confusion matrix, i.e. from one pair count: the CUDA kernel on the GPU, the
-    bincount reference on the CPU. The JAX package takes this route on its CPU
-    backend and for matmul-eligible sizes on accelerators; the port takes it on
-    both devices, and the CUDA kernel takes every N < 2**31, so the counts are
-    the same ints by construction. The rest (samplewise, or top_k > 1 probs)
-    is one-hot arithmetic.
+    With label preds and a global reduce, every count is what the (C, C)
+    confusion matrix gives (the JAX package's route on its CPU backend and for
+    matmul-eligible sizes on accelerators): the kernel plane's ``stat_scores``,
+    whose CUDA route counts tp/fp/fn per class and the valid pairs without
+    building the table, and whose plain version (CPU) derives them from the
+    bincount pair count. The labels go to it as they are. The rest
+    (samplewise, or top_k > 1 probs) is one-hot arithmetic.
     """
-    from metrics_tpu_torch.functional.classification.confusion_matrix import _multiclass_confusion_matrix_update
-
     if multidim_average == "global" and preds.ndim != 3:
-        cm = _multiclass_confusion_matrix_update(preds, target, num_classes, ignore_index)
-        tp = torch.diagonal(cm)
-        fn = cm.sum(dim=1) - tp
-        fp = cm.sum(dim=0) - tp
-        tn = cm.sum() - tp - fn - fp
-        return tp.to(torch.int32), fp.to(torch.int32), tn.to(torch.int32), fn.to(torch.int32)
+        return stat_scores(target.reshape(-1), preds.reshape(-1), num_classes, ignore_index)
 
+    target = target.to(torch.int32)  # labels count by their low 32 bits, as the JAX package sees them
     mask = _ignore_mask(target, ignore_index)
     target_ = torch.where(mask, target, 0).to(torch.int32)
     m = mask.to(torch.float32)
     # Out-of-range indices (reachable only with validate_args=False) drop the
     # whole PAIR, exactly like the confusion-matrix route above.
     if preds.ndim != 3:
+        preds = preds.to(torch.int32)
         m = m * ((preds >= 0) & (preds < num_classes)).to(torch.float32)
     m = m * ((target_ >= 0) & (target_ < num_classes)).to(torch.float32)
     m_ = m.unsqueeze(-1)
@@ -174,7 +170,7 @@ def _multiclass_stat_scores_update(
         topk_mask = select_topk(preds, top_k, dim=1)
         oh_preds = torch.movedim(topk_mask, 1, -1).to(torch.float32) * m_
     else:
-        oh_preds = _one_hot(preds.to(torch.int32), num_classes, torch.float32) * m_
+        oh_preds = _one_hot(preds, num_classes, torch.float32) * m_
 
     sum_axes = (0, 1) if multidim_average == "global" else (1,)
 

@@ -8,6 +8,10 @@ wrapper is held to taking the plain version on CPU tensors and raising on any
 other device.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -157,3 +161,155 @@ def test_build_without_nvcc_raises_and_leaves_no_file(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build("pair_count")
     assert not (tmp_path / "build").exists()
+
+
+# ------------------------------------------------ ignore_index, int64 labels, the stat-score route
+
+
+def _jax_table(r, c, rows, cols, ignore_index, mask=None):
+    """The JAX package's confusion-matrix semantics on its own pair counts: the
+    labels as it sees them (int32), ignored rows masked out and zeroed."""
+    jr, jc = jnp.asarray(r), jnp.asarray(c)
+    keep = jnp.ones(jr.shape, bool) if ignore_index is None else jr != ignore_index
+    if mask is not None:
+        keep = keep & jnp.asarray(mask)
+    jr = jnp.where(keep, jr, 0)
+    want = jax_confmat.pair_count_bincount(jr, jc, rows, cols, keep)
+    np.testing.assert_array_equal(
+        np.asarray(jax_confmat.pair_count_fused(jr, jc, rows, cols, keep, interpret=True)), np.asarray(want)
+    )
+    return np.asarray(want)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("ignore_index", [None, 4, -1, 30])
+def test_pair_count_ignore_index_matches_jax(ignore_index, dtype, masked):
+    rng = np.random.default_rng(100 + (ignore_index or 0) + 7 * masked)
+    n, rows, cols = 3001, 9, 13
+    r = rng.integers(-2, rows + 2, n)
+    if ignore_index is not None:
+        r = np.where(rng.random(n) < 0.2, ignore_index, r)
+    r, c = r.astype(dtype), rng.integers(-2, cols + 2, n).astype(dtype)
+    mask = rng.integers(0, 2, n).astype(bool) if masked else None
+    want = _jax_table(r, c, rows, cols, ignore_index, mask)
+    tr, tc = torch.from_numpy(r), torch.from_numpy(c)
+    tm = None if mask is None else torch.from_numpy(mask)
+    for fn in (confmat.pair_count, confmat.pair_count_bincount, confmat.pair_count_matmul, confmat.pair_count_cuda):
+        got = fn(tr, tc, rows, cols, tm, ignore_index)
+        assert got.dtype == torch.int32, fn.__name__
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=fn.__name__)
+
+
+@pytest.mark.parametrize("ignore_index", [None, 3])
+def test_int64_labels_count_by_their_low_word_like_jax(ignore_index):
+    rng = np.random.default_rng(5 + (ignore_index or 0))
+    n = 2049
+    r = rng.integers(0, 6, n) + rng.choice([0, 2**32, 2**31, -(2**32), 2**40], n)
+    c = rng.integers(0, 6, n) + rng.choice([0, 2**32, 2**33 + 2**31], n)
+    want = _jax_table(r, c, 6, 6, ignore_index)
+    got = confmat.pair_count(torch.from_numpy(r), torch.from_numpy(c), 6, 6, ignore_index=ignore_index)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_ignore_index_is_compared_after_the_truncation():
+    """The target 2**32 + 3 is class 3 to the JAX package (x64 off), so
+    ``ignore_index=3`` drops it there; comparing the int64 value first would
+    keep it. The port drops it on both routes."""
+    target = np.array([2**32 + 3, 2, 2**32 + 3], np.int64)
+    preds = np.array([3, 2, 1], np.int64)
+    want = _jax_table(target, preds, 5, 5, 3)
+    assert want.sum() == 1 and want[2, 2] == 1
+    tt, tp = torch.from_numpy(target), torch.from_numpy(preds)
+    np.testing.assert_array_equal(confmat.pair_count(tt, tp, 5, 5, ignore_index=3).numpy(), want)
+    tp_, fp_, tn_, fn_ = confmat.stat_scores(tt, tp, 5, 3)
+    assert tp_.tolist() == [0, 0, 1, 0, 0] and fp_.tolist() == fn_.tolist() == [0] * 5
+    assert tn_.tolist() == [1, 1, 0, 1, 1]
+
+
+def test_stat_scores_cpu_tensor_takes_the_plain_version_and_launches_nothing():
+    t = torch.tensor([0, 1, 2, 2], dtype=torch.int64)
+    p = torch.tensor([0, 1, 1, 2], dtype=torch.int64)
+    assert registry.selected("stat_scores_cuda", t, p, 3) == "reference"
+    before = (confmat.launches, confmat.stat_score_launches)
+    obs.enable()
+    try:
+        instrument.KERNEL_DISPATCHES.clear()
+        tp, fp, tn, fn = confmat.stat_scores(t, p, 3)
+        dispatched = instrument.KERNEL_DISPATCHES.value(kernel="stat_scores_cuda", impl="reference")
+    finally:
+        obs.disable()
+    assert (confmat.launches, confmat.stat_score_launches) == before
+    assert dispatched == 1
+    assert [x.tolist() for x in (tp, fp, tn, fn)] == [[1, 1, 1], [0, 1, 0], [3, 2, 2], [0, 0, 1]]
+    assert all(x.dtype == torch.int32 for x in (tp, fp, tn, fn))
+
+
+def test_stat_scores_non_cpu_tensor_never_takes_the_plain_version():
+    t = torch.zeros(8, dtype=torch.int64, device="meta")
+    assert registry.selected("stat_scores_cuda", t, t, 3) == "optimized"
+    with pytest.raises(ValueError, match="CUDA device or the CPU"):
+        confmat.stat_scores(t, t, 3)
+    with pytest.raises(ValueError, match="not eligible"):
+        registry.dispatch("stat_scores_cuda", t, t, 2**29)  # 4 * C + 2 >= 2**31
+
+
+def test_stat_scores_registry_entry():
+    entry = registry.get("stat_scores_cuda")
+    assert entry.reference is confmat.stat_scores_bincount
+    assert entry.optimized is confmat.stat_scores_cuda
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "long long": ctypes.c_longlong, "const char*": ctypes.c_char_p}
+
+
+def test_kernel_source_exports_what_the_wrapper_binds():
+    """Every C function the wrapper binds exists in ``csrc/pair_count.cu`` with
+    the parameter and return types of ``confmat._SIGNATURES``: a mismatch would
+    show only on the card."""
+    src = (Path(confmat.__file__).parent.parent / "csrc" / f"{confmat.KERNEL_NAME}.cu").read_text()
+    exported = src[src.index('extern "C" {'):]
+    for name, (argtypes, restype) in confmat._SIGNATURES.items():
+        m = re.search(r"^(const char\*|int) " + name + r"\(([^)]*)\)", exported, re.M)
+        assert m, name
+        params = [re.sub(r"\s+", " ", p).strip().rsplit(" ", 1)[0] for p in m.group(2).split(",")]
+        params = [p.replace(" *", "*") for p in params]
+        assert [_C_TYPES[p] for p in params] == argtypes, name
+        assert _C_TYPES[m.group(1)] is restype, name
+
+
+@pytest.mark.parametrize("ignore_index", [2**31, -(2**31) - 1, 2**32 + 3, 2**40])
+def test_ignore_index_outside_int32_raises_on_every_route(ignore_index):
+    """Labels count as int32, so an ``ignore_index`` outside the int32 range
+    has no meaning: the JAX package raises on it (x64 off), and every route of
+    the port raises too, the plain versions and the kernel's argument check
+    alike, so that the two can never disagree on it."""
+    r = np.array([1, 2, 3], np.int64)
+    with pytest.raises(OverflowError):
+        jnp.asarray(r.astype(np.int32)) != ignore_index
+    t = torch.from_numpy(r)
+    for fn in (confmat.pair_count, confmat.pair_count_bincount, confmat.pair_count_matmul, confmat.pair_count_cuda):
+        with pytest.raises(ValueError, match="int32 range"):
+            fn(t, t, 5, 5, None, ignore_index)
+    for fn in (confmat.stat_scores, confmat.stat_scores_bincount, confmat.stat_scores_cuda):
+        with pytest.raises(ValueError, match="int32 range"):
+            fn(t, t, 5, ignore_index)
+    with pytest.raises(ValueError, match="int32 range"):
+        confmat._ignore_args(ignore_index, "pair_count_cuda")
+
+
+@pytest.mark.parametrize("ignore_index", [-(2**31), 2**31 - 1])
+def test_ignore_index_at_the_int32_extremes_matches_jax(ignore_index):
+    """The extremes are int32 values: a label whose low 32 bits equal them is
+    dropped, as the JAX package drops it."""
+    rng = np.random.default_rng(abs(ignore_index) % 97)
+    n = 1001
+    r = rng.integers(0, 6, n).astype(np.int64)
+    r = np.where(rng.random(n) < 0.3, ignore_index, r)
+    r = np.where(rng.random(n) < 0.3, r + 2**32, r)  # the same low word
+    c = rng.integers(0, 6, n).astype(np.int64)
+    want = _jax_table(r, c, 6, 6, ignore_index)
+    tr, tc = torch.from_numpy(r), torch.from_numpy(c)
+    np.testing.assert_array_equal(confmat.pair_count(tr, tc, 6, 6, ignore_index=ignore_index).numpy(), want)
+    assert confmat._ignore_args(ignore_index, "pair_count_cuda") == (ignore_index, 1)

@@ -215,3 +215,172 @@ def test_invalid_normalize_raises_the_same_type():
     want = _raised(lambda: jax_multiclass_confusion_matrix(jp, jt, NUM_CLASSES, normalize="rows"))
     got = _raised(lambda: multiclass_confusion_matrix(tp, tt, NUM_CLASSES, normalize="rows"))
     assert want is ValueError and got is ValueError
+
+
+# --------------------------------------------------------------- the stat-score route
+#
+# The global label route of ``_multiclass_stat_scores_update`` counts tp/fp/tn/fn
+# without the (C, C) table on the card (``csrc/pair_count.cu``'s stat-score route)
+# and derives them from the bincount table on the CPU. Both are held bit for bit
+# (int32 values and dtype) against the JAX package's update, against the counts
+# derived from its Pallas kernel in interpret mode, and against a torch emulation
+# of the kernel's per-pair arithmetic.
+
+from metrics_tpu.functional.classification.confusion_matrix import (  # noqa: E402
+    _multiclass_confusion_matrix_update as jax_cm_update,
+)
+from metrics_tpu.functional.classification.stat_scores import (  # noqa: E402
+    _multiclass_stat_scores_update as jax_stat_scores_update,
+)
+from metrics_tpu.kernels import confmat as jax_confmat  # noqa: E402
+from metrics_tpu_torch.functional.classification.confusion_matrix import (  # noqa: E402
+    _multiclass_confusion_matrix_update,
+)
+from metrics_tpu_torch.functional.classification.stat_scores import _multiclass_stat_scores_update  # noqa: E402
+from metrics_tpu_torch.kernels import confmat  # noqa: E402
+
+
+def _low_words(x: torch.Tensor) -> torch.Tensor:
+    """Flat labels as the kernel loads them: an int64 label's low 32-bit word
+    (the first of its two, little-endian), an int32 label as it is."""
+    flat = x.reshape(-1).contiguous()
+    return flat.view(torch.int32)[::2] if flat.dtype == torch.int64 else flat.to(torch.int32)
+
+
+def _kernel_emulation(target, preds, num_classes, ignore_index):
+    """The stat-score kernel's arithmetic in torch: each valid pair (t, p) adds 1
+    to tp[t] if t == p, else 1 to fn[t] and 1 to fp[p]; tn = n_valid - tp - fn - fp."""
+    t, p = _low_words(target), _low_words(preds)
+    valid = (t >= 0) & (t < num_classes) & (p >= 0) & (p < num_classes)
+    if ignore_index is not None:
+        valid &= t.to(torch.int64) != ignore_index
+    t, p = t[valid].to(torch.int64), p[valid].to(torch.int64)
+    hit = t == p
+
+    def count(idx):
+        return torch.zeros(num_classes, dtype=torch.int32).index_add_(0, idx, torch.ones_like(idx, dtype=torch.int32))
+
+    tp, fn, fp = count(t[hit]), count(t[~hit]), count(p[~hit])
+    n_valid = torch.tensor(int(valid.sum()), dtype=torch.int32)
+    return tp, fp, n_valid - tp - fn - fp, fn
+
+
+def _pallas_stat_scores(jt, jp, num_classes, ignore_index):
+    """tp/fp/tn/fn from the JAX package's Pallas pair count (interpret mode),
+    with the diag and sums of its stat-score fast path."""
+    mask = jt != ignore_index if ignore_index is not None else jnp.ones(jt.shape, bool)
+    t = jnp.where(mask, jt, 0).astype(jnp.int32)
+    cm = jax_confmat.pair_count_fused(t, jp.astype(jnp.int32), num_classes, num_classes, mask, interpret=True)
+    tp = jnp.diag(cm)
+    fn = jnp.sum(cm, axis=1) - tp
+    fp = jnp.sum(cm, axis=0) - tp
+    tn = jnp.sum(cm) - tp - fn - fp
+    return tuple(x.astype(jnp.int32) for x in (tp, fp, tn, fn))
+
+
+def _assert_stat_scores_agree(preds, target, num_classes, ignore_index, pallas=True):
+    (jp, tp), (jt, tt) = _pair(preds), _pair(target)
+    want = jax_stat_scores_update(jp, jt, num_classes, 1, "macro", "global", ignore_index)
+    got = {
+        "update": _multiclass_stat_scores_update(tp, tt, num_classes, 1, "macro", "global", ignore_index),
+        "stat_scores_bincount": confmat.stat_scores_bincount(tt, tp, num_classes, ignore_index),
+        "stat_scores": confmat.stat_scores(tt, tp, num_classes, ignore_index),
+        "stat_scores_cuda_on_cpu": confmat.stat_scores_cuda(tt, tp, num_classes, ignore_index),
+        "kernel_emulation": _kernel_emulation(tt, tp, num_classes, ignore_index),
+    }
+    if pallas:
+        got["pallas"] = _pallas_stat_scores(jt, jp, num_classes, ignore_index)
+    for name, counts in got.items():
+        for what, w, g in zip("tp fp tn fn".split(), want, counts):
+            g = torch.from_numpy(np.array(g)) if not isinstance(g, torch.Tensor) else g
+            assert g.dtype == torch.int32 and np.asarray(w).dtype == np.int32, (name, what, g.dtype)
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w), err_msg=f"{name}.{what}")
+    # the table route on the same pairs, against the JAX package's confusion-matrix update
+    want_cm = np.asarray(jax_cm_update(jp, jt, num_classes, ignore_index))
+    got_cm = _multiclass_confusion_matrix_update(tp, tt, num_classes, ignore_index)
+    assert got_cm.dtype == torch.int32
+    np.testing.assert_array_equal(got_cm.numpy(), want_cm)
+
+
+_IGNORE = {"none": lambda c: None, "in_range": lambda c: c // 2, "minus_one": lambda c: -1, "above": lambda c: c + 3}
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+@pytest.mark.parametrize("ignore", sorted(_IGNORE))
+@pytest.mark.parametrize("num_classes", [2, 7, 100])
+def test_stat_score_route_matches_jax(num_classes, ignore, dtype):
+    """In-range labels with the ignored index and out-of-range and negative
+    labels mixed in (``validate_args=False`` lets them through), ragged N."""
+    ignore_index = _IGNORE[ignore](num_classes)
+    rng = np.random.default_rng(num_classes * 10 + len(ignore) + (dtype == np.int64))
+    n = int(rng.integers(300, 1100))
+    target = rng.integers(0, num_classes, n)
+    preds = np.where(rng.random(n) < 0.4, target, rng.integers(0, num_classes, n))  # a diagonal share
+    if ignore_index is not None:
+        target = np.where(rng.random(n) < 0.15, ignore_index, target)
+    target = np.where(rng.random(n) < 0.05, rng.integers(-3, num_classes + 3, n), target)
+    preds = np.where(rng.random(n) < 0.05, rng.integers(-3, num_classes + 3, n), preds)
+    _assert_stat_scores_agree(preds.astype(dtype), target.astype(dtype), num_classes, ignore_index)
+
+
+@pytest.mark.parametrize("ignore_index", [None, 3, -1, 7])
+def test_stat_score_route_reads_the_low_word_of_int64_labels_like_jax(ignore_index):
+    """int64 labels at and above 2**31 count by their low 32 bits, as the JAX
+    package sees them with x64 off: 2**32 + 3 is class 3 (and ignored when
+    ``ignore_index`` is 3), 2**31 + 3 is negative and dropped."""
+    rng = np.random.default_rng(23 + (ignore_index or 0))
+    n = 517
+    target = rng.integers(0, 7, n).astype(np.int64)
+    preds = rng.integers(0, 7, n).astype(np.int64)
+    high = rng.random(n) < 0.3
+    target = np.where(high, target + rng.choice([2**32, 2**33, 2**31, -(2**32)], n), target)
+    preds = np.where(rng.random(n) < 0.3, preds + rng.choice([2**32, 2**31, 2**40], n), preds)
+    assert (target >= 2**31).any() and (preds >= 2**31).any()
+    _assert_stat_scores_agree(preds, target, 7, ignore_index)
+
+
+@pytest.mark.parametrize("case", ["valid", "hit", "ignored", "out_of_range"])
+@pytest.mark.parametrize("num_classes", [2, 7, 100])
+def test_stat_score_route_single_pair(num_classes, case):
+    target, preds = {"valid": (1, 0), "hit": (1, 1), "ignored": (1, 1), "out_of_range": (num_classes, 0)}[case]
+    ignore_index = 1 if case == "ignored" else None
+    _assert_stat_scores_agree(np.array([preds], np.int64), np.array([target], np.int64), num_classes, ignore_index)
+
+
+@pytest.mark.parametrize("target_dtype,preds_dtype", [(np.int32, np.int64), (np.int64, np.int32), (np.uint8, np.int64)])
+def test_stat_score_route_takes_mixed_label_types(target_dtype, preds_dtype):
+    rng = np.random.default_rng(41)
+    target = rng.integers(0, 9, 1031).astype(target_dtype)
+    preds = rng.integers(0, 9, 1031).astype(preds_dtype)
+    _assert_stat_scores_agree(preds, target, 9, 4)
+
+
+def test_stat_score_route_on_a_view_at_a_storage_offset():
+    """The kernel loads 16 bytes at a time only from aligned arrays; a view that
+    starts one label in reads label by label. On the CPU the plain version and
+    the emulation see the same view."""
+    rng = np.random.default_rng(43)
+    base_t = torch.from_numpy(rng.integers(0, 11, 2053))
+    base_p = torch.from_numpy(rng.integers(0, 11, 2053))
+    tt, tp = base_t[1:2050], base_p[3:2052]
+    assert tt.storage_offset() == 1 and tp.storage_offset() == 3
+    want = jax_stat_scores_update(jnp.asarray(tp.numpy()), jnp.asarray(tt.numpy()), 11, 1, "macro", "global", 5)
+    for got in (confmat.stat_scores_bincount(tt, tp, 11, 5), _kernel_emulation(tt, tp, 11, 5),
+                _multiclass_stat_scores_update(tp, tt, 11, 1, "macro", "global", 5)):
+        for w, g in zip(want, got):
+            assert g.dtype == torch.int32
+            np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("ignore_index", [None, 3])
+def test_one_hot_route_reads_the_low_word_of_int64_labels_like_jax(ignore_index):
+    """The samplewise (one-hot) route counts int64 labels by their low 32 bits
+    too, so both routes agree with the JAX package on labels at and above 2**31."""
+    rng = np.random.default_rng(61 + (ignore_index or 0))
+    target = rng.integers(0, NUM_CLASSES, (N, X)) + rng.choice([0, 2**32, 2**31], (N, X))
+    preds = rng.integers(0, NUM_CLASSES, (N, X)) + rng.choice([0, 2**32, 2**33], (N, X))
+    (jp, tp), (jt, tt) = _pair(preds), _pair(target)
+    for mda in ("global", "samplewise"):
+        want = jax_multiclass_stat_scores(jp, jt, NUM_CLASSES, None, 1, mda, ignore_index, validate_args=False)
+        got = multiclass_stat_scores(tp, tt, NUM_CLASSES, None, 1, mda, ignore_index, validate_args=False)
+        _assert_same(want, got)
