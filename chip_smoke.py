@@ -49,12 +49,20 @@ checkout, and then:
   ``cms_rows_add`` (columns hashed in the kernel, ``csrc/cm_hash.cuh``) on the
   same count-min shapes, negative ids with the int32 extremes, widths that
   are no power of two, depth 7 x width 1 and a view at a storage offset; and
-  the heavy-hitter ledger walk (``csrc/cms_walk.cu``) against the plain walk,
+  the heavy-hitter ledger walk (``csrc/cms_walk.cu``, four kernels: segment
+  histograms, their scan, the estimates, the walk) against the plain walk,
   ``torch.equal`` on the table and the ledger, at up to 2^14 items: Zipf,
   uniform, one id, negative ids, ties at the ledger's minimum, non-empty
   starting ledgers (held keys, a duplicate, a negative key), k = 1, 8, 32,
-  33, 100 and 40000 (the ledger in registers, shared and global memory), a
-  table beyond shared memory, a width that is no power of two.
+  33, 100 and 40000 (the step walk, the one-warp walk with the ledger in
+  shared and in global memory), a
+  table beyond shared memory (histograms counted in global memory), widths
+  2047 and 65536, a candidate at lane 0 and at lane 31 of a chunk, a raise of
+  the slot at the minimum before a candidate in the same chunk, held keys
+  above every estimate, duplicate and negative keys, counts that wrap near
+  2^31, and a seeded sweep over k and width; the kernel's counters (raises,
+  evictions, chunks that reached a candidate) equal to the numpy mirror's
+  (``cms_walk.walk_in_chunks``) on every case.
 - Phase E drives the sketch plane at the JAX classes' default sizes through
   the functional API and once through the stateful one: QuantileSketch
   (alpha 0.01, 2048 buckets), CardinalitySketch (p = 12 and 16) and the
@@ -62,7 +70,7 @@ checkout, and then:
   (k 32, 4 x 2048) on 4 batches of HH_BATCH ids. Launch counts are zeroed just
   before and read just after: 2 hist_add per quantile update, 1 hist_max per
   cardinality update, 1 cms_rows_add (its ids route, past the registry) per
-  table update, 1 cms_walk per heavy-hitter update, and no reference
+  table update, 4 cms_walk kernels per heavy-hitter update, and no reference
   dispatch on a CUDA tensor. The int32 states are held against a CPU
   recomputation (the heavy hitters through the plain walk) and the merge of
   two half-streams against the single stream.
@@ -70,10 +78,12 @@ checkout, and then:
   plain version, one PyTorch library call, bound; the ids route's bound is
   the larger of its bytes and its hash's integer instructions over the
   card's issue rate, 128 lanes a SM at ``clocks.max.sm``), the ledger walk at
-  4096, HH_BATCH and 2^22 ids (µs per item, the share of items that reached
-  the sequential decision, bound: those items times the fewest dependent
-  cycles of one decision over ``clocks.max.sm``, plus the ids route's bound
-  at the same N), each
+  4096, HH_BATCH and 2^22 ids (µs per item, device time by kernel, the
+  counters, equal to the mirror's; bound: the evictions times the fewest
+  dependent cycles of one decision over ``clocks.max.sm``, plus the ids
+  route's bound at the same N; beside it ``snapshot_bound_ms``, the same
+  cycles for every item held at the start of its chunk of 32 or above the
+  smallest count then, the bound of a walk that decides each of those), each
   sketch's update and values/s, and profiles a quantile, a count-min table
   and a heavy-hitter update.
 - Phase G holds the threshold-count kernel of the binned curves
@@ -151,15 +161,17 @@ SKETCH_BATCHES = 8
 HH_BATCH = 2**17  # ids per heavy-hitter update: the CPU recomputation walks them one at a time (plain version)
 HH_BATCHES = 4  # fewer than SKETCH_BATCHES: the CPU recomputation walks 6 batches, about 45 us an item
 WALK_SHAPES = (4096, HH_BATCH, SKETCH_BATCH)  # ids per ledger walk timed in Phase F
+WALK_FIELDS = ("us_per_item", "device_ms_by_kernel", "raises", "evictions", "sequential_chunks", "chunks",
+               "snapshot_items", "eviction_bound_ms", "snapshot_bound_ms", "table_bound_ms")
 # Integer instructions per (id, row) of the count-min hash from ids (csrc/cm_hash.cuh) at a
 # power-of-two width: the xor with the row seed, three shift-xor steps (2 each), two
 # multiplies, the modulo (a mask) and the add into the table.
 CM_HASH_OPS = 1 + 3 * 2 + 2 + 1 + 1
-# The fewest dependent cycles one sequential decision of the ledger walk needs with the ledger in
-# registers (csrc/cms_walk.cu, RegLedger::decide): a decision reads the ledger the one before it
-# may have written, so the key compare (ISETP), the warp vote that joins the 32 lanes' compares
-# (VOTE.ANY) and the select that writes the slot follow one another: 3 dependent instructions, at
-# least 4 cycles each (the shortest time from an issue to a dependent issue on the SM's pipes).
+# The fewest dependent cycles one eviction of the ledger walk needs (csrc/cms_walk.cu): an
+# eviction reads the ledger the one before it wrote, so the count compare
+# (ISETP), the warp vote that finds the first slot at the minimum (VOTE) and the select that
+# writes the slot follow one another: 3 dependent instructions, at least 4 cycles each (the
+# shortest time from one instruction to a dependent one on the SM's pipes).
 WALK_DECISION_CYCLES = 3 * 4
 CURVE_N = 10**6  # scores per curve update in Phases G to I
 CURVE_T = 200
@@ -460,7 +472,8 @@ def phase_a_cms_ids(torch, scatter) -> int:
 
 
 def _walk_cases():
-    """(name, N, depth, width, k, ids, starting ledger) of the Phase A cases of the ledger walk."""
+    """(name, N, depth, width, k, ids, starting ledger) of the Phase A cases of the ledger walk;
+    ids "crafted" and "sweep" are built by ``_crafted_walk`` and ``_sweep_walk``."""
     return [
         ("walk_zipf_2p14", 2**14, 4, 2048, 32, "zipf", "empty"),  # the heavy-hitter sketch's defaults
         ("walk_uniform", 4096, 4, 2048, 32, "uniform", "empty"),
@@ -472,11 +485,79 @@ def _walk_cases():
         ("walk_k8", 4096, 4, 2048, 8, "zipf", "empty"),
         ("walk_k33_shared_ledger", 4096, 4, 2048, 33, "zipf", "empty"),
         ("walk_k100_shared_ledger", 4096, 4, 2048, 100, "zipf", "held"),
-        ("walk_global_table", 4096, 4, 65536, 32, "zipf", "empty"),  # 1 MB: the table stays in global memory
+        ("walk_global_table", 4096, 4, 65536, 32, "zipf", "empty"),  # 1 MB: histograms in global memory
         ("walk_width_2047", 4096, 4, 2047, 32, "few", "held"),
         ("walk_global_ledger", 1024, 4, 2048, 40000, "zipf", "held"),  # 320 KB of ledger: global memory
         ("walk_ragged_small_table", 1001, 3, 64, 32, "zipf", "empty"),
+        *((f"walk_{name}", 4096, 4, 2048, 32, "crafted", name) for name in WALK_CRAFTED),
+        *((f"walk_sweep_k{k}_w{w}_s{s}", 4096, 3 + s, w, k, "sweep", "sweep")
+          for k in (1, 8, 32, 33) for w in (7, 2048) for s in (0, 1)),
     ]
+
+
+WALK_CRAFTED = ("candidate_at_lane_0", "candidate_at_lane_31", "raise_at_the_minimum_before_a_candidate",
+                "held_no_ops", "duplicate_and_negative_keys", "wrap_near_2p31")
+
+
+def _crafted_walk(torch, scatter, name: str, n: int):
+    """(counts, ledger, ids) as numpy arrays, built around chunks of 32 on a 4 x 2048 table and a
+    k = 32 ledger: a candidate (an id not held, its estimate above every count) at lane 0 or 31
+    of chunks 2 and 5 among raises that lift counts; a raise of the slot at the minimum (slot 3)
+    at lane 4 of chunk 1 before a candidate at lane 9, which must take slot 7; held keys above
+    every estimate; duplicate and negative keys; a table and counts that wrap near 2^31."""
+    import numpy as np
+
+    rng = np.random.default_rng(sum(map(ord, name)))
+    held = np.arange(5000, 5032, dtype=np.int32)
+    new, new2 = 777777, 888888
+
+    def set_cells(counts, ids, value):
+        cols = scatter.ids_route_columns(torch.from_numpy(np.asarray(ids, np.int32)), 4, 2048).numpy()
+        counts[np.arange(4)[None, :], cols] = value
+
+    counts = np.full((4, 2048), 3, np.int32)
+    ledger = np.stack([held, 40 + np.arange(32, dtype=np.int32)], axis=1)
+    set_cells(counts, held, 25)
+    ids = rng.integers(10**6, 10**6 + 10**5, n).astype(np.int32)  # estimates ~4: no-ops
+    if name.startswith("candidate_at_lane"):
+        set_cells(counts, [new, new2], 100)
+        set_cells(counts, held[:8], 60)
+        ids = rng.choice(held[:12], n).astype(np.int32)
+        lane = 0 if name.endswith("_0") else 31
+        ids[2 * 32 + lane], ids[5 * 32 + lane] = new, new2
+    elif name == "raise_at_the_minimum_before_a_candidate":
+        ledger[3, 1], ledger[7, 1] = 10, 20
+        set_cells(counts, held[3:4], 29)
+        set_cells(counts, [new], 100)
+        ids[32 + 4], ids[32 + 9] = held[3], new
+    elif name == "held_no_ops":
+        ledger[:, 1] = 10**6
+        ids = rng.choice(np.r_[held, ids[:32]], n).astype(np.int32)
+    elif name == "duplicate_and_negative_keys":
+        ledger = np.stack([np.full(32, -1, np.int32), np.zeros(32, np.int32)], axis=1)
+        ledger[:9] = np.array([[5, 4], [5, 9], [-1, 0], [-7, 3], [9, 1], [5, 2], [INT32_MIN, 5], [12, 0], [9, 7]])
+        counts = rng.integers(0, 3, (4, 2048)).astype(np.int32)
+        ids = rng.choice(np.array([5, 9, 12, -1, -7, INT32_MIN, 40, 41, 42, 43], np.int32), n)
+    elif name == "wrap_near_2p31":
+        counts = np.full((4, 2048), INT32_MAX - 40, np.int32)
+        ledger = np.stack([np.full(32, -1, np.int32), np.zeros(32, np.int32)], axis=1)
+        ledger[:2] = np.array([[3, INT32_MAX], [4, INT32_MAX - 30]])
+        ids = (rng.zipf(1.3, n) % 50).astype(np.int32)
+    return counts, ledger, ids
+
+
+def _sweep_walk(name: str, n: int, depth: int, width: int, k: int):
+    """(counts, ledger, ids) as numpy arrays: a random start ledger (stream keys, duplicates,
+    counts 0-20), a random table, Zipf ids with 10% negative."""
+    import numpy as np
+
+    rng = np.random.default_rng(sum(map(ord, name)))
+    ids = (rng.zipf(1.2, n) % 200).astype(np.int32)
+    ids[rng.random(n) < 0.1] = -2
+    m = int(rng.integers(0, k + 1))
+    ledger = np.stack([np.full(k, -1, np.int32), np.zeros(k, np.int32)], axis=1)
+    ledger[:m, 0], ledger[:m, 1] = rng.choice(ids, m), rng.integers(0, 21, m)
+    return rng.integers(0, 6, (depth, width)).astype(np.int32), ledger, ids
 
 
 def _start_ledger(torch, kind: str, k: int, ids, gen):
@@ -498,20 +579,30 @@ def _start_ledger(torch, kind: str, k: int, ids, gen):
     return torch.stack([keys, cnts], dim=1)
 
 
-def phase_a_walk(torch, cms_walk) -> int:
-    """The ledger walk kernel against its plain version on the same CUDA inputs."""
+def _walk_inputs(torch, scatter, case, gen):
+    name, n, depth, width, k, kind, start = case
+    if kind in ("crafted", "sweep"):
+        arrays = _crafted_walk(torch, scatter, start, n) if kind == "crafted" else _sweep_walk(name, n, depth, width, k)
+        return tuple(torch.from_numpy(a).cuda() for a in arrays)
+    ids = _ids(torch, kind, n, gen)
+    counts = torch.randint(0, 3, (depth, width), generator=gen, device="cuda", dtype=torch.int32)
+    return counts, _start_ledger(torch, start, k, ids, gen), ids
+
+
+def phase_a_walk(torch, scatter, cms_walk) -> int:
+    """The ledger walk's kernels against the plain walk on the same CUDA inputs, and their
+    counters against the numpy mirror's."""
     gen = torch.Generator(device="cuda").manual_seed(5150)
     worst = 0
-    for name, n, depth, width, k, kind, start in _walk_cases():
-        ids = _ids(torch, kind, n, gen)
-        counts = torch.randint(0, 3, (depth, width), generator=gen, device="cuda", dtype=torch.int32)
-        ledger = _start_ledger(torch, start, k, ids, gen)
+    for case in _walk_cases():
+        name, n, depth, width, k, kind, start = case
+        counts, ledger, ids = _walk_inputs(torch, scatter, case, gen)
         before_counts, before_ledger = counts.clone(), ledger.clone()
-        decisions = torch.zeros(1, dtype=torch.int64, device="cuda")
+        counters = torch.zeros(3, dtype=torch.int64, device="cuda")
         launched = cms_walk.launches
-        got = cms_walk.cms_walk_cuda(counts, ledger, ids, decisions)
+        got = cms_walk.cms_walk_cuda(counts, ledger, ids, counters)
         torch.cuda.synchronize()
-        _check(cms_walk.launches == launched + 1, f"{name}: launch count")
+        _check(cms_walk.launches == launched + cms_walk.KERNELS, f"{name}: launch count")
         want = cms_walk.cms_walk_reference(counts, ledger, ids)
         for g, w, what in zip(got, want, ("table", "ledger")):
             _check(g.dtype == torch.int32 and g.shape == w.shape, f"{name} {what}: {g.dtype} {tuple(g.shape)}")
@@ -519,11 +610,16 @@ def phase_a_walk(torch, cms_walk) -> int:
         _check(torch.equal(counts, before_counts) and torch.equal(ledger, before_ledger), f"{name}: inputs written")
         err = max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) for g, w in zip(got, want))
         worst = max(worst, err)
-        valid, decided = int((ids >= 0).sum()), int(decisions)
-        _check(0 <= decided <= valid, f"{name}: {decided} decisions for {valid} valid items")
+        m_counts, m_ledger, mirror = cms_walk.walk_in_chunks(counts.cpu(), ledger.cpu(), ids.cpu())
+        _check(torch.equal(m_counts, want[0].cpu()) and torch.equal(m_ledger, want[1].cpu()), f"{name}: mirror")
+        if start == "raise_at_the_minimum_before_a_candidate":  # the raise lifted slot 3 first
+            _check(int(want[1][7, 0]) == 777777 and int(want[1][3, 0]) == 5003, f"{name}: not the case it names")
+        kernel = tuple(counters.tolist())
+        _check(kernel == tuple(mirror[:3]), f"{name}: kernel counters {kernel}, mirror {tuple(mirror[:3])}")
         print(f"phase A {name}: kernel=cms_walk N={n} table=({depth}, {width}) k={k} ids={kind} ledger={start} "
               f"placement=({cms_walk.placement(depth, width, k)}) equal=True max_abs_err={err} "
-              f"decided={decided} of {valid} valid; top ledger count {int(got[1][:, 1].max())}")
+              f"raises={kernel[0]} evictions={kernel[1]} (mirror {mirror.evictions}) sequential_chunks={kernel[2]} "
+              f"of {-(-n // cms_walk.CHUNK)}; top ledger count {int(got[1][:, 1].max())}")
     return worst
 
 
@@ -909,7 +1005,8 @@ def phase_e(torch, scatter, cms_walk, obs, instrument):
         "cardinality_p16": (c16.init_state, c16.update_state, c16.merge_states, ids, {"hist_max": 1},
                             {"hll_scatter_max": 1}),
         "count_min_4x2048": (table_zeros, sk.cms_table_update, lambda a, b: a + b, ids, {"cms_rows_add": 1}, {}),
-        "heavy_hitters": (hh.init_state, hh.update_state, hh.merge_states, hh_ids, {"cms_walk": 1}, {}),
+        "heavy_hitters": (hh.init_state, hh.update_state, hh.merge_states, hh_ids, {"cms_walk": cms_walk.KERNELS},
+                          {}),
     }
     states, launches, walls = {}, {k: 0 for k in _launch_counts(scatter, cms_walk)}, {}
     obs.enable()
@@ -1092,10 +1189,13 @@ def _update_profile(torch, update, state, batch, kernel: str, iters: int = 20, t
 
 
 def _walk_record(torch, cms_walk, ids, issue_ops_per_s: float, clock_hz: float, plain: bool) -> dict:
-    """The ledger walk of ``ids`` into an empty 4 x 2048 table and k = 32 ledger: call and device
-    time, µs per item, the share of items that reached the sequential decision, and the bound:
-    those items times WALK_DECISION_CYCLES over the SM clock (``clocks.max.sm``), plus the table
-    half's bound (the ids route of cms_rows_add at the same N); the plain walk once if asked."""
+    """The ledger walk of ``ids`` into an empty 4 x 2048 table and k = 32 ledger: call time, device
+    time (all four kernels, and by kernel), µs per item, the counters (held against the numpy
+    mirror's), and the bound: the evictions times WALK_DECISION_CYCLES over the SM clock
+    (``clocks.max.sm``), plus the table half's bound (the ids route of cms_rows_add at the same N);
+    ``snapshot_bound_ms``: the same cycles for every item held at the start of its chunk of 32 or
+    with an estimate above the smallest count then (``snapshot_items`` of the mirror in chunks of
+    32), plus the table half's bound. The plain walk once if asked."""
     n = ids.numel()
     table = torch.zeros((4, 2048), dtype=torch.int32, device="cuda")
     ledger = torch.stack([torch.full((32,), -1, dtype=torch.int32, device="cuda"),
@@ -1103,20 +1203,32 @@ def _walk_record(torch, cms_walk, ids, issue_ops_per_s: float, clock_hz: float, 
     run = lambda: cms_walk.cms_walk_cuda(table, ledger, ids)  # noqa: E731
     calls = max(2, min(20, 2**18 // n))
     ms = _time_ms(run, calls, warmup=1)
-    device_ms = _per_call_ms(_call_kernels(torch, run, "cms_walk_kernel", 1, calls))
-    decisions = torch.zeros(1, dtype=torch.int64, device="cuda")
-    cms_walk.cms_walk_cuda(table, ledger, ids, decisions)
-    decided = int(decisions)
+    by_kernel = {name[name.index("cms_walk_"):].split("<")[0].split("(")[0]: sum(v) / len(v) / 1e3
+                 for name, v in _call_kernels(torch, run, "cms_walk_", cms_walk.KERNELS, calls).items()}
+    device_ms = sum(by_kernel.values()) if by_kernel else None
+    counters = torch.zeros(3, dtype=torch.int64, device="cuda")
+    got = cms_walk.cms_walk_cuda(table, ledger, ids, counters)
+    raises, evictions, sequential = counters.tolist()
+    m_table, m_ledger, mirror = cms_walk.walk_in_chunks(table.cpu(), ledger.cpu(), ids.cpu())
+    _check((raises, evictions, sequential) == tuple(mirror[:3]), f"walk at N={n}: counters {counters.tolist()}, "
+           f"mirror {tuple(mirror[:3])}")
+    _check(torch.equal(got[0].cpu(), m_table) and torch.equal(got[1].cpu(), m_ledger), f"walk at N={n}: mirror")
+    snapshot = cms_walk.walk_in_chunks(table.cpu(), ledger.cpu(), ids.cpu(), step=cms_walk.CHUNK)[2].snapshot_items
     valid = int((ids >= 0).sum())
     nbytes, ops = 4 * n + 8 * 4 * 2048, CM_HASH_OPS * 4 * n
     table_ms, table_by = _bound(nbytes, ops, issue_ops_per_s)
-    sequential_ms = decided * WALK_DECISION_CYCLES / clock_hz * 1e3
+    eviction_ms = evictions * WALK_DECISION_CYCLES / clock_hz * 1e3
+    snapshot_ms = snapshot * WALK_DECISION_CYCLES / clock_hz * 1e3
     plain_ms = _time_ms(lambda: cms_walk.cms_walk_reference(table, ledger, ids), 1, warmup=0) if plain else None
+    chunks = -(-n // cms_walk.CHUNK)
     return {"shape": f"N={n} Zipf ids, 4 x 2048 table, k=32", "ms": ms, "device_ms": device_ms,
-            "us_per_item": device_ms * 1e3 / n if device_ms else None, "decided_share": decided / valid,
-            "plain_ms": plain_ms, "library_ms": None, "bound_ms": sequential_ms + table_ms, "bound_by": "operations",
-            "sequential_bound_ms": sequential_ms, "table_bound_ms": table_ms, "table_bound_by": table_by,
-            "bytes": nbytes, "ops": ops, "placement": cms_walk.placement(4, 2048, 32)}
+            "device_ms_by_kernel": by_kernel, "us_per_item": device_ms * 1e3 / n if device_ms else None,
+            "raises": raises, "evictions": evictions, "sequential_chunks": sequential, "chunks": chunks,
+            "sequential_share": sequential / chunks, "valid": valid, "snapshot_items": snapshot,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": eviction_ms + table_ms, "bound_by": "operations",
+            "eviction_bound_ms": eviction_ms, "snapshot_bound_ms": snapshot_ms + table_ms,
+            "table_bound_ms": table_ms, "table_bound_by": table_by, "bytes": nbytes, "ops": ops,
+            "placement": cms_walk.placement(4, 2048, 32), "segments": cms_walk.segments(n, 4 * 2048)}
 
 
 def phase_f(torch, scatter, cms_walk, data, issue_ops_per_s: float, clock_hz: float) -> dict:
@@ -1866,7 +1978,7 @@ def main() -> int:
     route_err = phase_a(torch, confmat)
     scatter_err = phase_a_scatter(torch, scatter)
     scatter_err["cms_rows_add"] = max(scatter_err["cms_rows_add"], phase_a_cms_ids(torch, scatter))
-    walk_err = phase_a_walk(torch, cms_walk)
+    walk_err = phase_a_walk(torch, scatter, cms_walk)
     launches, args, step = phase_b(torch, confmat, entry_mod)
     steps = phase_c_steps(torch, entry_mod, step, args)
     main_shape = phase_c_kernel(torch, confmat, n=entry_mod.FULL_CONFIG["batch"], classes=entry_mod.FULL_CONFIG["classes"])
@@ -1940,8 +2052,8 @@ def main() -> int:
         "launches": sketch_launches["cms_walk"],
         "max_abs_err": walk_err,
         **{k: walk[k] for k in fields},
-        "shapes": [{k: sketch_recs[f"cms_walk_{n}"][k] for k in (*shape_fields, "us_per_item", "decided_share")}
-                   for n in WALK_SHAPES],
+        **{k: walk[k] for k in WALK_FIELDS},
+        "shapes": [{k: sketch_recs[f"cms_walk_{n}"][k] for k in (*shape_fields, *WALK_FIELDS)} for n in WALK_SHAPES],
     })
     main_curve = curve_recs[f"T{CURVE_T}_C1"]
     kernels.append({

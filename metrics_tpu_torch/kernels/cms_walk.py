@@ -12,13 +12,16 @@ It comes three ways:
 
 - :func:`cms_walk_reference`: the plain PyTorch version, one item at a time
   (about 18 small launches an item on the card). Serves CPU tensors.
-- :func:`cms_walk_cuda`: the wrapper of the CUDA kernel ``csrc/cms_walk.cu``,
-  one launch per batch, bit-identical to the plain version. On a CPU tensor it
-  is the plain version; on a CUDA tensor it launches the kernel on the current
+- :func:`cms_walk_cuda`: the wrapper of the CUDA kernels ``csrc/cms_walk.cu``,
+  four launches per batch (the estimates across the card in three, the walk
+  in one), bit-identical to the plain version. On a CPU tensor it is the
+  plain version; on a CUDA tensor it launches the kernels on the current
   stream or raises.
-- :func:`walk_in_chunks`: the kernel's own order of work in numpy (chunks of
-  32 items, estimates from ranks, decisions only where the ledger can
-  change), for the CPU tests.
+- :func:`walk_in_chunks`: the kernels' own order of work in numpy (segment
+  ranks and a scan for the estimates; steps of 512 items, or of 32 for
+  k > 32, with a snapshot of the keys, raises applied in any order between
+  evictions, each candidate decided exactly), for the CPU tests and the
+  card's checks.
 
 Every tensor stays where it is: no call reads a value on the host.
 """
@@ -26,7 +29,7 @@ Every tensor stays where it is: no call reads a value on the host.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,10 +48,31 @@ from metrics_tpu_torch.obs import instrument as _obs
 
 KERNEL_NAME = "cms_walk"  # csrc/cms_walk.cu
 MAX_SLOTS = 2**30 - 1  # ledger slots: the (k, 2) ledger is indexed within int32 range
-CHUNK = 32  # items whose estimates the kernel takes together: one warp
+CHUNK = 32  # items one warp takes together; k > 32: the walk's step
+STEP = 512  # k <= 32: items the walk's sixteen warps take together
+KERNELS = 4  # kernels one call launches: histograms, scan, estimates, walk
+SEGMENT_IDS = 1024  # ids per estimate segment, at least
+SEGMENT_CELLS = 2**22  # histogram cells of all segments together, at most, unless one table is larger
+MAX_SEGMENTS = 1024
 
-# Launches of the CUDA kernel, counted by ``cms_walk_cuda`` where it launches.
+# Kernels launched by ``cms_walk_cuda``, counted where it launches them (KERNELS a call).
 launches = 0
+
+
+class WalkCounts(NamedTuple):
+    """What :func:`walk_in_chunks` counts on its way (the first three are the
+    kernel's counters)."""
+
+    raises: int  # valid items whose key the ledger held at their time
+    evictions: int  # items that took a slot
+    sequential_chunks: int  # chunks of 32 items that held a candidate, an item the walk decided exactly
+    snapshot_items: int  # valid items held at their step's start or with an estimate above its smallest count then
+
+
+def segments(n: int, cells: int) -> int:
+    """How many segments of consecutive ids the estimates cut a batch of ``n``
+    ids into, for a table of ``cells`` cells (one histogram row each)."""
+    return max(1, min(-(-n // SEGMENT_IDS), SEGMENT_CELLS // cells, MAX_SEGMENTS))
 
 
 def cms_walk_reference(counts: Tensor, ledger: Tensor, ids: Tensor) -> Tuple[Tensor, Tensor]:
@@ -87,48 +111,98 @@ def _wrap32(x: np.ndarray) -> np.ndarray:
     return ((x + 2**31) % 2**32 - 2**31).astype(np.int64)
 
 
-def walk_in_chunks(counts: Tensor, ledger: Tensor, ids: Tensor) -> Tuple[Tensor, Tensor, int]:
-    """The walk in the kernel's order of work, on CPU tensors.
+def _rank_among_earlier(key: np.ndarray, valid: np.ndarray) -> np.ndarray:
+    """For each valid item, how many earlier valid items share its key (0 for
+    an invalid one)."""
+    rank = np.zeros(key.shape[0], np.int64)
+    idx = np.flatnonzero(valid)
+    order = np.argsort(key[idx], kind="stable")
+    ks = key[idx][order]
+    pos = np.arange(ks.shape[0])
+    start = np.maximum.accumulate(np.where(np.r_[True, ks[1:] != ks[:-1]], pos, 0)) if ks.shape[0] else pos
+    rank[idx[order]] = pos - start
+    return rank
 
-    Chunks of 32 items. Per row, the valid items of a chunk that share a cell
-    each get the cell's count before the chunk, plus their rank among the
-    chunk's earlier items on that cell, plus one; the cell gains the group's
-    size. An item's estimate is the minimum over its rows. Then, in order,
-    only the valid items whose key the ledger held at the start of the chunk,
-    or whose estimate is above its smallest count then, reach the sequential
-    decision. Returns the table, the ledger and the number of items that
-    reached the decision.
-    """
-    table = counts.numpy().astype(np.int32).copy()
+
+def estimates(table: np.ndarray, x: np.ndarray, cols: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """The new table and every item's estimate, as the first three kernels
+    compute them: per segment a histogram of its valid ids per cell, an
+    exclusive scan of the histograms over the segments (the count of a cell
+    before a segment), and an item's rank among its segment's earlier valid
+    items on each cell. ``table``: (depth, width) int32; ``x``: (N,) int32
+    ids; ``cols``: (N, depth) columns. Both results are int64 holding int32
+    values (the int32 wrap of the sequential adds)."""
     depth, width = table.shape
-    flat = table.reshape(-1)
+    n, n_cells = x.shape[0], depth * width
+    valid = x >= 0
+    cells = np.arange(depth, dtype=np.int64) * width + cols.astype(np.int64)  # (N, depth)
+    n_seg = segments(n, n_cells)
+    seg = np.arange(n, dtype=np.int64) // -(-n // n_seg)
+    hist = np.zeros((n_seg, n_cells), np.int64)
+    np.add.at(hist, (np.repeat(seg[valid], depth), cells[valid].reshape(-1)), 1)
+    flat = table.reshape(-1).astype(np.int64)
+    before = flat + np.cumsum(hist, axis=0) - hist  # each segment's table as it starts
+    est = np.full(n, 2**31 - 1, np.int64)
+    for j in range(depth):
+        c = cells[:, j]
+        rank = _rank_among_earlier(seg * n_cells + c, valid)
+        est = np.minimum(est, _wrap32(before[seg, c] + rank + 1))
+    return _wrap32(flat + hist.sum(axis=0)).reshape(depth, width), est
+
+
+def walk_step(k: int) -> int:
+    """The items the walk kernel takes together for a ledger of ``k`` slots."""
+    return STEP if k <= CHUNK else CHUNK
+
+
+def walk_in_chunks(counts: Tensor, ledger: Tensor, ids: Tensor,
+                   step: Optional[int] = None) -> Tuple[Tensor, Tensor, WalkCounts]:
+    """The walk in the kernels' order of work, on CPU tensors.
+
+    The estimates come from :func:`estimates`. Then steps of ``step`` items
+    (default :func:`walk_step`): the held flags come from a snapshot of the
+    keys; a candidate is a valid item not held whose estimate is above the
+    smallest count. The raises of the held items before the first candidate
+    are applied at once, in no order (a maximum per slot); the candidate is
+    decided exactly (argmin's first slot); after an eviction the held flags of
+    the later items are taken anew; and so on to the end of the step. Returns
+    the table, the ledger and the counts of :class:`WalkCounts`; the ledger
+    and the first two counts do not depend on ``step``.
+    """
+    step = walk_step(ledger.shape[0]) if step is None else step
+    x = ids.reshape(-1).to(torch.int32).numpy()
+    table, est = estimates(counts.numpy(), x, ids_route_columns(ids, *counts.shape).numpy())
     keys = ledger[:, 0].numpy().astype(np.int32).copy()
     cnts = ledger[:, 1].numpy().astype(np.int64).copy()
-    x = ids.reshape(-1).to(torch.int32).numpy()
-    cols = ids_route_columns(ids, depth, width).numpy().astype(np.int64)
-    decided = 0
-    for base in range(0, x.shape[0], CHUNK):
-        xs, cs = x[base:base + CHUNK], cols[base:base + CHUNK]
+    raises = evictions = snapshot = 0
+    decided = set()  # the chunks of 32 that held a candidate
+    for base in range(0, x.shape[0], step):
+        xs, es = x[base:base + step], est[base:base + step]
         valid = xs >= 0
-        est = np.full(xs.shape[0], 2**31 - 1, np.int64)
-        for j in range(depth):
-            cell = j * width + cs[:, j]
-            same = (cell[:, None] == cell[None, :]) & valid[None, :]
-            rank = np.tril(same, -1).sum(axis=1)  # earlier valid lanes on the same cell
-            est = np.minimum(est, _wrap32(flat[cell].astype(np.int64) + rank + 1))
-            np.add.at(flat, cell[valid], np.int32(1))
-        held = np.isin(xs, keys)
-        todo = np.flatnonzero(valid & (held | (est > cnts.min())))
-        decided += todo.size
-        for i in todo:
-            present = keys == xs[i]
-            if present.any():
-                cnts = np.where(present, np.maximum(cnts, est[i]), cnts)
-            elif est[i] > cnts.min():
+        held = valid & np.isin(xs, keys)
+        snapshot += int((held | (valid & (es > cnts.min()))).sum())
+        lane = 0
+        while lane < xs.shape[0]:
+            rest = np.arange(lane, xs.shape[0])
+            cand = rest[valid[rest] & ~held[rest] & (es[rest] > cnts.min())]
+            stop = int(cand[0]) if cand.size else xs.shape[0]
+            up = lane + np.flatnonzero(held[lane:stop])
+            if up.size:  # max-raises on fixed keys: any order gives this
+                raises += up.size
+                hit = keys[None, :] == xs[up, None]
+                cnts = np.maximum(cnts, np.where(hit, es[up, None], np.iinfo(np.int64).min).max(axis=0))
+            if not cand.size:
+                break
+            decided.add((base + stop) // CHUNK)
+            if es[stop] > cnts.min():
                 s = int(np.argmin(cnts))
-                keys[s], cnts[s] = xs[i], est[i]
-    out = np.stack([keys.astype(np.int32), cnts.astype(np.int32)], axis=1)
-    return torch.from_numpy(table), torch.from_numpy(out), decided
+                keys[s], cnts[s] = xs[stop], es[stop]
+                evictions += 1
+                held = valid & np.isin(xs, keys)
+            lane = stop + 1
+    out = np.stack([keys, cnts.astype(np.int32)], axis=1)
+    return (torch.from_numpy(table.astype(np.int32)), torch.from_numpy(out),
+            WalkCounts(raises, evictions, len(decided), snapshot))
 
 
 # --------------------------------------------------------------------- CUDA wrapper
@@ -138,8 +212,9 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load(KERNEL_NAME)
     if not getattr(lib, "_argtypes_set", False):
         lib.cms_walk_launch.argtypes = [
-            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_void_p,
         ]
         lib.cms_walk_launch.restype = ctypes.c_int
         lib.cms_walk_placement.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int]
@@ -151,29 +226,31 @@ def _lib() -> ctypes.CDLL:
 
 
 def placement(depth: int, width: int, k: int) -> str:
-    """Where the kernel keeps its state for this shape on the current CUDA
-    device: ``"table <shared|global>, ledger <registers|shared|global>"``.
-    Builds the kernel if needed."""
+    """Where the kernels keep their state for this shape on the current CUDA
+    device: ``"histograms <shared|global>, ledger <...>"``, the ledger in
+    shared memory for the step walk (k <= 32), or in shared or global memory
+    for the one-warp walk. Builds the kernels if needed."""
     bits = _lib().cms_walk_placement(depth, width, k)
     if bits < 0:
         raise RuntimeError(f"cms_walk_placement: CUDA error {-bits}")
-    led = "registers" if bits & 4 else ("shared" if bits & 2 else "global")
-    return f"table {'shared' if bits & 1 else 'global'}, ledger {led}"
+    led = "shared, step walk" if bits & 4 else ("shared, one warp" if bits & 2 else "global, one warp")
+    return f"histograms {'shared' if bits & 1 else 'global'}, ledger {led}"
 
 
 def cms_walk_cuda(
-    counts: Tensor, ledger: Tensor, ids: Tensor, decisions: Optional[Tensor] = None
+    counts: Tensor, ledger: Tensor, ids: Tensor, counters: Optional[Tensor] = None
 ) -> Tuple[Tensor, Tensor]:
-    """:func:`cms_walk_reference` by the CUDA kernel ``csrc/cms_walk.cu``.
+    """:func:`cms_walk_reference` by the CUDA kernels ``csrc/cms_walk.cu``.
 
-    On a CPU tensor this is the plain version (``decisions`` unused). On a
-    CUDA tensor the kernel is launched once on the current stream or the call
+    On a CPU tensor this is the plain version (``counters`` unused). On a
+    CUDA tensor the kernels are launched on the current stream or the call
     raises: on another device, a table that is not 2-D int32, more than
     ``CMS_MAX_DEPTH`` rows, a ledger that is not ``(k, 2)`` int32 with
     ``1 <= k <= MAX_SLOTS``, non-integer or non-contiguous ids, N >= 2**31,
-    or a launch error. ``decisions``, a one-element int64 tensor on the
-    table's device, gains the number of items that reached the kernel's
-    sequential ledger decision.
+    or a launch error. ``counters``, a 3-element int64 tensor on the table's
+    device, gains the first three counts of :class:`WalkCounts` (raises,
+    evictions, chunks of 32 that held a candidate). The working memory (the
+    estimates and the segment histograms) comes from one ``torch.empty``.
     """
     global launches
     if counts.device.type == "cpu":
@@ -195,23 +272,28 @@ def cms_walk_cuda(
     n = i.numel()
     if n > MAX_CUDA_SIZE:
         raise ValueError(f"{what}: N = {n} >= 2**31 is not supported")
-    if decisions is not None and (decisions.device != device or decisions.dtype != torch.int64
-                                  or decisions.numel() != 1):
-        raise ValueError(f"{what}: decisions must be one int64 on {device}")
+    if counters is not None and (counters.device != device or counters.dtype != torch.int64
+                                 or counters.numel() != 3 or not counters.is_contiguous()):
+        raise ValueError(f"{what}: counters must be 3 contiguous int64 on {device}: one int64 for each count")
     _require_cuda(what, device)
-    out_counts = counts.clone(memory_format=torch.contiguous_format)
-    out_ledger = ledger.clone(memory_format=torch.contiguous_format)
     if n == 0:
-        return out_counts, out_ledger
+        return counts.clone(memory_format=torch.contiguous_format), ledger.clone(memory_format=torch.contiguous_format)
+    counts_in, ledger_in = counts.contiguous(), ledger.contiguous()
+    out_counts = torch.empty((depth, width), dtype=torch.int32, device=device)
+    out_ledger = torch.empty((k, 2), dtype=torch.int32, device=device)
+    n_seg = segments(n, depth * width)
+    scratch = torch.empty(-(-n // 4) * 4 + n_seg * depth * width, dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = _lib().cms_walk_launch(
-            i.data_ptr(), n, depth, width, k, out_counts.data_ptr(), out_ledger.data_ptr(),
-            decisions.data_ptr() if decisions is not None else None, stream,
+            i.data_ptr(), n, depth, width, counts_in.data_ptr(), ledger_in.data_ptr(), k, n_seg,
+            scratch.data_ptr(), out_counts.data_ptr(), out_ledger.data_ptr(),
+            counters.data_ptr() if counters is not None else None, stream,
         )
     if code != 0:
         msg = _lib().cms_walk_error_string(code).decode()
         raise RuntimeError(f"cms_walk CUDA kernel failed to launch: {msg} (error {code})")
-    launches += 1
-    _obs.record_kernel_launch(KERNEL_NAME)
+    launches += KERNELS
+    for _ in range(KERNELS):
+        _obs.record_kernel_launch(KERNEL_NAME)
     return out_counts, out_ledger
