@@ -136,6 +136,32 @@ checkout, and then:
   ``MulticlassPrecision + MulticlassRecall`` and ``2 * MeanMetric`` equal to
   the operator on their children's values.
 
+- Phase K drives the port's ``StreamingEngine`` on the card, each micro-batch
+  one CUDA-graph replay (``metrics_tpu_torch/engine/runtime.py``). Each
+  sub-phase warms up over its bucket ladder (one capture a bucket; compiles
+  must equal the bucket count after the traffic too), serves from client
+  threads, and holds every tenant's state to a per-tenant sequential fold of
+  the same requests through ``update_state`` on the card (``torch.equal``
+  leaf for leaf; ``_update_count`` counts rows). K1: ``QuantileSketch()``
+  at ``benchmarks/engine_throughput.py --sketch``'s configuration (buckets
+  (64, 256), max_queue 2048, capacity 8; 8000 batch-1 lognormal requests
+  over 8 tenants from 4 threads), beside 300 naive per-call updates. K2: the
+  flagship metrics (accuracy micro, F1 macro, a confusion matrix at 1000
+  classes) in a ``MetricCollection``, 4000 requests of 1-16 int64 label
+  pairs plus one 600-row request a tenant (split into chunks), states also
+  against the plain versions on the CPU, ``compute()`` equal, and the
+  collection's ``jitted_update_state`` against ``update_state``. K3:
+  ``HeavyHittersSketch`` (k 32, 4 x 2048) on 1000 Zipf(1.1) ids over 4
+  tenants from one thread. K4: ``BinaryAUROC(thresholds=200)`` on 1000
+  requests of 1-8 scores. K1 and K2 then profile a window of replays: the
+  hand kernels' launches in the profile must equal the launches captured x
+  replays; the device's idle share and µs per row. Every graph's nodes
+  (``cudaGraphGetNodes``), capture and warm-up ms and pool growth are
+  printed. K5: an update that reads a value on the host cannot be captured:
+  one demotion (``fused_fallbacks == 1``), every request answered, then
+  eager updates on the card with ``hist_add`` launched, states equal to
+  the fold, and random numbers still drawn after the failed capture.
+
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
 last is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
@@ -1933,6 +1959,398 @@ def phase_j3(torch, dev: str = "cuda", n: int = AGG_N) -> None:
           f"children's values")
 
 
+# --------------------------------------------------------------------------- Phase K: the streaming engine
+
+K_BUCKETS = (64, 256)  # the bucket ladder of benchmarks/engine_throughput.py --sketch
+K_QUEUE = 2048
+K_TENANTS = 8
+K_THREADS = 4
+K1_REQUESTS = 8000
+K_NAIVE = 300  # naive per-call updates timed, as the benchmark times them
+K_PROFILED = 1000  # requests in the profiled window that follows the timed one
+K2_REQUESTS = 4000
+K2_ROWS = (1, 16)
+K2_BIG_ROWS = 600  # one request per tenant above the top bucket: split_rows cuts it
+K2_CLASSES = 1000  # bench.py's class count
+K3_REQUESTS = 1000
+K3_TENANTS = 4
+K3_BUCKETS = (64,)
+K4_REQUESTS = 1000
+K4_ROWS = (1, 8)
+K5_REQUESTS = 300
+# kernel -> (name fragment of its device kernels in a profile, device kernels per counted launch)
+K_PROFILE_NAMES = {"pair_count": ("pair_count_", 1), "stat_scores": ("stat_scores_kernel", 1),
+                   "hist_add": ("hist_add_", 1), "hist_max": ("hist_max_", 1), "cms_rows_add": ("cms_rows_add_", 1),
+                   "cms_walk": ("cms_walk_", 1), "binned_curve": ("binned_curve_", 2)}
+
+
+def _graph_nodes(graph) -> int | None:
+    """Nodes of a captured graph (``cudaGraphGetNodes`` on the graph the engine
+    kept); None where the runtime library cannot be loaded."""
+    import ctypes
+
+    try:
+        cudart = ctypes.CDLL("libcudart.so.12")
+    except OSError:
+        return None
+    n = ctypes.c_size_t(0)
+    code = cudart.cudaGraphGetNodes(ctypes.c_void_p(graph.raw_cuda_graph()), None, ctypes.byref(n))
+    return int(n.value) if code == 0 else None
+
+
+def _k_submit(engine, reqs, threads: int) -> float:
+    """Submit ``reqs`` from ``threads`` client threads (request i from thread
+    i % threads), flush, check every receipt; the wall seconds of it all."""
+    import gc
+    import threading
+    from concurrent.futures import wait
+
+    futures, lock = [], threading.Lock()
+
+    def client(tid: int) -> None:
+        mine = [engine.submit(key, *args) for key, args in reqs[tid::threads]]
+        with lock:
+            futures.extend(mine)
+
+    gc.collect()
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        workers = [threading.Thread(target=client, args=(tid,)) for tid in range(threads)]
+        for th in workers:
+            th.start()
+        for th in workers:
+            th.join(300)
+            _check(not th.is_alive(), "a client thread did not finish")
+        engine.flush(timeout=300)
+        seconds = time.perf_counter() - t0
+    finally:
+        gc.enable()
+    done, not_done = wait(futures, timeout=60)
+    _check(not not_done and len(done) == len(reqs), f"{len(not_done)} of {len(reqs)} futures unanswered")
+    errors = [f.exception() for f in done if f.exception() is not None]
+    _check(not errors, f"{len(errors)} requests failed, first: {errors[:1]!r}")
+    return seconds
+
+
+def _k_warm(engine, make_args, buckets, keys) -> int:
+    """The benchmark's warm-up: every tenant allocated, one request a rung (each
+    captures its bucket's graph), then a reset (in place: the graphs stay)."""
+    for key in keys:
+        engine._alloc_slot(key)
+    for rows in buckets:
+        engine.submit(keys[0], *make_args(rows)).result(timeout=300)
+        engine.flush(timeout=300)
+    engine.reset()
+    return engine.telemetry_snapshot()["compiles"]
+
+
+def _k_fold(torch, metric, reqs, dev: str):
+    """Per-tenant sequential fold of whole requests through ``update_state`` on
+    ``dev``, and each tenant's row count."""
+    states, rows = {}, {}
+    for key, args in reqs:
+        state = states.get(key) or metric.init_state()
+        states[key] = metric.update_state(state, *(torch.from_numpy(a).to(dev) for a in args))
+        rows[key] = rows.get(key, 0) + args[0].shape[0]
+    return states, rows
+
+
+def _k_leaves(tree, prefix: str = "") -> dict:
+    if isinstance(tree, dict):
+        return {p: v for k, sub in tree.items() for p, v in _k_leaves(sub, f"{prefix}{k}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def _k_check_states(torch, engine, folds, rows, what: str) -> int:
+    """Every tenant's engine state equal to its fold, leaf for leaf with its dtype;
+    ``_update_count`` counts rows (the engine updates a row at a time, the fold a
+    request at a time). The number of leaves compared."""
+    compared = 0
+    for key, fold in folds.items():
+        got, want = _k_leaves(engine._keyed.state_of(key)), _k_leaves(fold)
+        _check(set(got) == set(want), f"{what} {key}: leaves {sorted(got)} vs {sorted(want)}")
+        for path, x in got.items():
+            y = want[path]
+            if path.endswith("_update_count"):
+                _check(int(x) == rows[key], f"{what} {key} {path}: {int(x)} updates for {rows[key]} rows")
+                continue
+            _check(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), f"{what} {key}: {path} differs")
+            compared += 1
+    return compared
+
+
+def _k_profile(torch, engine, reqs, threads: int, kernels) -> dict:
+    """Device busy share, and the hand kernels' launches in the profile against
+    captured launches x replays, over one window of ``reqs``; the window is
+    profiled again (up to 3 times) while the counts disagree."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for attempt in range(3):
+        before = engine.graph_launches()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            wall_s = _k_submit(engine, reqs, threads)
+        expected = {k: n - before.get(k, 0) for k, n in engine.graph_launches().items() if k in kernels}
+        times = _kernel_times(prof, torch)
+        seen = {k: sum(len(v) for name, v in times.items() if K_PROFILE_NAMES[k][0] in name) // K_PROFILE_NAMES[k][1]
+                for k in kernels}
+        if seen == expected or not times:
+            break
+    busy_us = sum(sum(v) for v in times.values())
+    return {
+        "wall_s": wall_s,
+        "device_busy_us": busy_us,
+        "idle_share": 1.0 - busy_us / (wall_s * 1e6) if times else None,
+        "device_ops": sum(len(v) for v in times.values()),
+        "launches_in_replays": expected,
+        "launches_profiled": seen,
+        "profile_attempts": attempt + 1,
+        "top_kernels": [{"name": n[:80], "count": len(v), "us": sum(v)}
+                        for n, v in sorted(times.items(), key=lambda kv: -sum(kv[1]))[:6]],
+    }
+
+
+def _k_graphs(engine) -> list:
+    out = []
+    for (sig, bucket, cap), kernel in engine._kernels.items():
+        rec = next(r for r in engine.graph_stats() if (r["bucket"], r["capacity"]) == (bucket, cap)
+                   and r["signature"] == sig)
+        out.append({"bucket": bucket, "capacity": cap, "nodes": _graph_nodes(kernel.graph),
+                    "warmup_ms": rec["warmup_ms"], "capture_ms": rec["capture_ms"], "pool_bytes": rec["pool_bytes"],
+                    "captured_launches": rec["captured_launches"], "replays": rec["replays"]})
+    return out
+
+
+def _k_serve(torch, name: str, make, reqs, buckets, warm_args, kernels, threads: int = K_THREADS,
+             profile_reqs=None, **engine_kw) -> tuple:
+    """One engine on the card: warm-up over the ladder, the timed window, the
+    state checks against a fold on the card, then a profiled window. Returns
+    ``(record, engine, fold states, rows)``; the caller closes the engine."""
+    from metrics_tpu_torch.engine import StreamingEngine
+
+    keys = sorted({key for key, _ in reqs})
+    engine = StreamingEngine(make(), buckets=buckets, max_queue=K_QUEUE, capacity=K_TENANTS, **engine_kw)
+    warm = _k_warm(engine, warm_args, buckets, keys)
+    _check(warm == len(buckets), f"{name}: {warm} captures in the warm-up for {len(buckets)} buckets")
+    seconds = _k_submit(engine, reqs, threads)
+    snap = engine.telemetry_snapshot()
+    _check(snap["fused"] and snap["fused_fallbacks"] == 0, f"{name}: fused {snap['fused']}, "
+           f"{snap['fused_fallbacks']} fallbacks")
+    _check(snap["compiles"] == len(buckets), f"{name}: {snap['compiles']} captures for {len(buckets)} buckets")
+    launched = engine.graph_launches()
+    for k in kernels:
+        _check(launched.get(k, 0) > 0, f"{name}: {k} was never launched inside a replay ({launched})")
+    folds, rows = _k_fold(torch, make(), reqs, "cuda")
+    compared = _k_check_states(torch, engine, folds, rows, name)
+    n_rows = sum(args[0].shape[0] for _, args in reqs)
+    rec = {
+        "requests": len(reqs), "rows": n_rows, "tenants": len(keys), "threads": threads, "buckets": list(buckets),
+        "req_per_s": len(reqs) / seconds, "rows_per_s": n_rows / seconds, "seconds": seconds,
+        "latency_s": snap["latency_s"], "batches": snap["batches"], "mean_batch_occupancy": snap["mean_batch_occupancy"],
+        "compiles": snap["compiles"], "fused_fallbacks": snap["fused_fallbacks"], "slab_bytes": snap["slab_bytes"],
+        "state_leaves_equal": compared, "graph_launches": launched, "graphs": _k_graphs(engine),
+    }
+    if profile_reqs is not None:
+        prof = _k_profile(torch, engine, profile_reqs, threads, kernels)
+        _check(prof["launches_profiled"] == prof["launches_in_replays"] or prof["device_ops"] == 0,
+               f"{name}: profiled launches {prof['launches_profiled']} vs replays {prof['launches_in_replays']}")
+        prof_rows = sum(args[0].shape[0] for _, args in profile_reqs)
+        prof["device_us_per_row"] = prof["device_busy_us"] / prof_rows
+        prof["wall_us_per_row"] = prof["wall_s"] * 1e6 / prof_rows
+        rec["profiled_window"] = prof
+    return rec, engine, folds, rows
+
+
+def _k_quantile_reqs(np, seed: int, n: int, tenants: int):
+    rng = np.random.default_rng(seed)
+    return [(f"tenant-{int(rng.integers(0, tenants))}", (rng.lognormal(0.0, 1.0, 1).astype(np.float32),))
+            for _ in range(n)]
+
+
+def phase_k1(torch, np) -> dict:
+    """The quantile engine at benchmarks/engine_throughput.py --sketch's configuration."""
+    from metrics_tpu_torch import QuantileSketch
+
+    reqs = _k_quantile_reqs(np, 2, K1_REQUESTS, K_TENANTS)
+    naive = QuantileSketch()
+    stream = [torch.from_numpy(v).to("cuda") for _, (v,) in reqs[:K_NAIVE]]
+    naive.update(stream[0])  # warm the eager update path
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for v in stream:
+        naive.update(v)
+    torch.cuda.synchronize()
+    naive_rps = K_NAIVE / (time.perf_counter() - t0)
+    rng = np.random.default_rng(3)
+    rec, engine, _, _ = _k_serve(
+        torch, "K1", QuantileSketch, reqs, K_BUCKETS,
+        lambda rows: (rng.lognormal(0.0, 1.0, rows).astype(np.float32),), ("hist_add",),
+        profile_reqs=_k_quantile_reqs(np, 4, K_PROFILED, K_TENANTS),
+    )
+    engine.close()
+    rec["naive_req_per_s"] = naive_rps
+    rec["speedup_vs_naive"] = rec["req_per_s"] / naive_rps
+    print(f"phase K1 {json.dumps(rec)}")
+    return rec
+
+
+def _k2_metric(dev: str = "cuda"):
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.classification import MulticlassAccuracy, MulticlassConfusionMatrix, MulticlassF1Score
+
+    return MetricCollection({
+        "accuracy": MulticlassAccuracy(K2_CLASSES, average="micro", device=dev),
+        "f1": MulticlassF1Score(K2_CLASSES, average="macro", device=dev),
+        "confmat": MulticlassConfusionMatrix(K2_CLASSES, device=dev),
+    })
+
+
+def phase_k2(torch, np) -> dict:
+    """The flagship metrics served: int64 label pairs, 8 tenants, 4 client threads."""
+    rng = np.random.default_rng(5)
+
+    def labels(rows):
+        return rng.integers(0, K2_CLASSES, rows).astype(np.int64), rng.integers(0, K2_CLASSES, rows).astype(np.int64)
+
+    reqs = [(f"tenant-{int(rng.integers(0, K_TENANTS))}", labels(int(rng.integers(K2_ROWS[0], K2_ROWS[1] + 1))))
+            for _ in range(K2_REQUESTS)]
+    reqs += [(f"tenant-{t}", labels(K2_BIG_ROWS)) for t in range(K_TENANTS)]
+    profile_reqs = [(f"tenant-{int(rng.integers(0, K_TENANTS))}", labels(int(rng.integers(K2_ROWS[0], K2_ROWS[1] + 1))))
+                    for _ in range(K_PROFILED // 4)]
+    rec, engine, folds, rows = _k_serve(torch, "K2", _k2_metric, reqs, K_BUCKETS, labels,
+                                        ("stat_scores", "pair_count"), profile_reqs=None)
+    try:
+        # the plain versions on the CPU: one update of each tenant's rows, concatenated
+        cpu_metric = _k2_metric("cpu")
+        for key in folds:
+            mine = [args for k, args in reqs if k == key]
+            cpu = cpu_metric.update_state(cpu_metric.init_state(),
+                                          *(torch.from_numpy(np.concatenate(col)) for col in zip(*mine)))
+            got = _k_leaves(engine._keyed.state_of(key))
+            for path, want in _k_leaves(cpu).items():
+                if not path.endswith("_update_count"):
+                    _check(want.dtype == torch.int32 and torch.equal(got[path].cpu(), want),
+                           f"K2 {key}: {path} differs from the CPU's plain versions")
+        metric = _k2_metric()
+        for key, fold in folds.items():
+            got, want = engine.compute(key), metric.compute_from(fold)
+            for name in want:
+                _check(torch.equal(got[name], want[name]), f"K2 {key}: compute()[{name!r}] differs from the fold's")
+        # the engine hook: the collection's update captured as one graph per shape
+        updater, state, fold = metric.jitted_update_state(), metric.init_state(), metric.init_state()
+        for _ in range(5):
+            batch = [torch.from_numpy(a).to("cuda") for a in labels(64)]
+            state, fold = updater(state, *batch), metric.update_state(fold, *batch)
+        for path, want in _k_leaves(fold).items():
+            _check(torch.equal(_k_leaves(state)[path], want), f"K2 jitted_update_state: {path} differs")
+        rec["profiled_window"] = _k_profile(torch, engine, profile_reqs, K_THREADS, ("stat_scores", "pair_count"))
+        prof = rec["profiled_window"]
+        _check(prof["launches_profiled"] == prof["launches_in_replays"] or prof["device_ops"] == 0,
+               f"K2: profiled launches {prof['launches_profiled']} vs replays {prof['launches_in_replays']}")
+        prof_rows = sum(args[0].shape[0] for _, args in profile_reqs)
+        prof["device_us_per_row"] = prof["device_busy_us"] / prof_rows
+        prof["wall_us_per_row"] = prof["wall_s"] * 1e6 / prof_rows
+        prof["launches_per_row"] = {k: n / prof_rows for k, n in prof["launches_in_replays"].items()}
+    finally:
+        engine.close()
+    rec["launches_per_row"] = {k: sum(g["captured_launches"].get(k, 0) for g in rec["graphs"]) /
+                               sum(g["bucket"] for g in rec["graphs"]) for k in ("stat_scores", "pair_count")}
+    print(f"phase K2 {json.dumps(rec)}")
+    return rec
+
+
+def phase_k3(torch, np) -> dict:
+    """Heavy hitters: the four kernels of the ledger walk inside a graph; one client
+    thread, so each tenant's (order-dependent) ledger follows its submission order."""
+    from metrics_tpu_torch import HeavyHittersSketch
+
+    rng = np.random.default_rng(7)
+
+    def ids(rows):
+        return (np.minimum(rng.zipf(ZIPF_S, rows), ZIPF_IDS).astype(np.int32),)
+
+    reqs = [(f"tenant-{int(rng.integers(0, K3_TENANTS))}", ids(1)) for _ in range(K3_REQUESTS)]
+    rec, engine, _, _ = _k_serve(torch, "K3", lambda: HeavyHittersSketch(k=32, depth=4, width=2048), reqs,
+                                 K3_BUCKETS, ids, ("cms_walk",), threads=1)
+    engine.close()
+    print(f"phase K3 {json.dumps(rec)}")
+    return rec
+
+
+def phase_k4(torch, np) -> dict:
+    """Binned AUROC: one binned_curve launch a row inside a graph."""
+    from metrics_tpu_torch.classification import BinaryAUROC
+
+    rng = np.random.default_rng(9)
+
+    def scores(rows):
+        return rng.random(rows).astype(np.float32), rng.integers(0, 2, rows).astype(np.int64)
+
+    reqs = [(f"tenant-{int(rng.integers(0, K_TENANTS))}", scores(int(rng.integers(K4_ROWS[0], K4_ROWS[1] + 1))))
+            for _ in range(K4_REQUESTS)]
+    rec, engine, folds, _ = _k_serve(torch, "K4", lambda: BinaryAUROC(thresholds=CURVE_T), reqs, K_BUCKETS, scores,
+                                     ("binned_curve",))
+    try:
+        metric = BinaryAUROC(thresholds=CURVE_T)
+        for key, fold in folds.items():
+            _check(torch.equal(engine.compute(key), metric.compute_from(fold)), f"K4 {key}: AUROC differs")
+    finally:
+        engine.close()
+    print(f"phase K4 {json.dumps(rec)}")
+    return rec
+
+
+def phase_k5(torch, np, scatter) -> dict:
+    """The ladder: an update that reads a value on the host cannot be captured;
+    the engine demotes once and serves eagerly on the card, its kernels launched."""
+    from metrics_tpu_torch import QuantileSketch
+    from metrics_tpu_torch.engine import StreamingEngine
+
+    class HostCheckedQuantiles(QuantileSketch):
+        """Refuses non-finite values, read on the host (one sync an update)."""
+
+        def update(self, value):
+            if not bool(torch.isfinite(value).all()):
+                raise ValueError("non-finite value")
+            super().update(value)
+
+    reqs = _k_quantile_reqs(np, 11, K5_REQUESTS, K_TENANTS)
+    engine = StreamingEngine(HostCheckedQuantiles(), buckets=K3_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS)
+    try:
+        before = scatter.launches["hist_add"]
+        seconds = _k_submit(engine, reqs, K_THREADS)
+        snap = engine.telemetry_snapshot()
+        _check(snap["fused_fallbacks"] == 1 and not snap["fused"] and not snap["degraded"],
+               f"K5: fused {snap['fused']}, {snap['fused_fallbacks']} fallbacks, degraded {snap['degraded']}")
+        _check(snap["processed"] == len(reqs) and snap["failed"] == 0, f"K5: {snap['processed']} processed")
+        _check(engine.graph_launches() == {}, "K5: a graph survived the demotion")
+        eager = scatter.launches["hist_add"] - before
+        _check(eager >= 2 * len(reqs), f"K5: {eager} hist_add launches for {len(reqs)} eager updates")
+        folds, rows = _k_fold(torch, HostCheckedQuantiles(), reqs, "cuda")
+        compared = _k_check_states(torch, engine, folds, rows, "K5")
+        _check(torch.randn(4, device="cuda").isfinite().all().item(), "K5: random numbers after a failed capture")
+        rec = {"requests": len(reqs), "req_per_s": len(reqs) / seconds, "fused_fallbacks": snap["fused_fallbacks"],
+               "compiles": snap["compiles"], "hist_add_launches_eager": eager, "state_leaves_equal": compared,
+               "latency_s": snap["latency_s"]}
+    finally:
+        engine.close()
+    print(f"phase K5 {json.dumps(rec)}")
+    return rec
+
+
+def phase_k(torch, scatter) -> dict:
+    """The port's StreamingEngine on the card (K1 to K5)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    out = {"K1": phase_k1(torch, np), "K2": phase_k2(torch, np), "K3": phase_k3(torch, np),
+           "K4": phase_k4(torch, np), "K5": phase_k5(torch, np, scatter)}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase K: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1995,6 +2413,7 @@ def main() -> int:
     collection_step = phase_j1(torch, entry_mod, obs, instrument, steps)
     six = phase_j2(torch, obs, instrument)
     phase_j3(torch)
+    engine = phase_k(torch, scatter)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -2067,7 +2486,8 @@ def main() -> int:
         "shapes": [{k: curve_recs[key][k] for k in shape_fields}
                    for key in (f"T{CURVE_T}_C1", "T1024_C1", f"T{CURVE_T}_C{CURVE_COLS}")],
     })
-    print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six, "card": card}))
+    print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six,
+                      "engine": engine, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -19,6 +19,7 @@ from metrics_tpu_torch.classification import AUROC, ROC, AveragePrecision, Preci
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.sketch import CardinalitySketch, HeavyHittersSketch, QuantileSketch
+from metrics_tpu_torch import engine  # noqa: E402  (serving runtime; not in __all__, as in the JAX package)
 
 # the names of ``metrics_tpu.__all__`` that the port has so far
 __all__ = [

@@ -2,7 +2,8 @@
 
 ``nan_strategy`` keeps the JAX package's meanings. "error" and "warn" read
 whether the batch holds a NaN on the host (one device sync per update on the
-GPU) and "warn" then filters the NaNs out; "ignore" and a float imputation mask
+GPU; skipped inside a CUDA-graph capture, as the JAX package skips it under a
+trace) and "warn" then filters the NaNs out; "ignore" and a float imputation mask
 with ``torch.where`` and never sync, except in ``CatMetric``, whose "ignore"
 filter keeps a data-dependent number of values. Values and weights are
 float32, as in the JAX package.
@@ -16,6 +17,7 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.metric import Metric, zero_state
+from metrics_tpu_torch.utils.checks import _value_check_possible
 from metrics_tpu_torch.utils.data import dim_zero_cat
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
@@ -54,12 +56,19 @@ class BaseAggregator(Metric):
         operation's neutral value with weight 0)."""
         x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         if weight is not None:
-            weight = torch.as_tensor(weight, dtype=torch.float32, device=self.device)
-            weight = torch.broadcast_to(weight, x.shape)
+            # a Python number is filled in on the device: no host-to-device copy,
+            # which a CUDA-graph capture could not hold
+            weight = (
+                torch.full(x.shape, float(weight), dtype=torch.float32, device=self.device)
+                if isinstance(weight, (int, float))
+                else torch.broadcast_to(torch.as_tensor(weight, dtype=torch.float32, device=self.device), x.shape)
+            )
 
         nans = torch.isnan(x)
         if self.nan_strategy in ("error", "warn"):
-            if bool(nans.any()):
+            # skipped where values cannot be read (under capture), as the JAX
+            # package skips it on traced arrays
+            if _value_check_possible(x) and bool(nans.any()):
                 if self.nan_strategy == "error":
                     raise RuntimeError("Encountered `nan` values in tensor")
                 rank_zero_warn("Encountered `nan` values in tensor. Will be removed.", UserWarning)
@@ -68,10 +77,10 @@ class BaseAggregator(Metric):
                     weight = weight[~nans]
         elif self.nan_strategy == "ignore":
             weight = torch.ones_like(x) if weight is None else weight
-            weight = torch.where(nans, torch.zeros((), dtype=weight.dtype, device=weight.device), weight)
-            x = torch.where(nans, torch.tensor(self._neutral, dtype=x.dtype, device=x.device), x)
+            weight = torch.where(nans, 0.0, weight)
+            x = torch.where(nans, self._neutral, x)
         else:  # float imputation
-            x = torch.where(nans, torch.tensor(self.nan_strategy, dtype=x.dtype, device=x.device), x)
+            x = torch.where(nans, float(self.nan_strategy), x)
 
         if weight is None:
             weight = torch.ones_like(x)

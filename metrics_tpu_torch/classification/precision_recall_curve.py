@@ -74,6 +74,7 @@ class BinaryPrecisionRecallCurve(Metric):
         self.validate_args = validate_args
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
         if self.thresholds is None:
+            self._host_compute = True
             self.add_state("preds", [], dist_reduce_fx="cat")
             self.add_state("target", [], dist_reduce_fx="cat")
         else:
@@ -123,6 +124,7 @@ class MulticlassPrecisionRecallCurve(Metric):
         self.validate_args = validate_args
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
         if self.thresholds is None:
+            self._host_compute = True
             self.add_state("preds", [], dist_reduce_fx="cat")
             self.add_state("target", [], dist_reduce_fx="cat")
         else:
@@ -176,6 +178,7 @@ class MultilabelPrecisionRecallCurve(Metric):
         self.validate_args = validate_args
         self.thresholds = _adjust_threshold_arg(thresholds, self.device)
         if self.thresholds is None:
+            self._host_compute = True
             self.add_state("preds", [], dist_reduce_fx="cat")
             self.add_state("target", [], dist_reduce_fx="cat")
             self.add_state("mask", [], dist_reduce_fx="cat")

@@ -11,8 +11,7 @@ rebind); a list ("cat") state is shared as one list object, which only the
 leader appends to. The deepcopy in ``items()`` and friends keeps copy-on-read
 semantics for callers that hold on to a member.
 
-Not ported yet: ``save``/``restore`` (they wait for the checkpoint format) and
-``jitted_update_state`` (it waits for the engine's CUDA-graph cache).
+Not ported yet: ``save``/``restore`` (they wait for the checkpoint format).
 """
 
 from __future__ import annotations
@@ -25,7 +24,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.metric import Metric, _raise_on_unconsumed
+from metrics_tpu_torch.metric import Metric, _cached_graphed_updater, _raise_on_unconsumed
 from metrics_tpu_torch.obs import instrument as _obs
 from metrics_tpu_torch.utils.data import _flatten_dict
 from metrics_tpu_torch.utils.device import DeviceLike
@@ -556,6 +555,12 @@ class MetricCollection:
         """
         return {name: self._modules[name].merge_states(state_a[name], state_b[name]) for name in state_a}
 
+    def jitted_update_state(self, donate: bool = True) -> Any:
+        """The whole collection update captured as ONE CUDA graph per operand
+        shape and dtype (engine hook): every group leader's update replays in one
+        graph launch. Donation as in :meth:`Metric.jitted_update_state`."""
+        return _cached_graphed_updater(self, donate)
+
     def compute_from(self, state: Dict[str, Any], axis_name: Optional[Any] = None) -> Dict[str, Any]:
         """Pure compute for all metrics from the (group-deduped) state dict;
         a non-None ``axis_name`` raises, as in :meth:`Metric.compute_from`."""
@@ -575,9 +580,10 @@ class MetricCollection:
         return self._groups
 
     def __getstate__(self) -> Dict[str, Any]:
-        # the obs instance label is dropped so a clone gets its own telemetry
-        # series instead of aliasing its source's
-        return {k: v for k, v in self.__dict__.items() if k != "_obs_instance_label"}
+        # captured updaters neither pickle nor deepcopy (a clone captures its
+        # own); the obs instance label is dropped so a clone gets its own
+        # telemetry series instead of aliasing its source's
+        return {k: v for k, v in self.__dict__.items() if k not in ("_jitted_update_state", "_obs_instance_label")}
 
     def __repr__(self) -> str:
         repr_str = self.__class__.__name__ + "(\n"

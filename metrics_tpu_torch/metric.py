@@ -22,10 +22,13 @@ The arithmetic and comparison operators on a metric build a
 :class:`CompositionalMetric`, as in the JAX package. So ``m1 == m2`` is a
 metric, not a bool: code that compares metrics compares them by identity.
 
-Not ported yet: ``jitted_update_state`` (it waits for the engine's CUDA-graph
-cache), in-trace ``sync_state`` and ``compute_from`` with an ``axis_name``
-(they wait for the comm plane), and ``save``/``restore`` (they wait for the
-checkpoint format).
+``jitted_update_state`` is the serving engine's hook, as in the JAX package:
+there ``jax.jit`` compiles the pure updater; here the updater is captured as a
+CUDA graph per operand shape and dtype (on the CPU it is ``update_state``).
+
+Not ported yet: in-trace ``sync_state`` and ``compute_from`` with an
+``axis_name`` (they wait for the comm plane), and ``save``/``restore`` (they
+wait for the checkpoint format).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from typing import Any, Callable, Dict, Generator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import Tensor
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from metrics_tpu_torch.obs import instrument as _obs
 from metrics_tpu_torch.obs.registry import OBS as _OBS
@@ -57,6 +61,7 @@ from metrics_tpu_torch.utils.data import (
 from metrics_tpu_torch.utils.device import DeviceLike, resolve_device
 from metrics_tpu_torch.utils.distributed import distributed_available, gather_all_tensors
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
+from metrics_tpu_torch.utils.graphs import capture
 from metrics_tpu_torch.utils.prints import rank_zero_warn
 
 _REDUCTION_FNS: Dict[str, Callable] = {
@@ -97,6 +102,68 @@ def _as_state_tensor(value: Any, device: torch.device) -> Tensor:
     return torch.from_numpy(np.array(value, copy=True)).to(device)
 
 
+class _GraphedUpdater:
+    """``obj.update_state`` captured as one CUDA graph per operand structure,
+    shapes and dtypes (the JAX package's ``jax.jit(update_state)``).
+
+    A call whose tensors lie on the CPU runs ``update_state`` itself. On the card
+    the first call of a shape copies the operands into static buffers, runs the
+    update once (building the kernels and settling the allocator), captures it
+    and replays; later calls copy the operands in and replay. With ``donate``
+    the result is the graph's own output buffers, valid until the next call of
+    the same shapes (the caller hands the state back in, as with a donated JAX
+    buffer); without it, copies of them. A capture that fails raises.
+    """
+
+    def __init__(self, obj: Any, donate: bool) -> None:
+        self._obj = obj
+        self._donate = donate
+        self._graphs: Dict[Any, Tuple[torch.cuda.CUDAGraph, List[Tensor], Any]] = {}
+
+    def __call__(self, state: Any, *args: Any, **kwargs: Any) -> Any:
+        leaves, spec = tree_flatten((state, args, kwargs))
+        if not any(isinstance(x, Tensor) and x.is_cuda for x in leaves):
+            return self._obj.update_state(state, *args, **kwargs)
+        key = (spec, tuple((tuple(x.shape), x.dtype, x.device) if isinstance(x, Tensor) else x for x in leaves))
+        entry = self._graphs.get(key)
+        if entry is None:
+            entry = self._capture(leaves, spec)
+            self._graphs[key] = entry
+        graph, static_in, static_out = entry
+        for dst, src in zip(static_in, leaves):
+            if isinstance(dst, Tensor):
+                dst.copy_(src)
+        graph.replay()
+        return static_out if self._donate else tree_map(lambda x: x.clone(), static_out)
+
+    def _capture(self, leaves: List[Any], spec: Any) -> Tuple[torch.cuda.CUDAGraph, List[Any], Any]:
+        static_in = [x.clone() if isinstance(x, Tensor) else x for x in leaves]
+
+        def run() -> Any:
+            state, args, kwargs = tree_unflatten(static_in, spec)
+            return self._obj.update_state(state, *args, **kwargs)
+
+        device = next(x.device for x in static_in if isinstance(x, Tensor) and x.is_cuda)
+        stream = torch.cuda.Stream(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            run()  # warm-up: kernels built, allocator settled
+        torch.cuda.current_stream(device).wait_stream(stream)
+        graph, static_out = capture(run, stream)
+        return graph, static_in, static_out
+
+
+def _cached_graphed_updater(obj: Any, donate: bool) -> Callable:
+    """Shared body of ``{Metric,MetricCollection}.jitted_update_state``: one
+    updater per (instance, donate flag), cached under ``_jitted_update_state``
+    (dropped by ``__getstate__``: graphs neither pickle nor deepcopy)."""
+    cache = obj.__dict__.setdefault("_jitted_update_state", {})
+    fn = cache.get(donate)
+    if fn is None:
+        fn = cache[donate] = _GraphedUpdater(obj, donate)
+    return fn
+
+
 class Metric(ABC):
     """Base class for all metrics.
 
@@ -112,6 +179,9 @@ class Metric(ABC):
     plot_lower_bound: Optional[float] = None
     plot_upper_bound: Optional[float] = None
     plot_legend_name: Optional[str] = None
+    # compute runs on the host (data-dependent shapes): the streaming engine serves
+    # such a metric on its eager path, never stacked
+    _host_compute: bool = False
 
     def __init__(self, **kwargs: Any) -> None:
         self._device = resolve_device(kwargs.pop("device", None))
@@ -511,6 +581,18 @@ class Metric(ABC):
         finally:
             self._swap_out(snapshot)
 
+    def jitted_update_state(self, donate: bool = True) -> Callable:
+        """The pure updater captured as a CUDA graph per operand shape and dtype
+        (the JAX package's jitted updater; ``update_state`` itself for CPU
+        tensors): ``state = updater(state, preds, target)``.
+
+        The serving engine's hook: a runtime that owns its state exclusively can
+        donate it (``donate=True``), and must not touch a donated state
+        afterwards — the updater returns its graph's output buffers, which the
+        next call of the same shapes overwrites. The cache is per instance.
+        """
+        return _cached_graphed_updater(self, donate)
+
     def merge_states(self, state_a: Dict[str, Any], state_b: Dict[str, Any]) -> Dict[str, Any]:
         """Associatively merge two state dicts (pure analogue of ``_reduce_states``)."""
         merged: Dict[str, Any] = {}
@@ -669,9 +751,10 @@ class Metric(ABC):
 
     def __getstate__(self) -> Dict[str, Any]:
         """Drop the instance-wrapped ``update``/``compute`` for pickling and
-        deepcopy, and the obs instance label, so that a clone gets its own
-        telemetry series."""
-        drop = ("update", "compute", "_obs_instance_label")
+        deepcopy, the captured updaters (graphs neither pickle nor deepcopy;
+        a clone captures its own), and the obs instance label, so that a clone
+        gets its own telemetry series."""
+        drop = ("update", "compute", "_jitted_update_state", "_obs_instance_label")
         return {k: v for k, v in self.__dict__.items() if k not in drop}
 
     def __setstate__(self, state: Dict[str, Any]) -> None:

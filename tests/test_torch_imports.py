@@ -71,6 +71,60 @@ def test_core_modules_are_scanned(relpath):
     assert relpath in SOURCES
 
 
+ENGINE_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("engine/__init__", "engine/bucketing", "engine/stream", "engine/telemetry", "engine/runtime",
+                 "kernels/engine_scan", "obs/jsonl", "utils/graphs", "utils/params_io")
+]
+
+
+@pytest.mark.parametrize("relpath", ENGINE_MODULES)
+def test_engine_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
+def _series(reg):
+    """One registry's worth of every kind of series: labelled and unlabelled
+    counters (integral and fractional), a gauge, histograms with explicit and
+    default edges, label values that need escaping, a help text with a newline,
+    and a family whose series were dropped by label."""
+    events = reg.counter("engine_events_total", "Lifecycle events.")
+    events.inc(3, event="submitted", engine="0")
+    events.inc(2.5, event="rows", engine="0")
+    events.inc(7, event="submitted", engine="1")
+    events.inc_many([(1, {"event": "batches", "engine": "1"}), (4, {"event": "rows", "engine": "1"})])
+    reg.counter("plain_total").inc(11)
+    depth = reg.gauge("queue_depth", "Queued\nrequests.")
+    depth.set(5, engine="0")
+    depth.set(0.125, engine="1")
+    occ = reg.histogram("occupancy", "Real rows a batch.", buckets=(0.25, 0.5, 0.75, 1.0))
+    for v in (0.1, 0.25, 0.3, 0.99, 1.0, 1.5):
+        occ.observe(v, engine="0")
+    lat = reg.histogram("latency_seconds", "Latency.")
+    for v in (2e-6, 3e-4, 0.02, 12.0):
+        lat.observe(v, engine="0", path='a"b\\c')
+    gone = reg.counter("gone_total", "Dropped with its engine.")
+    gone.inc(1, engine="0")
+    gone.inc(2, engine="1")
+    gone.drop_labels(engine="0")
+    occ.touch(engine="2")
+    return reg
+
+
+def test_render_prometheus_equals_the_jax_registrys():
+    """The port's registry renders the same Prometheus text, and takes the same
+    snapshot, as the JAX package's for the same series."""
+    from metrics_tpu.obs.registry import Registry as JaxRegistry
+
+    from metrics_tpu_torch.obs.registry import Registry
+
+    port, ref = _series(Registry()), _series(JaxRegistry())
+    assert port.render_prometheus() == ref.render_prometheus()
+    assert port.snapshot() == ref.snapshot()
+    assert "gone_total{engine=\"1\"} 2" in port.render_prometheus()
+    assert 'engine="0"' not in port.render_prometheus().split("gone_total")[-1]
+
+
 @pytest.mark.parametrize("relpath", SOURCES)
 def test_no_jax_or_reference_package_import(relpath):
     assert forbidden_imports((ROOT / relpath).read_text()) == []
