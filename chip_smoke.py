@@ -160,7 +160,27 @@ checkout, and then:
   printed. K5: an update that reads a value on the host cannot be captured:
   one demotion (``fused_fallbacks == 1``), every request answered, then
   eager updates on the card with ``hist_add`` launched, states equal to
-  the fold, and random numbers still drawn after the failed capture.
+  the fold, and random numbers still drawn after the failed capture. K6:
+  ``BinaryAccuracy()`` with its value checks on, at
+  ``benchmarks/engine_throughput.py``'s headline configuration (the K1
+  engine settings; 8000 batch-1 int64 requests, seed 0), beside 300 naive
+  per-call forwards: no fallback, states equal to the fold, then
+  ``evict_tenant("tenant-0")`` returns True, the tenant leaves
+  ``compute_all()``, and its resubmitted requests give a fresh tenant's
+  state with no new capture.
+- Phase L drives the binary and multilabel stat-score families and
+  ``MeanSquaredError`` at the JAX benchmarks' sizes: 10^6 float32 scores
+  with int32 targets (``benchmarks/classification_vs_reference.py``, seed
+  0), as 10^6 binary scores and as 10^4 samples x 100 labels, through
+  each of stat scores, confusion matrix, accuracy, F1, precision, recall
+  and specificity by its class, its task façade, its functional and its
+  functional façade (int32 states bit-identical to the port's plain code
+  on the CPU, values within rtol 1e-6); 10^6 float32 pairs through
+  ``MeanSquaredError`` (``benchmarks/regression_vs_reference.py``; the sum
+  within rtol 1e-5 of a float64 sum and of the CPU's). These updates are
+  plain torch code (no hand kernel): each class update is timed by CUDA
+  events, with and without its value checks, and profiled (device time,
+  idle share, device kernels a update).
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
@@ -2151,6 +2171,10 @@ def _k_serve(torch, name: str, make, reqs, buckets, warm_args, kernels, threads:
         "compiles": snap["compiles"], "fused_fallbacks": snap["fused_fallbacks"], "slab_bytes": snap["slab_bytes"],
         "state_leaves_equal": compared, "graph_launches": launched, "graphs": _k_graphs(engine),
     }
+    # the least time a row could take: one tenant's state gathered (read once) and scattered back
+    # (written once) over the card's memory rate
+    rec["state_bytes_per_tenant"] = snap["slab_bytes"] // engine._keyed.capacity
+    rec["state_bound_us_per_row"] = 2 * rec["state_bytes_per_tenant"] / HBM_BYTES_PER_S * 1e6
     if profile_reqs is not None:
         prof = _k_profile(torch, engine, profile_reqs, threads, kernels)
         _check(prof["launches_profiled"] == prof["launches_in_replays"] or prof["device_ops"] == 0,
@@ -2339,15 +2363,225 @@ def phase_k5(torch, np, scatter) -> dict:
     return rec
 
 
+def _k6_reqs(np, n: int, tenants: int):
+    """benchmarks/engine_throughput.py's stream: seed 0, per request a tenant, then
+    int64 batch-1 preds and targets in {0, 1}, drawn in that order."""
+    rng = np.random.default_rng(0)
+    return [(f"tenant-{rng.integers(0, tenants)}", (rng.integers(0, 2, 1), rng.integers(0, 2, 1))) for _ in range(n)]
+
+
+def phase_k6(torch, np) -> dict:
+    """The JAX engine benchmark's headline configuration: ``BinaryAccuracy()`` with
+    its value checks on, buckets (64, 256), max_queue 2048, capacity 8; 8000 batch-1
+    requests over 8 tenants from 4 threads, beside 300 per-call forwards.
+    Then ``evict_tenant`` on the served engine: the tenant's slot is reused and its
+    replays start from a fresh state, with no new capture, while the other
+    tenants keep their states."""
+    from metrics_tpu_torch.classification import BinaryAccuracy
+
+    reqs = _k6_reqs(np, K1_REQUESTS, K_TENANTS)
+    naive = BinaryAccuracy(device="cuda")
+    stream = [tuple(torch.from_numpy(a).to("cuda") for a in args) for _, args in reqs[:K_NAIVE]]
+    naive(*stream[0])  # warm the eager forward
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for p, t in stream:
+        naive(p, t)
+    torch.cuda.synchronize()
+    naive_rps = K_NAIVE / (time.perf_counter() - t0)
+    rng = np.random.default_rng(13)
+    rec, engine, folds, rows = _k_serve(
+        torch, "K6", lambda: BinaryAccuracy(device="cuda"), reqs, K_BUCKETS,
+        lambda rows: (rng.integers(0, 2, rows), rng.integers(0, 2, rows)), (),
+        profile_reqs=_k6_reqs(np, K_PROFILED, K_TENANTS),
+    )
+    # the profiled window served the same tenants again: fold it too, so the
+    # other tenants can be checked after the eviction
+    fold = BinaryAccuracy(device="cuda")
+    for key, args in _k6_reqs(np, K_PROFILED, K_TENANTS):
+        folds[key] = fold.update_state(folds[key], *(torch.from_numpy(a).to("cuda") for a in args))
+        rows[key] += args[0].shape[0]
+    try:
+        _check(engine.evict_tenant("tenant-0") is True, "K6: evict_tenant('tenant-0') did not return True")
+        _check("tenant-0" not in engine.compute_all(), "K6: the evicted tenant is still read")
+        _check(engine.evict_tenant("tenant-0") is False, "K6: a second eviction of the same tenant returned True")
+        again = [("tenant-0", args) for _, args in _k6_reqs(np, 64, 1)]
+        compiles = engine.telemetry_snapshot()["compiles"]
+        _k_submit(engine, again, 1)
+        snap = engine.telemetry_snapshot()
+        _check(snap["compiles"] == compiles and snap["fused"] and snap["fused_fallbacks"] == 0,
+               f"K6: {snap['compiles'] - compiles} captures, fused {snap['fused']} after the eviction")
+        others = {key: fold for key, fold in folds.items() if key != "tenant-0"}
+        kept = _k_check_states(torch, engine, others, rows, "K6 another tenant after the eviction")
+        fresh, fresh_rows = _k_fold(torch, BinaryAccuracy(device="cuda"), again, "cuda")
+        _k_check_states(torch, engine, fresh, fresh_rows, "K6 after the eviction")
+        rec["eviction"] = {"evicted": "tenant-0", "resubmitted": len(again), "captures_after": snap["compiles"] - compiles,
+                           "tier_evictions": snap["tier_evictions"], "state_equals_fresh_tenant": True,
+                           "other_tenants_leaves_equal": kept}
+    finally:
+        engine.close()
+    # C.4 on the graphed updater: a label above C is dropped (as under jax.jit), not refused,
+    # on the call that captures the graph and on a replay alike
+    from metrics_tpu_torch.classification import MulticlassConfusionMatrix
+
+    cm = MulticlassConfusionMatrix(3, device="cuda")
+    updater, state = cm.jitted_update_state(donate=False), cm.init_state()
+    bad = [torch.tensor(v, dtype=torch.int32, device="cuda") for v in ([0, 1], [0, 3])]
+    for _ in range(2):
+        state = updater(state, *bad)
+    _check(state["confmat"].tolist() == [[2, 0, 0], [0, 0, 0], [0, 0, 0]],
+           f"K6 jitted_update_state on a label above C: {state['confmat'].tolist()}")
+    rec["naive_req_per_s"] = naive_rps
+    rec["speedup_vs_naive"] = rec["req_per_s"] / naive_rps
+    rec["jax_gate"] = 10.0  # benchmarks/engine_throughput.py's speedup_ge_10x, a record here (ROADMAP B.2 item 8)
+    for g in rec["graphs"]:
+        g["nodes_per_row"] = g["nodes"] / g["bucket"] if g["nodes"] is not None else None
+    print(f"phase K6 {json.dumps(rec)}")
+    return rec
+
+
 def phase_k(torch, scatter) -> dict:
-    """The port's StreamingEngine on the card (K1 to K5)."""
+    """The port's StreamingEngine on the card (K1 to K6)."""
     import numpy as np
 
     t0 = time.perf_counter()
     out = {"K1": phase_k1(torch, np), "K2": phase_k2(torch, np), "K3": phase_k3(torch, np),
-           "K4": phase_k4(torch, np), "K5": phase_k5(torch, np, scatter)}
+           "K4": phase_k4(torch, np), "K5": phase_k5(torch, np, scatter), "K6": phase_k6(torch, np)}
     out["seconds"] = time.perf_counter() - t0
     print(f"phase K: {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------- Phase L: binary, multilabel, MSE
+
+L_N = 10**6  # scores per update (benchmarks/classification_vs_reference.py's N)
+L_C = 100  # that benchmark's C: the multilabel shape is L_N // L_C samples x L_C labels
+L_FAMILY = {"StatScores": "stat_scores", "ConfusionMatrix": "confusion_matrix", "Accuracy": "accuracy",
+            "F1Score": "f1_score", "Precision": "precision", "Recall": "recall", "Specificity": "specificity"}
+L_TIMED = 10  # updates timed by CUDA events
+L_PROFILED = 20  # updates under the profiler
+
+
+def _l_batches(np):
+    """benchmarks/classification_vs_reference.py's binary scores (seed 0, drawn after
+    its two label arrays) and a second batch drawn after them."""
+    rng = np.random.default_rng(0)
+    rng.integers(0, L_C, L_N)
+    rng.integers(0, L_C, L_N)
+    return [(rng.random(L_N).astype(np.float32), rng.integers(0, 2, L_N).astype(np.int32)) for _ in range(2)]
+
+
+def _l_equal(torch, got, want, what: str, rtol: float = 1e-6) -> None:
+    """Integer results bit-identical with their dtype; float results within ``rtol``."""
+    got = got.cpu()
+    _check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: {got.dtype}{tuple(got.shape)} vs "
+           f"{want.dtype}{tuple(want.shape)}")
+    ok = torch.equal(got, want) if not want.is_floating_point() else torch.allclose(got, want, rtol=rtol, atol=0)
+    _check(ok, f"{what}: differs from the CPU recomputation")
+
+
+def _l_profile(torch, run, iters: int = L_PROFILED) -> dict:
+    """Device time, idle share and device kernels of one update, under the profiler (as Phase I)."""
+    kernels, wall_us = _profile_steps(torch, run, iters)
+    busy_us = sum(sum(v) for v in kernels.values())
+    return {
+        "device_busy_us_per_update": busy_us / iters,
+        "wall_us_per_update_under_profiler": wall_us / iters,
+        "idle_share": 1.0 - busy_us / wall_us if wall_us else None,
+        "launches_per_update": sum(len(v) for v in kernels.values()) / iters,
+        "top_kernels": [{"name": name[:70], "launches_per_update": len(v) / iters, "us_per_update": sum(v) / iters}
+                        for name, v in sorted(kernels.items(), key=lambda kv: -sum(kv[1]))[:4]],
+    }
+
+
+def _l_task(torch, task: str, batches, **kw) -> dict:
+    """The seven stat-score families of ``task`` through their class, their
+    task façade (``StatScores(task=...)``), their functional and their functional
+    façade on the card: int32 states and counts equal to the CPU's plain code,
+    values within rtol 1e-6; each class update timed and profiled."""
+    import metrics_tpu_torch.classification as cls
+    import metrics_tpu_torch.functional.classification as fc
+
+    dev_batches = [tuple(torch.from_numpy(a).to("cuda") for a in b) for b in batches]
+    cpu_batches = [tuple(torch.from_numpy(a) for a in b) for b in batches]
+    out = {}
+    for family, fn_name in L_FAMILY.items():
+        name = f"{task.capitalize()}{family}"
+        make = getattr(cls, name)
+        # each route beside its CPU twin: the façades' defaults (average="micro") are not the classes'
+        routes = {"class": lambda d: make(**kw, device=d),
+                  "facade": lambda d: getattr(cls, family)(task=task, **kw, device=d)}
+        compared = 0
+        for route, build in routes.items():
+            m, cpu = build("cuda"), build("cpu")
+            _check(type(m) is make, f"{name} ({route}) built {type(m).__name__}")
+            for b, c in zip(dev_batches, cpu_batches):
+                m.update(*b)
+                cpu.update(*c)
+            for key in cpu._defaults:
+                want = getattr(cpu, key)
+                _check(want.dtype == torch.int32, f"{name}.{key} is {want.dtype} on the CPU")
+                _l_equal(torch, getattr(m, key), want, f"{name} ({route}) state {key}")
+                compared += 1
+            _l_equal(torch, m.compute(), cpu.compute(), f"{name} ({route}) compute()")
+        fn, facade = getattr(fc, f"{task}_{fn_name}"), getattr(fc, fn_name)
+        _l_equal(torch, fn(*dev_batches[-1], **kw), fn(*cpu_batches[-1], **kw), f"{task}_{fn_name}")
+        _l_equal(torch, facade(*dev_batches[-1], task=task, **kw), facade(*cpu_batches[-1], task=task, **kw),
+                 f"{fn_name}(task={task!r})")
+        rec = {"states_equal": compared, "routes": ["class", "facade", "functional", "functional_facade"]}
+        m, unchecked = make(**kw, device="cuda"), make(**kw, device="cuda", validate_args=False)
+        rec["ms_per_update"] = _time_ms(lambda: m.update(*dev_batches[0]), L_TIMED, warmup=2)
+        rec["ms_per_update_unvalidated"] = _time_ms(lambda: unchecked.update(*dev_batches[0]), L_TIMED, warmup=2)
+        rec.update(_l_profile(torch, lambda: m.update(*dev_batches[0])))
+        out[name] = rec
+        print(f"phase L {name} {json.dumps(rec)}")
+    return out
+
+
+def _l_mse(torch, np) -> dict:
+    """benchmarks/regression_vs_reference.py's pairs through ``MeanSquaredError``:
+    the float32 sum within rtol 1e-5 of a float64 sum on the CPU and of the
+    port's plain code on the CPU, the count exact."""
+    from metrics_tpu_torch.functional import mean_squared_error
+    from metrics_tpu_torch.regression import MeanSquaredError
+
+    rng = np.random.default_rng(0)
+    p = rng.normal(size=L_N).astype(np.float32)
+    t = (0.8 * p + 0.2 * rng.normal(size=L_N)).astype(np.float32)
+    dp, dt = torch.from_numpy(p).to("cuda"), torch.from_numpy(t).to("cuda")
+    rtol = 1e-5  # float32 sums of 10^6 squares in the card's order against float64 and the CPU's order
+    m, cpu = MeanSquaredError(device="cuda"), MeanSquaredError(device="cpu")
+    for _ in range(2):
+        m.update(dp, dt)
+        cpu.update(torch.from_numpy(p), torch.from_numpy(t))
+    want64 = 2 * float(np.sum((p.astype(np.float64) - t.astype(np.float64)) ** 2))
+    got = m.sum_squared_error.cpu()
+    _check(got.dtype == torch.float32 and m.total.dtype == torch.float32, "MeanSquaredError states are not float32")
+    _check(abs(float(got) - want64) <= rtol * want64, f"MSE sum {float(got)} vs float64 {want64}")
+    _l_equal(torch, got, cpu.sum_squared_error, "MSE sum_squared_error", rtol)
+    _check(float(m.total) == 2 * L_N, f"MSE total {float(m.total)}")
+    _l_equal(torch, m.compute(), cpu.compute(), "MSE compute()", rtol)
+    _l_equal(torch, mean_squared_error(dp, dt), mean_squared_error(torch.from_numpy(p), torch.from_numpy(t)),
+             "mean_squared_error", rtol)
+    rec = {"n": L_N, "sum_squared_error": float(got), "float64_sum": want64, "rtol": rtol}
+    one = MeanSquaredError(device="cuda")
+    rec["ms_per_update"] = _time_ms(lambda: one.update(dp, dt), L_TIMED, warmup=2)
+    rec.update(_l_profile(torch, lambda: one.update(dp, dt)))
+    print(f"phase L MeanSquaredError {json.dumps(rec)}")
+    return rec
+
+
+def phase_l(torch, np) -> dict:
+    """The binary and multilabel stat-score families and MeanSquaredError at the JAX
+    benchmarks' sizes: plain torch code, no hand kernel."""
+    t0 = time.perf_counter()
+    batches = _l_batches(np)
+    out = {"binary": _l_task(torch, "binary", batches)}
+    shaped = [tuple(a.reshape(L_N // L_C, L_C) for a in b) for b in batches]
+    out["multilabel"] = _l_task(torch, "multilabel", shaped, num_labels=L_C)
+    out["MeanSquaredError"] = _l_mse(torch, np)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase L: {out['seconds']:.1f} s")
     return out
 
 
@@ -2414,6 +2648,9 @@ def main() -> int:
     six = phase_j2(torch, obs, instrument)
     phase_j3(torch)
     engine = phase_k(torch, scatter)
+    import numpy as np
+
+    classification_l = phase_l(torch, np)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -2487,7 +2724,7 @@ def main() -> int:
                    for key in (f"T{CURVE_T}_C1", "T1024_C1", f"T{CURVE_T}_C{CURVE_COLS}")],
     })
     print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six,
-                      "engine": engine, "card": card}))
+                      "engine": engine, "binary_multilabel_mse": classification_l, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -15,28 +15,65 @@ __version__ = "0.1.0"
 
 from metrics_tpu_torch import functional
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
-from metrics_tpu_torch.classification import AUROC, ROC, AveragePrecision, PrecisionRecallCurve
+from metrics_tpu_torch.classification import (
+    AUROC,
+    ROC,
+    Accuracy,
+    AveragePrecision,
+    ConfusionMatrix,
+    F1Score,
+    FBetaScore,
+    Precision,
+    PrecisionRecallCurve,
+    Recall,
+    Specificity,
+    StatScores,
+)
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.regression import (
+    LogCoshError,
+    MeanAbsoluteError,
+    MeanAbsolutePercentageError,
+    MeanSquaredError,
+    MeanSquaredLogError,
+    SymmetricMeanAbsolutePercentageError,
+    WeightedMeanAbsolutePercentageError,
+)
 from metrics_tpu_torch.sketch import CardinalitySketch, HeavyHittersSketch, QuantileSketch
 from metrics_tpu_torch import engine  # noqa: E402  (serving runtime; not in __all__, as in the JAX package)
 
 # the names of ``metrics_tpu.__all__`` that the port has so far
 __all__ = [
     "functional",
+    "Accuracy",
     "AUROC",
     "AveragePrecision",
     "CardinalitySketch",
     "CatMetric",
     "CompositionalMetric",
+    "ConfusionMatrix",
+    "F1Score",
+    "FBetaScore",
     "HeavyHittersSketch",
+    "LogCoshError",
     "MaxMetric",
+    "MeanAbsoluteError",
+    "MeanAbsolutePercentageError",
     "MeanMetric",
+    "MeanSquaredError",
+    "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
     "MinMetric",
+    "Precision",
     "PrecisionRecallCurve",
     "QuantileSketch",
+    "Recall",
     "ROC",
+    "Specificity",
+    "StatScores",
     "SumMetric",
+    "SymmetricMeanAbsolutePercentageError",
+    "WeightedMeanAbsolutePercentageError",
 ]

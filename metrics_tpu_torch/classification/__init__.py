@@ -1,7 +1,8 @@
 """Classification module metrics (port of ``metrics_tpu/classification``): the
-multiclass stat-score metrics and the curve family."""
+stat-score family (binary, multiclass, multilabel and the task façades) and
+the curve family."""
 
-from metrics_tpu_torch.classification.accuracy import MulticlassAccuracy
+from metrics_tpu_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy
 from metrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
 from metrics_tpu_torch.classification.average_precision import (
     AveragePrecision,
@@ -9,9 +10,32 @@ from metrics_tpu_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
-from metrics_tpu_torch.classification.confusion_matrix import MulticlassConfusionMatrix
-from metrics_tpu_torch.classification.f_beta import MulticlassF1Score, MulticlassFBetaScore
-from metrics_tpu_torch.classification.precision_recall import MulticlassPrecision, MulticlassRecall
+from metrics_tpu_torch.classification.confusion_matrix import (
+    BinaryConfusionMatrix,
+    ConfusionMatrix,
+    MulticlassConfusionMatrix,
+    MultilabelConfusionMatrix,
+)
+from metrics_tpu_torch.classification.f_beta import (
+    BinaryF1Score,
+    BinaryFBetaScore,
+    F1Score,
+    FBetaScore,
+    MulticlassF1Score,
+    MulticlassFBetaScore,
+    MultilabelF1Score,
+    MultilabelFBetaScore,
+)
+from metrics_tpu_torch.classification.precision_recall import (
+    BinaryPrecision,
+    BinaryRecall,
+    MulticlassPrecision,
+    MulticlassRecall,
+    MultilabelPrecision,
+    MultilabelRecall,
+    Precision,
+    Recall,
+)
 from metrics_tpu_torch.classification.precision_recall_curve import (
     BinaryPrecisionRecallCurve,
     MulticlassPrecisionRecallCurve,
@@ -31,18 +55,40 @@ from metrics_tpu_torch.classification.specificity_at_sensitivity import (
     MultilabelSpecificityAtSensitivity,
     SpecificityAtSensitivity,
 )
-from metrics_tpu_torch.classification.specificity import MulticlassSpecificity
-from metrics_tpu_torch.classification.stat_scores import MulticlassStatScores
+from metrics_tpu_torch.classification.specificity import (
+    BinarySpecificity,
+    MulticlassSpecificity,
+    MultilabelSpecificity,
+    Specificity,
+)
+from metrics_tpu_torch.classification.stat_scores import (
+    BinaryStatScores,
+    MulticlassStatScores,
+    MultilabelStatScores,
+    StatScores,
+)
 
 __all__ = [
+    "Accuracy",
     "AUROC",
     "AveragePrecision",
+    "BinaryAccuracy",
     "BinaryAUROC",
     "BinaryAveragePrecision",
+    "BinaryConfusionMatrix",
+    "BinaryF1Score",
+    "BinaryFBetaScore",
+    "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
+    "BinaryRecall",
     "BinaryRecallAtFixedPrecision",
     "BinaryROC",
+    "BinarySpecificity",
     "BinarySpecificityAtSensitivity",
+    "BinaryStatScores",
+    "ConfusionMatrix",
+    "F1Score",
+    "FBetaScore",
     "MulticlassAccuracy",
     "MulticlassAUROC",
     "MulticlassAveragePrecision",
@@ -57,14 +103,26 @@ __all__ = [
     "MulticlassSpecificity",
     "MulticlassSpecificityAtSensitivity",
     "MulticlassStatScores",
+    "MultilabelAccuracy",
     "MultilabelAUROC",
     "MultilabelAveragePrecision",
+    "MultilabelConfusionMatrix",
+    "MultilabelF1Score",
+    "MultilabelFBetaScore",
+    "MultilabelPrecision",
     "MultilabelPrecisionRecallCurve",
+    "MultilabelRecall",
     "MultilabelRecallAtFixedPrecision",
     "MultilabelROC",
+    "MultilabelSpecificity",
     "MultilabelSpecificityAtSensitivity",
+    "MultilabelStatScores",
+    "Precision",
     "PrecisionRecallCurve",
+    "Recall",
     "RecallAtFixedPrecision",
     "ROC",
+    "Specificity",
     "SpecificityAtSensitivity",
+    "StatScores",
 ]

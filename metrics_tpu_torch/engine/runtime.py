@@ -45,7 +45,8 @@ reader ever races a replay.
 
 Not ported yet: the durable state plane (``checkpoint=``, ROADMAP A.6); the guard,
 replication and tier planes (``guard=``, ``replication=``, ``tier=``, A.7), and with
-them trace contexts, the flight recorder and dispatcher restarts; ``compute(sync=True)``
+them trace contexts, the flight recorder, dispatcher restarts, ``export_tenant`` and
+``import_tenant``; ``compute(sync=True)``
 (A.8); ``rollup`` (A.9). Each raises ``NotImplementedError`` naming its item. Reads
 compute eagerly from a copy of the tenant's state (the JAX package's jitted read path
 is not captured yet, so ``read_jit_fallbacks`` stays 0).
@@ -80,6 +81,7 @@ from metrics_tpu_torch.engine.telemetry import EngineTelemetry
 from metrics_tpu_torch.kernels import launch_counts
 from metrics_tpu_torch.kernels.engine_scan import masked_scan_update
 from metrics_tpu_torch.metric import Metric
+from metrics_tpu_torch.utils.checks import traced
 from metrics_tpu_torch.utils.device import resolve_device
 from metrics_tpu_torch.utils.graphs import capture
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
@@ -130,7 +132,8 @@ def _component_metrics(metric: Any) -> List[Metric]:
 class _LoopKernel:
     """One micro-batch kernel on the CPU: the masked scan as a plain loop over a
     copy of the slab, committed in place when every row succeeded (a failing row
-    leaves the slab as it was, as a failed JAX trace does)."""
+    leaves the slab as it was, as a failed JAX trace does). The loop stands for
+    the JAX package's traced scan, so it skips value checks as a trace does."""
 
     def __init__(self, update_state: Callable) -> None:
         self._update_state = update_state
@@ -139,7 +142,8 @@ class _LoopKernel:
                  columns: Sequence[torch.Tensor]) -> None:
         work = _clone_tree(keyed.stacked)
         try:
-            masked_scan_update(self._update_state, work, key_ids, mask, columns)
+            with traced():
+                masked_scan_update(self._update_state, work, key_ids, mask, columns)
         except Exception as exc:  # noqa: BLE001 — routed to the eager retry (see _process)
             raise _FusedUnsupported(repr(exc)) from exc
         keyed.commit(work)
@@ -156,7 +160,10 @@ class _GraphKernel:
     capture), then the scan is captured on the slab itself into the engine's
     shared graph pool and replayed. Later calls copy the inputs into the static
     buffers and replay. An error in the warm-up or the capture raises
-    :class:`_FusedUnsupported`.
+    :class:`_FusedUnsupported`. The warm-up and the capture run
+    :func:`~metrics_tpu_torch.utils.checks.traced`: the warm-up skips the value
+    checks that the replays skip, so a request is judged the same before its
+    graph exists and after.
 
     The wrappers' launch counters advance once while the graph is captured and
     never at a replay: ``captured`` holds that advance by kernel name, and
@@ -191,17 +198,19 @@ class _GraphKernel:
         kids, msk, *cols = self._static
         device = kids.device
         try:
-            t0 = time.perf_counter()
-            masked_scan_update(self._update_state, _clone_tree(keyed.stacked), kids, msk, cols)
-            self._stream.synchronize()
-            t1 = time.perf_counter()
-            torch.cuda.empty_cache()  # as the capture's own start does, so the baseline is the capture's
-            reserved = torch.cuda.memory_reserved(device)
-            before = launch_counts()
-            graph, _ = capture(
-                lambda: masked_scan_update(self._update_state, keyed.stacked, kids, msk, cols), self._stream, self._pool
-            )
-            t2 = time.perf_counter()
+            with traced():
+                t0 = time.perf_counter()
+                masked_scan_update(self._update_state, _clone_tree(keyed.stacked), kids, msk, cols)
+                self._stream.synchronize()
+                t1 = time.perf_counter()
+                torch.cuda.empty_cache()  # as the capture's own start does, so the baseline is the capture's
+                reserved = torch.cuda.memory_reserved(device)
+                before = launch_counts()
+                graph, _ = capture(
+                    lambda: masked_scan_update(self._update_state, keyed.stacked, kids, msk, cols), self._stream,
+                    self._pool,
+                )
+                t2 = time.perf_counter()
         except Exception as exc:  # noqa: BLE001 — a host read, an illegal op in capture, a bad request
             raise _FusedUnsupported(repr(exc)) from exc
         self.captured = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
@@ -497,6 +506,38 @@ class StreamingEngine:
                 if deadline is not None and time.monotonic() >= deadline:
                     raise TimeoutError(f"drain_tenant({key!r}) timed out")
                 self._idle.wait(0.05)
+
+    def evict_tenant(self, key: Hashable) -> bool:
+        """Forget ``key`` entirely: its state and its window history. Returns
+        False for an unknown key.
+
+        Waits out only this key's accepted requests (not the whole engine), then,
+        under the dispatch lock, scrubs the tenant's rows to their initial values
+        and returns its slot to the free list, where the next new tenant takes it.
+        Works on untiered engines too. The slab is written in place, so the
+        captured graphs stay valid. (The JAX package journals the retirement
+        first; that record comes with the durable state plane, ROADMAP A.6, and
+        the tier bookkeeping with the tier plane, A.7.)
+        """
+        self.drain_tenant(key)
+        with self._dispatch_lock, self._on_stream():
+            if not self._is_resident(key):
+                return False
+            keyed = self._keyed
+            keyed.release_slot(keyed.evict(key))
+            self._sync()
+        self.telemetry.count("tier_evictions")
+        return True
+
+    def export_tenant(self, key: Hashable, *, retire: bool = True) -> Optional[Dict[str, Any]]:
+        """Capture one tenant's full entry for a move to another engine; waits for the tier plane."""
+        raise NotImplementedError("export_tenant() captures a residency entry through the tier plane, "
+                                  "which is not ported yet (ROADMAP A.7)")
+
+    def import_tenant(self, key: Hashable, entry: Optional[Dict[str, Any]]) -> None:
+        """Install a tenant exported by another engine; waits for the tier plane."""
+        raise NotImplementedError("import_tenant() installs a residency entry through the tier plane, "
+                                  "which is not ported yet (ROADMAP A.7)")
 
     def _read_states(self, keys: Optional[Sequence[Hashable]], window: bool) -> Dict[Hashable, Any]:
         """Copies of the tenants' states, taken under the dispatch lock on the

@@ -1,7 +1,13 @@
 """Classification functionals (port of ``metrics_tpu/functional/classification``):
-the multiclass stat-score metrics and the curve family."""
+the stat-score family (binary, multiclass, multilabel and the task façades)
+and the curve family."""
 
-from metrics_tpu_torch.functional.classification.accuracy import multiclass_accuracy
+from metrics_tpu_torch.functional.classification.accuracy import (
+    accuracy,
+    binary_accuracy,
+    multiclass_accuracy,
+    multilabel_accuracy,
+)
 from metrics_tpu_torch.functional.classification.auroc import auroc, binary_auroc, multiclass_auroc, multilabel_auroc
 from metrics_tpu_torch.functional.classification.average_precision import (
     average_precision,
@@ -9,9 +15,32 @@ from metrics_tpu_torch.functional.classification.average_precision import (
     multiclass_average_precision,
     multilabel_average_precision,
 )
-from metrics_tpu_torch.functional.classification.confusion_matrix import multiclass_confusion_matrix
-from metrics_tpu_torch.functional.classification.f_beta import multiclass_f1_score, multiclass_fbeta_score
-from metrics_tpu_torch.functional.classification.precision_recall import multiclass_precision, multiclass_recall
+from metrics_tpu_torch.functional.classification.confusion_matrix import (
+    binary_confusion_matrix,
+    confusion_matrix,
+    multiclass_confusion_matrix,
+    multilabel_confusion_matrix,
+)
+from metrics_tpu_torch.functional.classification.f_beta import (
+    binary_f1_score,
+    binary_fbeta_score,
+    f1_score,
+    fbeta_score,
+    multiclass_f1_score,
+    multiclass_fbeta_score,
+    multilabel_f1_score,
+    multilabel_fbeta_score,
+)
+from metrics_tpu_torch.functional.classification.precision_recall import (
+    binary_precision,
+    binary_recall,
+    multiclass_precision,
+    multiclass_recall,
+    multilabel_precision,
+    multilabel_recall,
+    precision,
+    recall,
+)
 from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     binary_precision_recall_curve,
     multiclass_precision_recall_curve,
@@ -24,23 +53,45 @@ from metrics_tpu_torch.functional.classification.recall_at_fixed_precision impor
     multilabel_recall_at_fixed_precision,
 )
 from metrics_tpu_torch.functional.classification.roc import binary_roc, multiclass_roc, multilabel_roc, roc
-from metrics_tpu_torch.functional.classification.specificity import multiclass_specificity
+from metrics_tpu_torch.functional.classification.specificity import (
+    binary_specificity,
+    multiclass_specificity,
+    multilabel_specificity,
+    specificity,
+)
 from metrics_tpu_torch.functional.classification.specificity_at_sensitivity import (
     binary_specificity_at_sensitivity,
     multiclass_specificity_at_sensitivity,
     multilabel_specificity_at_sensitivity,
 )
-from metrics_tpu_torch.functional.classification.stat_scores import multiclass_stat_scores
+from metrics_tpu_torch.functional.classification.stat_scores import (
+    binary_stat_scores,
+    multiclass_stat_scores,
+    multilabel_stat_scores,
+    stat_scores,
+)
 
 __all__ = [
+    "accuracy",
     "auroc",
     "average_precision",
+    "binary_accuracy",
     "binary_auroc",
     "binary_average_precision",
+    "binary_confusion_matrix",
+    "binary_f1_score",
+    "binary_fbeta_score",
+    "binary_precision",
     "binary_precision_recall_curve",
+    "binary_recall",
     "binary_recall_at_fixed_precision",
     "binary_roc",
+    "binary_specificity",
     "binary_specificity_at_sensitivity",
+    "binary_stat_scores",
+    "confusion_matrix",
+    "f1_score",
+    "fbeta_score",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
@@ -55,12 +106,24 @@ __all__ = [
     "multiclass_specificity",
     "multiclass_specificity_at_sensitivity",
     "multiclass_stat_scores",
+    "multilabel_accuracy",
     "multilabel_auroc",
     "multilabel_average_precision",
+    "multilabel_confusion_matrix",
+    "multilabel_f1_score",
+    "multilabel_fbeta_score",
+    "multilabel_precision",
     "multilabel_precision_recall_curve",
+    "multilabel_recall",
     "multilabel_recall_at_fixed_precision",
     "multilabel_roc",
+    "multilabel_specificity",
     "multilabel_specificity_at_sensitivity",
+    "multilabel_stat_scores",
+    "precision",
     "precision_recall_curve",
+    "recall",
     "roc",
+    "specificity",
+    "stat_scores",
 ]

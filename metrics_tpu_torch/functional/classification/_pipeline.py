@@ -1,6 +1,5 @@
 """Shared stat-scores pipeline (validate, format, update) used by the derived
-classification metrics (port of ``metrics_tpu/functional/classification/_pipeline.py``,
-multiclass part)."""
+classification metrics (port of ``metrics_tpu/functional/classification/_pipeline.py``)."""
 
 from __future__ import annotations
 
@@ -9,13 +8,36 @@ from typing import Optional, Tuple
 from torch import Tensor
 
 from metrics_tpu_torch.functional.classification.stat_scores import (
+    _binary_stat_scores_arg_validation,
+    _binary_stat_scores_format,
+    _binary_stat_scores_tensor_validation,
+    _binary_stat_scores_update,
     _multiclass_stat_scores_arg_validation,
     _multiclass_stat_scores_format,
     _multiclass_stat_scores_tensor_validation,
     _multiclass_stat_scores_update,
+    _multilabel_stat_scores_arg_validation,
+    _multilabel_stat_scores_format,
+    _multilabel_stat_scores_tensor_validation,
+    _multilabel_stat_scores_update,
 )
 
 StatScores = Tuple[Tensor, Tensor, Tensor, Tensor]
+
+
+def binary_pipeline(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> StatScores:
+    if validate_args:
+        _binary_stat_scores_arg_validation(threshold, multidim_average, ignore_index)
+        _binary_stat_scores_tensor_validation(preds, target, multidim_average, ignore_index)
+    preds, target, mask = _binary_stat_scores_format(preds, target, threshold, ignore_index)
+    return _binary_stat_scores_update(preds, target, mask, multidim_average)
 
 
 def multiclass_pipeline(
@@ -33,3 +55,20 @@ def multiclass_pipeline(
         _multiclass_stat_scores_tensor_validation(preds, target, num_classes, multidim_average, ignore_index)
     preds, target = _multiclass_stat_scores_format(preds, target, top_k)
     return _multiclass_stat_scores_update(preds, target, num_classes, top_k, average, multidim_average, ignore_index)
+
+
+def multilabel_pipeline(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> StatScores:
+    if validate_args:
+        _multilabel_stat_scores_arg_validation(num_labels, threshold, average, multidim_average, ignore_index)
+        _multilabel_stat_scores_tensor_validation(preds, target, num_labels, multidim_average, ignore_index)
+    preds, target, mask = _multilabel_stat_scores_format(preds, target, num_labels, threshold, ignore_index)
+    return _multilabel_stat_scores_update(preds, target, mask, multidim_average)

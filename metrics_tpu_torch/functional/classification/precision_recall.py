@@ -1,4 +1,5 @@
-"""Precision / recall functionals, multiclass part
+"""Precision / recall functionals: binary, multiclass and multilabel, and the
+``precision`` and ``recall`` task façades
 (port of ``metrics_tpu/functional/classification/precision_recall.py``)."""
 
 from __future__ import annotations
@@ -7,7 +8,12 @@ from typing import Optional
 
 from torch import Tensor
 
-from metrics_tpu_torch.functional.classification._pipeline import multiclass_pipeline
+from metrics_tpu_torch.functional.classification._pipeline import (
+    binary_pipeline,
+    multiclass_pipeline,
+    multilabel_pipeline,
+)
+from metrics_tpu_torch.functional.classification.stat_scores import _task_error
 from metrics_tpu_torch.utils.compute import _adjust_weights_safe_divide, _safe_divide
 
 
@@ -19,9 +25,10 @@ def _precision_recall_reduce(
     fn: Tensor,
     average: Optional[str],
     multidim_average: str = "global",
+    multilabel: bool = False,
 ) -> Tensor:
-    """Precision ``tp / (tp + fp)`` or recall ``tp / (tp + fn)`` from per-class
-    counts (the multilabel flag of the JAX reduce comes with that task)."""
+    """Precision ``tp / (tp + fp)`` or recall ``tp / (tp + fn)`` from the counts
+    (``multilabel`` changes nothing here; it is kept for the JAX package's signature)."""
     different_stat = fp if stat == "precision" else fn
     if average == "binary":
         return _safe_divide(tp, tp + different_stat)
@@ -32,6 +39,18 @@ def _precision_recall_reduce(
         return _safe_divide(tp, tp + different_stat)
     score = _safe_divide(tp, tp + different_stat)
     return _adjust_weights_safe_divide(score, average, tp, fn)
+
+
+def binary_precision(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    tp, fp, tn, fn = binary_pipeline(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    return _precision_recall_reduce("precision", tp, fp, tn, fn, average="binary", multidim_average=multidim_average)
 
 
 def multiclass_precision(
@@ -50,6 +69,36 @@ def multiclass_precision(
     return _precision_recall_reduce("precision", tp, fp, tn, fn, average=average, multidim_average=multidim_average)
 
 
+def multilabel_precision(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    tp, fp, tn, fn = multilabel_pipeline(
+        preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+    )
+    return _precision_recall_reduce(
+        "precision", tp, fp, tn, fn, average=average, multidim_average=multidim_average, multilabel=True
+    )
+
+
+def binary_recall(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    tp, fp, tn, fn = binary_pipeline(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    return _precision_recall_reduce("recall", tp, fp, tn, fn, average="binary", multidim_average=multidim_average)
+
+
 def multiclass_recall(
     preds: Tensor,
     target: Tensor,
@@ -64,3 +113,91 @@ def multiclass_recall(
         preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
     )
     return _precision_recall_reduce("recall", tp, fp, tn, fn, average=average, multidim_average=multidim_average)
+
+
+def multilabel_recall(
+    preds: Tensor,
+    target: Tensor,
+    num_labels: int,
+    threshold: float = 0.5,
+    average: Optional[str] = "macro",
+    multidim_average: str = "global",
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    tp, fp, tn, fn = multilabel_pipeline(
+        preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+    )
+    return _precision_recall_reduce(
+        "recall", tp, fp, tn, fn, average=average, multidim_average=multidim_average, multilabel=True
+    )
+
+
+def precision(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    threshold: float = 0.5,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+    top_k: int = 1,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Task-dispatch façade over the binary, multiclass and multilabel precision.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.functional import precision
+        >>> precision(torch.tensor([0, 2, 1, 2]), torch.tensor([0, 1, 1, 2]), task="multiclass", num_classes=3)
+        tensor(0.7500)
+    """
+    task = str(task).lower()
+    if task == "binary":
+        return binary_precision(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    if task == "multiclass":
+        return multiclass_precision(
+            preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
+        )
+    if task == "multilabel":
+        return multilabel_precision(
+            preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+        )
+    raise _task_error(task)
+
+
+def recall(
+    preds: Tensor,
+    target: Tensor,
+    task: str,
+    threshold: float = 0.5,
+    num_classes: Optional[int] = None,
+    num_labels: Optional[int] = None,
+    average: Optional[str] = "micro",
+    multidim_average: str = "global",
+    top_k: int = 1,
+    ignore_index: Optional[int] = None,
+    validate_args: bool = True,
+) -> Tensor:
+    """Task-dispatch façade over the binary, multiclass and multilabel recall.
+
+    Example:
+        >>> import torch
+        >>> from metrics_tpu_torch.functional import recall
+        >>> recall(torch.tensor([0, 2, 1, 2]), torch.tensor([0, 1, 1, 2]), task="multiclass", num_classes=3)
+        tensor(0.7500)
+    """
+    task = str(task).lower()
+    if task == "binary":
+        return binary_recall(preds, target, threshold, multidim_average, ignore_index, validate_args)
+    if task == "multiclass":
+        return multiclass_recall(
+            preds, target, num_classes, average, top_k, multidim_average, ignore_index, validate_args
+        )
+    if task == "multilabel":
+        return multilabel_recall(
+            preds, target, num_labels, threshold, average, multidim_average, ignore_index, validate_args
+        )
+    raise _task_error(task)

@@ -48,6 +48,7 @@ from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from metrics_tpu_torch.obs import instrument as _obs
 from metrics_tpu_torch.obs.registry import OBS as _OBS
+from metrics_tpu_torch.utils.checks import traced
 from metrics_tpu_torch.utils.data import (
     _flatten,
     _squeeze_if_scalar,
@@ -113,6 +114,12 @@ class _GraphedUpdater:
     the result is the graph's own output buffers, valid until the next call of
     the same shapes (the caller hands the state back in, as with a donated JAX
     buffer); without it, copies of them. A capture that fails raises.
+
+    Every run stands for the JAX package's traced updater, so each (the CPU
+    path, the warm-up and the capture) runs
+    :func:`~metrics_tpu_torch.utils.checks.traced`: value checks are skipped,
+    as a trace skips them, and a call is judged the same on the CPU and on the
+    card, before its graph exists and after.
     """
 
     def __init__(self, obj: Any, donate: bool) -> None:
@@ -123,7 +130,8 @@ class _GraphedUpdater:
     def __call__(self, state: Any, *args: Any, **kwargs: Any) -> Any:
         leaves, spec = tree_flatten((state, args, kwargs))
         if not any(isinstance(x, Tensor) and x.is_cuda for x in leaves):
-            return self._obj.update_state(state, *args, **kwargs)
+            with traced():
+                return self._obj.update_state(state, *args, **kwargs)
         key = (spec, tuple((tuple(x.shape), x.dtype, x.device) if isinstance(x, Tensor) else x for x in leaves))
         entry = self._graphs.get(key)
         if entry is None:
@@ -146,10 +154,11 @@ class _GraphedUpdater:
         device = next(x.device for x in static_in if isinstance(x, Tensor) and x.is_cuda)
         stream = torch.cuda.Stream(device)
         stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            run()  # warm-up: kernels built, allocator settled
-        torch.cuda.current_stream(device).wait_stream(stream)
-        graph, static_out = capture(run, stream)
+        with traced():
+            with torch.cuda.stream(stream):
+                run()  # warm-up: kernels built, allocator settled
+            torch.cuda.current_stream(device).wait_stream(stream)
+            graph, static_out = capture(run, stream)
         return graph, static_in, static_out
 
 

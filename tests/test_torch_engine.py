@@ -6,10 +6,10 @@ Every parity test feeds the same numpy-seeded requests to ``metrics_tpu.engine``
 (``device="cpu"``), then compares every tenant's state leaf by leaf: integer
 states bit for bit with their dtype (int32 counts stay int32), float states
 within rtol 1e-6 (float32 sums that the two frameworks may add in other orders,
-as ``tests/test_torch_aggregation.py`` allows). ``BinaryAccuracy``,
-``BinaryF1Score`` and ``MeanSquaredError`` of the JAX engine tests are not ported
-yet; ``MulticlassAccuracy``, the flagship collection at C = 10, the three
-sketches, ``MeanMetric`` and the binned ``BinaryAUROC`` take their place.
+as ``tests/test_torch_aggregation.py`` allows). The families served are the JAX
+engine tests' ``BinaryAccuracy``, ``BinaryF1Score`` and ``MeanSquaredError``,
+and ``MulticlassAccuracy``, the flagship collection at C = 10, the three
+sketches, ``MeanMetric`` and the binned ``BinaryAUROC``.
 
 On the CPU the port's micro-batch kernel is the masked scan as a plain loop
 (there is nothing to capture), so a metric that the JAX engine cannot trace
@@ -89,6 +89,11 @@ FAMILIES = {
     "mean": (lambda: jm.MeanMetric(), lambda: tm.MeanMetric(**CPU),
              lambda rng, r: (rng.random(r).astype(np.float32),)),
     "auroc": (lambda: jcls.BinaryAUROC(thresholds=20), lambda: tcls.BinaryAUROC(thresholds=20, **CPU), _scores),
+    "binary_accuracy": (lambda: jcls.BinaryAccuracy(), lambda: tcls.BinaryAccuracy(**CPU),
+                        lambda rng, r: (rng.integers(0, 2, r), rng.integers(0, 2, r))),
+    "binary_f1": (lambda: jcls.BinaryF1Score(), lambda: tcls.BinaryF1Score(**CPU), _scores),
+    "mse": (lambda: jm.MeanSquaredError(), lambda: tm.MeanSquaredError(**CPU),
+            lambda rng, r: (rng.normal(size=r).astype(np.float32), rng.normal(size=r).astype(np.float32))),
 }
 
 
@@ -668,6 +673,113 @@ def test_drain_tenant_waits_for_its_requests_only():
         engine.close()
 
 
+# --------------------------------------------------------------------------- value checks under the trace (C.4)
+
+# name -> (JAX metric, port metric, requests that only a value check rejects)
+_UNCHECKED = {
+    "confmat_label_above_C": (lambda: jcls.MulticlassConfusionMatrix(3),
+                              lambda: tcls.MulticlassConfusionMatrix(3, **CPU),
+                              [(np.array([0, 1], np.int32), np.array([0, 3], np.int32))]),
+    "accuracy_label_above_C": (lambda: jcls.MulticlassAccuracy(3, average="micro"),
+                               lambda: tcls.MulticlassAccuracy(3, average="micro", **CPU),
+                               [(np.array([0, 1], np.int32), np.array([0, 3], np.int32))]),
+    "mean_nan_warn": (lambda: jm.MeanMetric(), lambda: tm.MeanMetric(**CPU),
+                      [(np.array([1.0, np.nan], np.float32),), (np.array([2.0], np.float32),)]),
+    "mean_nan_error": (lambda: jm.MeanMetric(nan_strategy="error"), lambda: tm.MeanMetric(nan_strategy="error", **CPU),
+                       [(np.array([1.0, np.nan], np.float32),), (np.array([2.0], np.float32),)]),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_UNCHECKED))
+def test_micro_batch_skips_value_checks_as_the_jax_trace_does(case):
+    """The JAX engine traces its micro-batch, so no value check runs there: a label
+    above ``num_classes`` is dropped from the counts and a NaN enters the mean.
+    The port's loop kernel runs ``traced()`` and does the same, with no failed
+    receipt; states and values equal the JAX engine's (NaN where JAX has NaN)."""
+    make_jax, make_port, reqs = _UNCHECKED[case]
+    stream = [("k", args) for args in reqs]
+    ref, port = JaxEngine(make_jax(), buckets=(4,)), StreamingEngine(make_port(), buckets=(4,))
+    try:
+        run_stream(ref, stream)
+        run_stream(port, stream)
+        for engine in (ref, port):
+            snap = engine.telemetry_snapshot()
+            assert engine.fused and snap["failed"] == 0 and snap["fused_fallbacks"] == 0
+        assert_engines_match(port, ref)
+        got, want = port.compute("k"), ref.compute("k")
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    finally:
+        port.close()
+        ref.close()
+
+
+def test_jitted_update_state_skips_value_checks_as_jax_jit_does():
+    """``jitted_update_state`` is ``jax.jit`` in the JAX package: a label above
+    ``num_classes`` is dropped, not refused. The port's updater on CPU tensors
+    runs ``traced()`` and returns the same table; eager ``update`` and
+    ``update_state`` keep the check and raise the JAX type."""
+    preds, target = np.array([0, 1], np.int32), np.array([0, 3], np.int32)
+    jmetric, tmetric = jcls.MulticlassConfusionMatrix(3), tcls.MulticlassConfusionMatrix(3, **CPU)
+    want = jmetric.jitted_update_state()(jmetric.init_state(), preds, target)
+    got = tmetric.jitted_update_state()(tmetric.init_state(), torch.from_numpy(preds), torch.from_numpy(target))
+    assert_trees_match(got, want)
+    assert got["confmat"].tolist() == [[1, 0, 0], [0, 0, 0], [0, 0, 0]]
+    for update in (jmetric.update, lambda p, t: jmetric.update_state(jmetric.init_state(), p, t)):
+        with pytest.raises(RuntimeError, match="more unique values"):
+            update(preds, target)
+    for update in (tmetric.update, lambda p, t: tmetric.update_state(tmetric.init_state(), p, t)):
+        with pytest.raises(RuntimeError, match="more unique values"):
+            update(torch.from_numpy(preds), torch.from_numpy(target))
+
+
+def test_traced_flag_is_per_thread_and_nests():
+    from metrics_tpu_torch.utils.checks import _value_check_possible, traced
+
+    x = torch.zeros(2)
+    seen = []
+    with traced():
+        with traced():
+            assert not _value_check_possible(x)
+        assert not _value_check_possible(x)
+        other = threading.Thread(target=lambda: seen.append(_value_check_possible(x)))
+        other.start()
+        other.join(WAIT_S)
+    assert not other.is_alive() and seen == [True]
+    assert _value_check_possible(x)
+
+
+# --------------------------------------------------------------------------- tenant eviction (C.5)
+
+
+def test_evict_tenant_on_an_untiered_engine_matches_jax():
+    """``evict_tenant`` works without the tier plane, as the JAX package's
+    docstring says: True for a known key, False for an unknown one, the key gone
+    from ``compute_all``, its slot reused by the next new tenant, and a
+    resubmitted key starting from a fresh state; states equal the JAX engine's
+    throughout and ``tier_evictions`` counts the eviction."""
+    rng = np.random.default_rng(12)
+    first = _stream(_labels, seed=13, n=12, keys=3)
+    later = [(key, _labels(rng, 3)) for key in ("t3", "t0", "t3", "t0")]
+    make_jax, make_port, _ = FAMILIES["flagship"]
+    ref, port = JaxEngine(make_jax(), buckets=(8,), capacity=4), StreamingEngine(make_port(), buckets=(8,), capacity=4)
+    try:
+        for engine in (ref, port):
+            run_stream(engine, first)
+            slot = engine._keyed._slots["t0"]
+            assert engine.evict_tenant("t0") is True
+            assert engine.evict_tenant("t0") is False and engine.evict_tenant("nobody") is False
+            assert "t0" not in engine.compute_all()
+            assert engine.telemetry_snapshot()["tier_evictions"] == 1
+            run_stream(engine, later)
+            assert engine._keyed._slots["t3"] == slot  # the freed slot goes to the next new tenant
+        assert_engines_match(port, ref)
+        for key, fold in fold_rows(make_port(), later).items():
+            assert_trees_match(port._keyed.state_of(key), fold, f"{key} after the eviction")
+    finally:
+        port.close()
+        ref.close()
+
+
 # --------------------------------------------------------------------------- what waits, devices, hooks
 
 
@@ -676,6 +788,11 @@ def test_drain_tenant_waits_for_its_requests_only():
 def test_planes_not_ported_raise_naming_their_item(plane, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         StreamingEngine(FAMILIES["accuracy"][1](), **{plane: object()})
+    engine = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,), start=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        engine.export_tenant("k")
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        engine.import_tenant("k", None)
 
 
 def test_reads_that_wait_raise_naming_their_item():

@@ -83,6 +83,18 @@ def test_engine_modules_are_scanned(relpath):
     assert relpath in SOURCES
 
 
+SLICE_10_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("functional/regression/__init__", "functional/regression/basic", "regression/__init__",
+                 "regression/basic", "functional/classification/_pipeline", "utils/checks", "utils/enums")
+]
+
+
+@pytest.mark.parametrize("relpath", SLICE_10_MODULES)
+def test_regression_and_task_facade_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
 def _series(reg):
     """One registry's worth of every kind of series: labelled and unlabelled
     counters (integral and fractional), a gauge, histograms with explicit and
