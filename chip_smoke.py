@@ -181,6 +181,29 @@ checkout, and then:
   plain torch code (no hand kernel): each class update is timed by CUDA
   events, with and without its value checks, and profiled (device time,
   idle share, device kernels a update).
+- Phase M drives the durable state plane (``metrics_tpu_torch/ckpt/``, the
+  engine's ``checkpoint=``). M1: the checkpoint overhead at K6's
+  configuration by ``benchmarks/engine_throughput.py``'s procedure (6 pairs
+  of passes, plain and with ``CheckpointConfig(interval_s=0.25, retain=3)``
+  in a temporary directory, alternating which goes first; the median of the
+  per-pair ratios, less one; the JAX benchmark's 5% gate is printed as a
+  record, not checked), each pass's states held to the fold, with the best
+  req/s of each side, the snapshots, WAL records and bytes a pass, the write
+  ms a snapshot and the temporary directory's filesystem. M2: the flagship
+  collection at 1000 classes and ``QuantileSketch`` served, snapshotted
+  half way, served on and crashed (``close(checkpoint=False)``); a new engine
+  on the card recovers: every leaf ``torch.equal`` to the crashed engine's
+  and to the fold, the graph replays equal to the chunk records replayed,
+  the wrappers' counters advanced twice what the graphs captured (warm-up
+  and capture) and the profiled launches equal captured x (replays + 1), and
+  a new tenant gets a fresh slot; recovery ms, records and rows replayed,
+  rows/s, the snapshot's bytes and write ms. M3: the card's final snapshot
+  restores into a CPU engine, the CPU engine's snapshot and the ``T``
+  record of an eviction after it restore on the card (leaves equal, the
+  tenant gone), and ``MetricCollection.save``/``restore`` of the flagship
+  collection gives equal states on the card and the CPU and an equal
+  ``compute()`` on the card (the CPU's within rtol 1e-6). No new kernel: the
+  ``kernels`` line keeps its rows.
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
@@ -193,6 +216,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -2585,6 +2609,332 @@ def phase_l(torch, np) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- Phase M: the durable state plane
+
+M_PAIRS = 6  # plain/checkpointing pairs of benchmarks/engine_throughput.py's overhead gate (:442-476)
+M_INTERVAL_S = 0.25  # that gate's CheckpointConfig(interval_s=0.25, retain=3)
+M_RETAIN = 3
+M_GATE_PCT = 5.0  # its ckpt_overhead_lt_5pct: a record here (the engine's rate moves between calls)
+M2_QUANTILE_REQUESTS = 4000
+M2_FLAGSHIP_REQUESTS = 2000
+M3_CPU_REQUESTS = 40
+M3_BATCH = 4096  # labels per update of the collection saved and restored on the card
+
+
+def _m_filesystem(path: str) -> str:
+    out = subprocess.run(["stat", "-f", "-c", "%T", path], capture_output=True, text=True)
+    return out.stdout.strip() or "unknown"
+
+
+def _m_states(engine) -> dict:
+    """Copies of every tenant's live state (read under the dispatch lock)."""
+    return {key: engine._keyed.state_of(key) for key in engine._keyed.keys}
+
+
+def _m_equal(torch, got: dict, want: dict, what: str) -> int:
+    """Every tenant's every leaf equal with its dtype (across devices too); the
+    number of leaves compared."""
+    _check(set(got) == set(want), f"{what}: tenants {sorted(got)} vs {sorted(want)}")
+    compared = 0
+    for key in want:
+        a, b = _k_leaves(got[key]), _k_leaves(want[key])
+        _check(set(a) == set(b), f"{what} {key}: leaves {sorted(a)} vs {sorted(b)}")
+        for path, x in a.items():
+            y = b[path]
+            _check(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), f"{what} {key}: {path} differs")
+            compared += 1
+    return compared
+
+
+def _m_timed(fn, spent: dict, key: str):
+    """``fn`` adding its wall ms to ``spent[key]`` at each call."""
+
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent[key] += (time.perf_counter() - t0) * 1e3
+
+    return run
+
+
+def _m1_pass(torch, np, reqs, folds, rows, ckpt_dir) -> dict:
+    """One warmed, timed K6 pass (the benchmark's run_engine_pass), with
+    checkpointing when ``ckpt_dir`` is given; states held to the fold. A
+    checkpointing pass also sums the dispatcher's wall ms in the WAL (each
+    chunk record's encode, append and flush) and in the snapshot views."""
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.engine import CheckpointConfig, StreamingEngine
+
+    cfg = None if ckpt_dir is None else CheckpointConfig(directory=ckpt_dir, interval_s=M_INTERVAL_S,
+                                                          retain=M_RETAIN)
+    engine = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, max_queue=K_QUEUE,
+                             capacity=K_TENANTS, checkpoint=cfg)
+    try:
+        rng = np.random.default_rng(13)
+        _k_warm(engine, lambda n: (rng.integers(0, 2, n), rng.integers(0, 2, n)), K_BUCKETS,
+                sorted({key for key, _ in reqs}))
+        before = engine.telemetry_snapshot()
+        wal_bytes = engine._journal.appended_bytes if cfg is not None else 0
+        spent = {"journal_ms": 0.0, "view_ms": 0.0}
+        if cfg is not None:
+            engine._journal_chunk = _m_timed(engine._journal_chunk, spent, "journal_ms")
+            engine._checkpoint_view = _m_timed(engine._checkpoint_view, spent, "view_ms")
+        seconds = _k_submit(engine, reqs, K_THREADS)
+        spent = dict(spent)  # the timed window's: close() takes one more view
+        after = engine.telemetry_snapshot()
+        _k_check_states(torch, engine, folds, rows, "M1")
+        rec = {"req_per_s": len(reqs) / seconds}
+        if cfg is not None:
+            health = engine.health()
+            _check(after["checkpoint_failures"] == 0 and not health["wal_disabled"],
+                   f"M1: {after['checkpoint_failures']} checkpoint failures, wal_disabled {health['wal_disabled']}")
+            rec.update(snapshots=after["checkpoints"] - before["checkpoints"],
+                       wal_records=after["wal_records"] - before["wal_records"],
+                       wal_bytes=engine._journal.appended_bytes - wal_bytes, seconds=seconds, **spent)
+        return rec
+    finally:
+        engine.close()
+
+
+def phase_m1(torch, np, obs, instrument, root=None) -> dict:
+    """Checkpoint overhead at K6's configuration, by the JAX benchmark's procedure:
+    6 pairs of passes, plain and checkpointing (a snapshot every 0.25 s, 3 kept,
+    the WAL on) in a temporary directory under ``root`` (None: the temporary
+    directory's default), alternating which goes first; the median of the
+    per-pair ratios, less one, is the overhead."""
+    import statistics
+    import tempfile
+
+    reqs = _k6_reqs(np, K1_REQUESTS, K_TENANTS)
+    from metrics_tpu_torch.classification import BinaryAccuracy
+
+    folds, rows = _k_fold(torch, BinaryAccuracy(device="cuda"), reqs, "cuda")
+    obs.enable()  # the write histogram; on for both sides of every pair
+    try:
+        writes0 = (instrument.CKPT_SECONDS.count(site="engine", op="write"),
+                   instrument.CKPT_SECONDS.sum(site="engine", op="write"))
+        plain, ckpt, ratios, fs = [], [], [], None
+        for i in range(M_PAIRS):
+            order = ("plain", "ckpt") if i % 2 == 0 else ("ckpt", "plain")
+            got = {}
+            for side in order:
+                if side == "plain":
+                    got[side] = _m1_pass(torch, np, reqs, folds, rows, None)
+                else:
+                    with tempfile.TemporaryDirectory(dir=root) as d:
+                        fs = _m_filesystem(d)
+                        got[side] = _m1_pass(torch, np, reqs, folds, rows, d)
+            plain.append(got["plain"])
+            ckpt.append(got["ckpt"])
+            ratios.append(got["plain"]["req_per_s"] / got["ckpt"]["req_per_s"])
+        writes = instrument.CKPT_SECONDS.count(site="engine", op="write") - writes0[0]
+        write_s = instrument.CKPT_SECONDS.sum(site="engine", op="write") - writes0[1]
+    finally:
+        obs.disable()
+    overhead_pct = (statistics.median(ratios) - 1.0) * 100.0
+    rec = {
+        "overhead_pct": overhead_pct, "gate_pct": M_GATE_PCT, "within_gate": overhead_pct < M_GATE_PCT,
+        "pair_ratios": ratios, "plain_best_req_per_s": max(r["req_per_s"] for r in plain),
+        "ckpt_best_req_per_s": max(r["req_per_s"] for r in ckpt),
+        "plain_req_per_s": [r["req_per_s"] for r in plain], "ckpt_req_per_s": [r["req_per_s"] for r in ckpt],
+        "snapshots_per_pass": [r["snapshots"] for r in ckpt], "wal_records_per_pass": [r["wal_records"] for r in ckpt],
+        "wal_bytes_per_pass": [r["wal_bytes"] for r in ckpt],
+        # the dispatcher's share of a checkpointing pass: WAL and snapshot views
+        "dispatcher_journal_ms_per_pass": [r["journal_ms"] for r in ckpt],
+        "dispatcher_view_ms_per_pass": [r["view_ms"] for r in ckpt],
+        "dispatcher_share": [(r["journal_ms"] + r["view_ms"]) / (r["seconds"] * 1e3) for r in ckpt],
+        "snapshot_writes": writes, "write_ms_per_snapshot": write_s * 1e3 / writes if writes else None,
+        "filesystem": fs, "requests": len(reqs), "interval_s": M_INTERVAL_S, "retain": M_RETAIN,
+    }
+    # every checkpointing pass commits its final snapshot at close(), and those inside its
+    # timed window as they fall due (``snapshots_per_pass``: a window shorter than the
+    # interval may hold none)
+    _check(writes >= M_PAIRS, f"M1: {writes} snapshot writes in {M_PAIRS} checkpointing passes")
+    print(f"phase M1 ({fs}) {json.dumps(rec)}")
+    return rec
+
+
+def _m2_crash_and_recover(torch, np, name, make, reqs, kernels, directory) -> tuple:
+    """Serve half, snapshot, serve the rest, crash (no final snapshot), recover on
+    the card; hold the recovered states to the crashed engine's and to the fold,
+    and the replay's hand-kernel launches to captured x replays. Returns
+    ``(record, recovered engine, fold states, rows)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch.engine import CheckpointConfig, StreamingEngine
+    from metrics_tpu_torch.kernels import launch_counts
+
+    kw = dict(buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS,
+              checkpoint=CheckpointConfig(directory=directory, interval_s=3600.0, retain=M_RETAIN))
+    engine = StreamingEngine(make(), **kw)
+    half = len(reqs) // 2
+    _k_submit(engine, reqs[:half], K_THREADS)
+    t0 = time.perf_counter()
+    gen = engine.checkpoint_now()
+    snapshot_write_ms = (time.perf_counter() - t0) * 1e3
+    _check(gen is not None, f"{name}: checkpoint_now() failed: {engine._ckpt_writer.last_error!r}")
+    snapshot_bytes = os.path.getsize(engine._ckpt_store.path(gen))
+    _k_submit(engine, reqs[half:], K_THREADS)
+    crashed = _m_states(engine)
+    wal_rows = sum(args[0].shape[0] for _, args in reqs[half:])
+    engine.close(checkpoint=False)  # the crash: the WAL holds everything after the snapshot
+    folds, rows = _k_fold(torch, make(), reqs, "cuda")
+
+    before = launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rec_engine = StreamingEngine(make(), **kw)
+    torch.cuda.synchronize()
+    recovery_s = time.perf_counter() - t0
+    counted = {k: n - before[k] for k, n in launch_counts().items()}
+    snap = rec_engine.telemetry_snapshot()
+    graphs = rec_engine.graph_stats()
+    replays = sum(g["replays"] for g in graphs)
+    _check(snap["recoveries"] == 1 and snap["replayed"] >= 1 and snap["failed"] == 0,
+           f"{name}: recoveries {snap['recoveries']}, replayed {snap['replayed']}, failed {snap['failed']}")
+    _check(snap["fused"] and snap["fused_fallbacks"] == 0 and rec_engine.device.type == "cuda",
+           f"{name}: the recovery left the card's graphs (fused {snap['fused']}, device {rec_engine.device})")
+    _check(replays == snap["replayed"], f"{name}: {replays} graph replays for {snap['replayed']} chunk records")
+    compared = _m_equal(torch, _m_states(rec_engine), crashed, f"{name} recovered vs crashed")
+    _k_check_states(torch, rec_engine, folds, rows, f"{name} recovered vs fold")
+    in_replays = rec_engine.graph_launches()
+    captured = {k: sum(g["captured_launches"].get(k, 0) for g in graphs) for k in kernels}
+    for k in kernels:
+        _check(in_replays.get(k, 0) > 0, f"{name}: {k} never launched in the replay ({in_replays})")
+        # each graph's warm-up and capture run the wrappers once each: the counters
+        # advance twice what a graph captured, never at a replay
+        _check(counted.get(k, 0) == 2 * captured[k], f"{name}: {k} counted {counted.get(k, 0)}, "
+               f"captured {captured[k]}")
+
+    # the replay under the profiler: each hand kernel's device launches equal
+    # captured x (replays + the warm-up); the recovery is repeatable (nothing is written)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            again = StreamingEngine(make(), **kw)
+            torch.cuda.synchronize()
+        g2 = again.graph_stats()
+        expected = {k: sum(g["captured_launches"].get(k, 0) * (g["replays"] + 1) for g in g2) for k in kernels}
+        again.close(checkpoint=False)
+        times = _kernel_times(prof, torch)
+        seen = {k: sum(len(v) for n, v in times.items() if K_PROFILE_NAMES[k][0] in n) // K_PROFILE_NAMES[k][1]
+                for k in kernels}
+        if seen == expected or not times:
+            break
+    _check(seen == expected or not times, f"{name}: profiled launches {seen} vs captured x (replays + 1) {expected}")
+
+    # a new tenant after recovery gets a fresh slot and a fresh state
+    used = set(rec_engine._keyed._slots.values())
+    args = reqs[0][1]
+    rec_engine.submit("tenant-new", *args).result(timeout=300)
+    rec_engine.flush(timeout=300)
+    _check(rec_engine._keyed._slots["tenant-new"] not in used, f"{name}: the new tenant took an existing slot")
+    fresh, fresh_rows = _k_fold(torch, make(), [("tenant-new", args)], "cuda")
+    _k_check_states(torch, rec_engine, fresh, fresh_rows, f"{name} new tenant")
+    folds.update(fresh)
+    rows.update(fresh_rows)
+    rec = {
+        "requests": len(reqs), "snapshot_generation": gen, "snapshot_bytes": snapshot_bytes,
+        "snapshot_write_ms": snapshot_write_ms, "recovery_ms": recovery_s * 1e3,
+        "records_replayed": snap["replayed"], "rows_replayed": wal_rows, "replay_rows_per_s": wal_rows / recovery_s,
+        # of the recovery: each graph's warm-up and capture, the rest is reading, restoring, replaying
+        "capture_ms": sum(g["warmup_ms"] + g["capture_ms"] for g in graphs),
+        "graphs_captured": len(graphs), "graph_replays": replays, "launches_in_replays": in_replays,
+        "launches_counted": {k: counted.get(k, 0) for k in kernels}, "launches_profiled": seen,
+        "profile_attempts": attempt + 1, "leaves_equal": compared,
+    }
+    print(f"phase M2 {name} {json.dumps(rec)}")
+    return rec, rec_engine, folds, rows
+
+
+def phase_m(torch, np, obs, instrument) -> dict:
+    """The durable state plane on the card: M1 the checkpoint overhead, M2 crash
+    and recovery, M3 snapshots across devices and save/restore."""
+    import tempfile
+
+    from metrics_tpu_torch import QuantileSketch
+    from metrics_tpu_torch.engine import CheckpointConfig, StreamingEngine
+
+    t0 = time.perf_counter()
+    out = {"M1": phase_m1(torch, np, obs, instrument)}
+    if os.path.isdir("/dev/shm"):
+        # the same procedure in memory: what the filesystem adds to the overhead
+        out["M1_shm"] = phase_m1(torch, np, obs, instrument, root="/dev/shm")
+    rng = np.random.default_rng(17)
+
+    def labels(n):
+        return rng.integers(0, K2_CLASSES, n).astype(np.int64), rng.integers(0, K2_CLASSES, n).astype(np.int64)
+
+    with tempfile.TemporaryDirectory() as qdir, tempfile.TemporaryDirectory() as fdir:
+        out["M2_quantile"], engine, _, _ = _m2_crash_and_recover(
+            torch, np, "quantile", QuantileSketch, _k_quantile_reqs(np, 19, M2_QUANTILE_REQUESTS, K_TENANTS),
+            ("hist_add",), qdir)
+        engine.close(checkpoint=False)
+        flagship = [(f"tenant-{int(rng.integers(0, K_TENANTS))}", labels(int(rng.integers(K2_ROWS[0], K2_ROWS[1] + 1))))
+                    for _ in range(M2_FLAGSHIP_REQUESTS)]
+        out["M2_flagship"], engine, _, _ = _m2_crash_and_recover(
+            torch, np, "flagship", _k2_metric, flagship, ("stat_scores", "pair_count"), fdir)
+
+        # M3: the card's final snapshot restores into a CPU engine; the CPU engine's
+        # snapshot, and the T record of an eviction after it, restore on the card
+        card = _m_states(engine)
+        engine.close()  # the final snapshot, written on the card
+        kw = dict(buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS,
+                  checkpoint=CheckpointConfig(directory=fdir, interval_s=3600.0, retain=M_RETAIN))
+        cpu = StreamingEngine(_k2_metric("cpu"), **kw)
+        try:
+            snap = cpu.telemetry_snapshot()
+            _check(snap["recoveries"] == 1 and snap["replayed"] == 0, f"M3 CPU: {snap['recoveries']} recoveries, "
+                   f"{snap['replayed']} replayed")
+            to_cpu = _m_equal(torch, _m_states(cpu), card, "M3 card snapshot on the CPU")
+            _k_submit(cpu, flagship[:M3_CPU_REQUESTS], 1)
+            cpu.checkpoint_now()
+            _check(cpu.evict_tenant("tenant-3") is True, "M3: evict_tenant('tenant-3') on the CPU engine")
+            on_cpu = _m_states(cpu)
+        finally:
+            cpu.close(checkpoint=False)
+        back = StreamingEngine(_k2_metric("cuda"), **kw)
+        try:
+            snap = back.telemetry_snapshot()
+            _check(snap["recoveries"] == 1 and snap["replayed"] == 1 and snap["failed"] == 0,
+                   f"M3 card: {snap['recoveries']} recoveries, {snap['replayed']} replayed (the T record)")
+            _check("tenant-3" not in back._keyed.keys, "M3: the evicted tenant is back after recovery")
+            to_card = _m_equal(torch, _m_states(back), on_cpu, "M3 CPU snapshot on the card")
+        finally:
+            back.close(checkpoint=False)
+
+        # MetricCollection.save/restore of the flagship collection on the card
+        col = _k2_metric()
+        for _ in range(3):
+            col.update(*(torch.from_numpy(a).to("cuda") for a in labels(M3_BATCH)))
+        path = os.path.join(fdir, "flagship.ckpt")
+        col.save(path)
+        restored, on_cpu_col = _k2_metric(), _k2_metric("cpu")
+        restored.restore(path)
+        on_cpu_col.restore(path)
+        for name, m in col._modules.items():
+            for state in m._defaults:
+                for other in (restored, on_cpu_col):
+                    got = getattr(other._modules[name], state)
+                    _check(got.dtype == getattr(m, state).dtype and torch.equal(got.cpu(), getattr(m, state).cpu()),
+                           f"M3 save/restore: {name}.{state} differs on {got.device}")
+        # the values: equal on the card; on the CPU within the parity tolerance (the
+        # macro F1's mean over 1000 classes adds in another order there)
+        want, on_cpu_values = col.compute(), on_cpu_col.compute()
+        for name, value in restored.compute().items():
+            _check(torch.equal(value, want[name]), f"M3 save/restore: compute()[{name!r}] differs on the card")
+            _check(torch.allclose(on_cpu_values[name].float(), want[name].cpu().float(), rtol=1e-6, atol=0),
+                   f"M3 save/restore: compute()[{name!r}] on the CPU beyond rtol 1e-6")
+        out["M3"] = {"card_to_cpu_leaves_equal": to_cpu, "cpu_to_card_leaves_equal": to_card,
+                     "evicted_tenant_gone": True, "collection_snapshot_bytes": os.path.getsize(path),
+                     "collection_groups": {k: list(v) for k, v in col.compute_groups.items()}}
+        print(f"phase M3 {json.dumps(out['M3'])}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase M: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2651,6 +3001,7 @@ def main() -> int:
     import numpy as np
 
     classification_l = phase_l(torch, np)
+    durable = phase_m(torch, np, obs, instrument)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -2724,7 +3075,8 @@ def main() -> int:
                    for key in (f"T{CURVE_T}_C1", "T1024_C1", f"T{CURVE_T}_C{CURVE_COLS}")],
     })
     print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six,
-                      "engine": engine, "binary_multilabel_mse": classification_l, "card": card}))
+                      "engine": engine, "binary_multilabel_mse": classification_l, "durable": durable,
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

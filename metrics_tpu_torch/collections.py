@@ -521,6 +521,24 @@ class MetricCollection:
         if owns_check and strict:
             _raise_on_unconsumed(state_dict, prefix, consumed)
 
+    def save(self, path: str, *, policy: Any = None, meta: Optional[Dict[str, Any]] = None) -> None:
+        """Persist the collection's FULL state (every member, every state) to
+        ``path`` — atomic, checksummed, lossless by default. See
+        :meth:`Metric.save`; group members serialize with their leader's real
+        values (aliasing refreshed first, as in :meth:`state_dict`)."""
+        from metrics_tpu_torch.ckpt import save as _ckpt_save
+
+        _ckpt_save(self, path, policy=policy, meta=meta)
+
+    def restore(self, path: str) -> Any:
+        """Load a :meth:`save` snapshot into this collection (strict — see
+        :meth:`Metric.restore`). Compute-group aliasing is re-established after
+        the load: members point at their leader's freshly restored tensors,
+        never at stale pre-restore state."""
+        from metrics_tpu_torch.ckpt import restore as _ckpt_restore
+
+        return _ckpt_restore(self, path)
+
     def to_device(self, device: DeviceLike) -> "MetricCollection":
         for m in self._modules.values():
             m.to_device(device)

@@ -34,6 +34,9 @@ DEFAULT_BUCKETS: Tuple[int, ...] = (8, 16, 32, 64, 128, 256)
 # request's shape, i.e. everything except the bucketed leading (row) axis.
 Signature = Tuple[Tuple[Tuple[int, ...], str], ...]
 
+# one micro-batch as the host built it: (columns, key_ids, mask) in numpy
+HostBatch = Tuple[List[np.ndarray], np.ndarray, np.ndarray]
+
 
 @dataclass(frozen=True)
 class BucketConfig:
@@ -158,6 +161,11 @@ def tune_buckets(
 _NARROW = {"int64": "int32", "uint64": "uint32", "float64": "float32", "complex128": "complex64"}
 
 
+def narrow_name(name: str) -> str:
+    """The dtype name the JAX package sees for ``name`` with x64 off."""
+    return _NARROW.get(name, name)
+
+
 def _dtype_name(a: Any) -> str:
     if isinstance(a, torch.Tensor):
         return str(a.dtype).replace("torch.", "")
@@ -229,17 +237,19 @@ def pad_micro_batch(
     requests: Sequence[Tuple[int, Sequence[Any], int]],
     bucket: int,
     device: Any = "cpu",
-) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor, HostBatch]:
     """Assemble one padded micro-batch from coalesced requests.
 
     ``requests`` is a sequence of ``(slot, args, rows)`` triples whose total rows fit
     ``bucket``. Rows are laid out back-to-back in submission order (the masked scan
     walks them in this order, preserving per-tenant sequential semantics); the tail is
-    zero-padded and masked out. Returns ``(columns, key_ids, mask)`` on ``device``,
-    where each column has shape ``(bucket, 1, *trailing)`` and the narrowed dtype of
-    the request signature — the per-row scan slice keeps a leading batch axis of 1 so
-    a metric's ``update_state`` sees an ordinary (tiny) batch. ``key_ids`` is int32,
-    ``mask`` bool. Each column is built on the host and sent to ``device`` in one copy.
+    zero-padded and masked out. Returns ``(columns, key_ids, mask, host)``: the first
+    three on ``device``, where each column has shape ``(bucket, 1, *trailing)`` and the
+    narrowed dtype of the request signature — the per-row scan slice keeps a leading
+    batch axis of 1 so a metric's ``update_state`` sees an ordinary (tiny) batch;
+    ``key_ids`` is int32, ``mask`` bool. Each column is built on the host and sent to
+    ``device`` in one copy; ``host`` holds those numpy arrays, ``(columns, key_ids,
+    mask)``, from which the engine journals the micro-batch without reading the card.
 
     Padding rows carry the first request's slot id: it is always a valid index into the
     stacked state (so the masked gather/scatter stays in bounds) and the mask guarantees
@@ -270,6 +280,7 @@ def pad_micro_batch(
         [torch.from_numpy(c).to(dev) for c in columns],
         torch.from_numpy(key_ids).to(dev),
         torch.from_numpy(mask).to(dev),
+        (columns, key_ids, mask),
     )
 
 

@@ -13,8 +13,9 @@ Two regimes, one interface (``slot_for`` / ``state_of`` / ``rotate`` / ``merged_
 
 A captured graph is bound to the addresses of the slab it was captured on. So the
 slab's tensors are written in place (``copy_``) by ``set_state``, ``evict``,
-``rotate`` and ``reset``, and only :meth:`KeyedState.ensure_capacity` makes new
-tensors (capacity is part of the graph cache key). Reads (``state_of``,
+``rotate``, ``reset`` and ``restore`` (a snapshot's slab), and only
+:meth:`KeyedState.ensure_capacity` makes new tensors (capacity is part of the
+graph cache key). Reads (``state_of``,
 ``merged_state``) return copies, never views of the slab, since later dispatches
 write into it.
 
@@ -28,12 +29,13 @@ from __future__ import annotations
 import threading
 import time
 from collections import deque
-from typing import Any, Deque, Dict, Hashable, List, Optional, Tuple
+from typing import Any, Deque, Dict, Hashable, List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from metrics_tpu_torch.kernels.engine_scan import leaves_like
+from metrics_tpu_torch.metric import _as_state_tensor
 from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 
 
@@ -157,6 +159,38 @@ class KeyedState:
         self.capacity = new_cap
         self.last_resize_s = time.perf_counter() - t0
         return True
+
+    def restore(self, capacity: int, leaves: Sequence[Any], slots: Dict[Hashable, int],
+                ring: Sequence[Tuple[int, Sequence[Any]]] = (), rotations: int = 0) -> None:
+        """Install a snapshot: its slab (``leaves``, each ``(capacity, *shape)``,
+        in the state tree's flattened order), slot map, window ring and rotation
+        count.
+
+        The live slab first grows to the snapshot's capacity (the only new
+        tensors, as in any growth); the snapshot's rows are then copied into it
+        in place and the rows beyond them scrubbed to init, so graphs captured on
+        the live slab stay valid. The slot ids are installed as they were, gaps
+        included, and the allocation watermark sits above the highest: a new
+        tenant never lands on an existing tenant's row.
+        """
+        capacity = int(capacity)
+        self.ensure_capacity(min_slots=capacity)
+        for leaf, new, init in zip(self.leaves(), leaves, self._init_leaves):
+            leaf[:capacity].copy_(_as_state_tensor(new, leaf.device))
+            leaf[capacity:].copy_(init.expand_as(leaf[capacity:]))
+        with self._alloc_lock:
+            self._slots = {key: int(slot) for key, slot in slots.items()}
+            self._max_slot = max(self._slots.values(), default=-1)
+            self._free_slots = []
+            self._free_set = set()
+        if self._ring is not None:
+            self._ring.clear()
+            device = self._init_leaves[0].device if self._init_leaves else None
+            for cap, seg in ring:
+                self._ring.append(
+                    (int(cap), tree_unflatten([_as_state_tensor(x, device) for x in seg], self._treedef))
+                )
+        self.rotations = int(rotations)
 
     # ------------------------------------------------------------------ reads
 

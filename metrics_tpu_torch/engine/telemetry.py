@@ -10,8 +10,8 @@ not ride the ``obs.enable()`` master switch.
 :meth:`EngineTelemetry.snapshot` returns the JAX package's keys: the counters,
 ``queue_depth``, ``resize_seconds``, ``batch_occupancy_hist``, ``latency_s`` and
 ``mean_batch_occupancy``. The counters of the planes that are not ported yet
-(checkpoint, guard, replication, tier) are declared and read 0, so a dashboard
-built on the JAX engine reads the port's unchanged.
+(guard, replication, tier) are declared and read 0, so a dashboard built on the
+JAX engine reads the port's unchanged.
 
 Counter names are a closed set: :meth:`count` on a name that was never declared
 raises instead of silently minting a new series; extend the set explicitly with
@@ -51,7 +51,7 @@ _COUNTERS = (
     "worker_deaths",      # dispatcher thread crashes survived
     "window_rotations",   # sliding-window segment rotations
     "key_growths",        # tenant-capacity doublings (each costs one capture set)
-    # durable state plane (ROADMAP A.6: not ported yet, these read 0)
+    # durable state plane
     "checkpoints",          # snapshots committed (periodic + quiesce + close)
     "checkpoint_failures",  # snapshot/serialize/commit failures absorbed
     "wal_records",          # requests journaled ahead of their state commit

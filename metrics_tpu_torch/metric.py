@@ -26,9 +26,10 @@ metric, not a bool: code that compares metrics compares them by identity.
 there ``jax.jit`` compiles the pure updater; here the updater is captured as a
 CUDA graph per operand shape and dtype (on the CPU it is ``update_state``).
 
-Not ported yet: in-trace ``sync_state`` and ``compute_from`` with an
-``axis_name`` (they wait for the comm plane), and ``save``/``restore`` (they
-wait for the checkpoint format).
+``save``/``restore`` write and read an MTCKPT1 snapshot of every state
+(:mod:`metrics_tpu_torch.ckpt`), which the JAX package reads too. Not ported
+yet: in-trace ``sync_state`` and ``compute_from`` with an ``axis_name`` (they
+wait for the comm plane).
 """
 
 from __future__ import annotations
@@ -757,6 +758,33 @@ class Metric(ABC):
             child.load_state_dict(state_dict, prefix=f"{prefix}{name}.", strict=strict, _consumed=consumed)
         if owns_check and strict:
             _raise_on_unconsumed(state_dict, prefix, consumed)
+
+    def save(self, path: str, *, policy: Any = None, meta: Optional[Dict[str, Any]] = None) -> None:
+        """Persist this metric's FULL state to ``path`` — atomic, checksummed,
+        lossless by default (see :mod:`metrics_tpu_torch.ckpt`).
+
+        Unlike :meth:`state_dict` (reference-parity: persistent states only),
+        ``save`` captures every registered state plus update counts, so
+        ``restore`` on a fresh instance reproduces ``compute()`` bit-identically.
+        ``policy`` opts into the codecs' lossy encodings (counts stay exact).
+        """
+        from metrics_tpu_torch.ckpt import save as _ckpt_save
+
+        _ckpt_save(self, path, policy=policy, meta=meta)
+
+    def restore(self, path: str) -> Any:
+        """Load a :meth:`save` snapshot (of either package) into this instance,
+        each state a tensor on this metric's device.
+
+        Strict: integrity (CRC) failures raise
+        :class:`~metrics_tpu_torch.ckpt.CorruptSnapshotError`, schema/shape/dtype
+        mismatches raise :class:`~metrics_tpu_torch.ckpt.CkptSchemaError`, and
+        missing/stray keys raise through the strict ``load_state_dict``
+        machinery — in every case this instance is left as it was.
+        """
+        from metrics_tpu_torch.ckpt import restore as _ckpt_restore
+
+        return _ckpt_restore(self, path)
 
     def __getstate__(self) -> Dict[str, Any]:
         """Drop the instance-wrapped ``update``/``compute`` for pickling and

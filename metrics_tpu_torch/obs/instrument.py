@@ -1,18 +1,20 @@
-"""Instrumentation hooks of the metric core and the kernel plane
-(port of the metric and kernel sections of ``metrics_tpu/obs/instrument.py``).
+"""Instrumentation hooks of the metric core, the kernel plane and the durable
+state plane (port of the metric, kernel and ckpt sections of
+``metrics_tpu/obs/instrument.py``).
 
 Every hook returns at once, or hands back a shared no-op, while ``OBS.enabled``
 is false. Unlike the JAX package, whose callers are jitted and so count
 compiled lowerings, PyTorch runs eagerly: the kernel hooks count calls. The
 JAX package's op timer also opens a trace span; the port has no tracer yet,
-so its timer records the wall-time histogram only.
+so its timer records the wall-time histogram only, and :func:`ckpt_span` is a
+no-op (the ckpt series themselves are recorded).
 """
 
 from __future__ import annotations
 
 import itertools
 import time
-from typing import Any
+from typing import Any, Optional
 
 from metrics_tpu_torch.obs.registry import OBS, REGISTRY
 
@@ -111,3 +113,59 @@ def record_kernel_launch(name: str) -> None:
     if not OBS.enabled:
         return
     KERNEL_LAUNCHES.inc(1, kernel=name)
+
+
+# ---------------------------------------------------------------------- ckpt plane
+
+CKPT_BYTES = REGISTRY.counter(
+    "metrics_tpu_torch_ckpt_bytes_total",
+    "Cumulative snapshot bytes moved through the durable state plane, per site and op (write|restore).",
+)
+CKPT_SECONDS = REGISTRY.histogram(
+    "metrics_tpu_torch_ckpt_seconds",
+    "Wall time of checkpoint writes and restores (serialize + commit / read + validate + apply).",
+)
+CKPT_FAILURES = REGISTRY.counter(
+    "metrics_tpu_torch_ckpt_failures_total",
+    "Checkpoint operations that failed (and were absorbed, not raised), per site and op.",
+)
+CKPT_GENERATION = REGISTRY.gauge(
+    "metrics_tpu_torch_ckpt_generation",
+    "Most recently committed (op=write) or recovered (op=restore) snapshot generation, per site.",
+)
+CKPT_SKIPPED = REGISTRY.counter(
+    "metrics_tpu_torch_ckpt_skipped_generations_total",
+    "Snapshot generations skipped as corrupt/torn/invalid during a latest_valid recovery scan, "
+    "by failure reason — each skip silently cost one generation of recovery staleness.",
+)
+
+
+def record_ckpt_io(
+    site: str, op: str, nbytes: int, seconds: float, generation: Optional[int] = None
+) -> None:
+    """Account one checkpoint write/restore: bytes, latency, generation gauge."""
+    if not OBS.enabled:
+        return
+    CKPT_BYTES.inc(nbytes, site=site, op=op)
+    CKPT_SECONDS.observe(seconds, site=site, op=op)
+    if generation is not None:
+        CKPT_GENERATION.set(generation, site=site, op=op)
+
+
+def record_ckpt_failure(site: str, op: str) -> None:
+    if not OBS.enabled:
+        return
+    CKPT_FAILURES.inc(1, site=site, op=op)
+
+
+def record_ckpt_skipped(reason: str, n: int = 1) -> None:
+    """Count one generation skipped by a recovery scan (reason = exception type)."""
+    if not OBS.enabled:
+        return
+    CKPT_SKIPPED.inc(n, reason=reason)
+
+
+def ckpt_span(name: str, **attrs: Any) -> Any:
+    """The trace span of a durable-state-plane step (serialize, commit, restore):
+    a shared no-op until the port has a tracer (ROADMAP A.7)."""
+    return _NULL_OP

@@ -783,8 +783,7 @@ def test_evict_tenant_on_an_untiered_engine_matches_jax():
 # --------------------------------------------------------------------------- what waits, devices, hooks
 
 
-@pytest.mark.parametrize("plane,item", [("checkpoint", "A.6"), ("guard", "A.7"), ("replication", "A.7"),
-                                        ("tier", "A.7")])
+@pytest.mark.parametrize("plane,item", [("guard", "A.7"), ("replication", "A.7"), ("tier", "A.7")])
 def test_planes_not_ported_raise_naming_their_item(plane, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         StreamingEngine(FAMILIES["accuracy"][1](), **{plane: object()})
@@ -793,6 +792,25 @@ def test_planes_not_ported_raise_naming_their_item(plane, item):
         engine.export_tenant("k")
     with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
         engine.import_tenant("k", None)
+
+
+@pytest.mark.parametrize("plane", ["guard", "replication", "tier"])
+def test_checkpoint_is_accepted_and_the_other_planes_still_raise(plane, tmp_path):
+    """``checkpoint=`` (the durable state plane) is ported: the engine takes it
+    beside no other plane, serves and journals; with it, each other plane still
+    raises naming A.7."""
+    from metrics_tpu_torch.engine import CheckpointConfig
+
+    cfg = CheckpointConfig(directory=str(tmp_path), interval_s=3600.0, durable=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+        StreamingEngine(FAMILIES["accuracy"][1](), checkpoint=cfg, **{plane: object()})
+    engine = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,), checkpoint=cfg)
+    try:
+        run_stream(engine, [("k", (np.array([1], np.int32), np.array([1], np.int32)))])
+        assert engine.telemetry_snapshot()["wal_records"] == 1
+        assert engine.health()["state"] == "SERVING" and not engine.health()["wal_disabled"]
+    finally:
+        engine.close()
 
 
 def test_reads_that_wait_raise_naming_their_item():

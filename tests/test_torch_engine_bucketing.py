@@ -90,14 +90,20 @@ def test_pad_micro_batch_matches_jax(bucket):
     """Rows back to back in submission order, ``(bucket, 1, *trailing)``, the
     narrowed dtypes (int64 labels by their low word), padding rows carrying the
     first request's slot and masked out."""
-    cols, kids, mask = tb.pad_micro_batch(REQUESTS, bucket)
+    cols, kids, mask, (hcols, hkids, hmask) = tb.pad_micro_batch(REQUESTS, bucket)
     jcols, jkids, jmask = jb.pad_micro_batch(REQUESTS, bucket)
-    for got, want in zip(cols, jcols):
+    for got, host, want in zip(cols, hcols, jcols):
         assert got.shape == (bucket, 1) and str(got.dtype).endswith(str(want.dtype))
         np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        # the host arrays the WAL journals are the columns' values and dtypes
+        assert host.dtype == np.asarray(want).dtype
+        np.testing.assert_array_equal(host, np.asarray(want))
     assert kids.dtype == torch.int32 and mask.dtype == torch.bool
     np.testing.assert_array_equal(kids.numpy(), np.asarray(jkids))
     np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    assert hkids.dtype == np.int32 and hmask.dtype == np.bool_
+    np.testing.assert_array_equal(hkids, np.asarray(jkids))
+    np.testing.assert_array_equal(hmask, np.asarray(jmask))
     assert set(kids[6:].tolist()) <= {2}
     again = tb.pad_micro_batch(REQUESTS, bucket)
     assert all(torch.equal(a, b) for a, b in zip((*cols, kids, mask), (*again[0], again[1], again[2])))
@@ -105,7 +111,7 @@ def test_pad_micro_batch_matches_jax(bucket):
 
 def test_pad_micro_batch_takes_tensors_and_trailing_shapes():
     reqs = [(1, (torch.arange(6, dtype=torch.float64).reshape(3, 2),), 3), (0, (np.ones((1, 2), np.float32),), 1)]
-    (col,), kids, mask = tb.pad_micro_batch(reqs, 4)
+    (col,), kids, mask, _ = tb.pad_micro_batch(reqs, 4)
     assert col.shape == (4, 1, 2) and col.dtype == torch.float32
     assert torch.equal(col[:, 0], torch.tensor([[0.0, 1.0], [2.0, 3.0], [4.0, 5.0], [1.0, 1.0]]))
     assert kids.tolist() == [1, 1, 1, 0] and mask.all()

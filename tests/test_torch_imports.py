@@ -95,6 +95,18 @@ def test_regression_and_task_facade_modules_are_scanned(relpath):
     assert relpath in SOURCES
 
 
+CKPT_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("comm/__init__", "comm/codec", "ckpt/__init__", "ckpt/format", "ckpt/store", "ckpt/writer",
+                 "ckpt/restore", "ckpt/faults")
+]
+
+
+@pytest.mark.parametrize("relpath", CKPT_MODULES)
+def test_durable_state_plane_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
 def _series(reg):
     """One registry's worth of every kind of series: labelled and unlabelled
     counters (integral and fractional), a gauge, histograms with explicit and
