@@ -204,6 +204,36 @@ checkout, and then:
   collection gives equal states on the card and the CPU and an equal
   ``compute()`` on the card (the CPU's within rtol 1e-6). No new kernel: the
   ``kernels`` line keeps its rows.
+- Phase N drives the guard plane (``guard=GuardConfig(...)``). N1: the guard's
+  overhead at K6's configuration, 6 pairs of plain and guarded passes, the
+  median pair ratio (the JAX gate of 5% printed as a record) beside the
+  dispatcher's timed share in ``form_drain``. N2: the light tenants' p99 under
+  a 100x skewed adversary (``engine_throughput.py --guard``: one tenant's
+  bursts of 400 x 64 rows every 0.4 s beside 9 x 100 paced batch-1
+  requests), 5 guarded pairs of solo and flooded runs (``GuardConfig(
+  shed=False, drain_quantum_rows=128)``) and 2 unguarded; both ratios printed
+  beside the JAX gates as records. N3: faults on K2's flagship collection at
+  C = 1000: a wedged dispatcher is taken over (inline on the engine's
+  stream) and restarted, every leaf equal to a fold, the wrappers' counters
+  equal to the inline updates' launches and the graphs' captured x replays
+  grown; a held dispatch lock quarantines the engine, every pending future
+  fails with ``EngineQuarantined`` and ``close()`` returns; a capture
+  governor with a budget of one sends novel signatures to eager updates on
+  ``cuda:0`` that launch the kernels, states equal to the fold.
+- Phase O drives the tier plane (``tier=TierConfig(...)``). O1: K6 plain
+  against ``TierConfig(hot_capacity=8)``, 6 pairs. O2: ``engine_throughput.py
+  --tier``'s million: 10^6 registered tenants, a sweep over 12,000 with a hot
+  set of 8000 and a flush every 64 submits; the slab stays within the
+  footprint of 10,000 tenants (measured on a 512-tenant untiered engine) and
+  no graph is captured after the slab reaches its cap; ``slab_bytes`` beside
+  ``torch.cuda.memory_allocated()``. O3: warm readmission p50 and p99 over
+  255 demote / timed pin cycles. O4: K2's collection (4 MB a tenant) over 32
+  tenants with 8 hot and 8 warm (the rest spilled), and K1's quantiles over
+  64 with 16 hot: every leaf equal to a fold and to an untiered twin, the
+  wrappers' launches 2 x captured and in the graphs captured x replays; a
+  crash and a recovery from the snapshot's tier section and the WAL's D and
+  P records gives the same leaves; ms a promotion and a demotion against a
+  pinned copy of the same bytes.
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
@@ -2935,6 +2965,614 @@ def phase_m(torch, np, obs, instrument) -> dict:
     return out
 
 
+# --------------------------------------------------------------------------- Phase N: the guard plane
+
+N_PAIRS = 6  # benchmarks/engine_throughput.py --guard's overhead pairs (:1284-1297)
+N_GATE_PCT = 5.0  # its guard_overhead_lt_5pct: a record here, as M1's
+N2_BURST, N2_HEAVY_ROWS, N2_LIGHT_TENANTS, N2_LIGHT_REQUESTS = 400, 64, 9, 100  # (:1309-1362)
+N2_GUARDED_PAIRS, N2_UNGUARDED_PAIRS = 5, 2
+N2_QUEUE, N2_CAPACITY, N2_QUANTUM = 16384, 16, 128
+N2_GATES = {"guarded_le_x_solo": 2.0, "unguarded_gt_x_solo": 10.0}
+N3_REQUESTS = 48  # flagship requests a fault window
+# the timeout must outlast the longest capture (the warm-up and capture of a 256-row graph of
+# the collection take seconds; the watchdog counts them, as the JAX package counts compiles)
+N3_WATCHDOG = dict(watchdog_timeout_s=5.0, watchdog_poll_s=0.02, hang_lock_timeout_s=1.0)
+
+
+def _engine_pass(torch, np, reqs, folds, rows, what: str, **engine_kw) -> tuple:
+    """One warmed, timed K6 pass (the benchmark's run_engine_pass) with the
+    given planes; the states held to the fold. Returns ``(record, engine)``
+    with the engine still open; the caller closes it."""
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.engine import StreamingEngine
+
+    engine = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, max_queue=K_QUEUE,
+                             capacity=K_TENANTS, **engine_kw)
+    rng = np.random.default_rng(13)
+    _k_warm(engine, lambda n: (rng.integers(0, 2, n), rng.integers(0, 2, n)), K_BUCKETS,
+            sorted({key for key, _ in reqs}))
+    spent = {"plane_ms": 0.0}
+    if engine._guard is not None:
+        engine._guard.form_drain = _m_timed(engine._guard.form_drain, spent, "plane_ms")
+    if engine._tier is not None:
+        engine._maybe_tier = _m_timed(engine._maybe_tier, spent, "plane_ms")
+    seconds = _k_submit(engine, reqs, K_THREADS)
+    spent = dict(spent)
+    _k_check_states(torch, engine, folds, rows, what)
+    snap = engine.telemetry_snapshot()
+    for name in ("shed", "failed", "tier_demotions", "compile_rejections"):
+        _check(snap[name] == 0, f"{what}: {snap[name]} {name} on well-behaved traffic")
+    return {"req_per_s": len(reqs) / seconds, "seconds": seconds, **spent}, engine
+
+
+def _paired_overhead(torch, np, what: str, plane: dict) -> dict:
+    """The JAX benchmark's paired procedure: N_PAIRS pairs of plain and planed K6
+    passes, alternating which goes first; the median pair ratio less one."""
+    import statistics
+
+    from metrics_tpu_torch.classification import BinaryAccuracy
+
+    reqs = _k6_reqs(np, K1_REQUESTS, K_TENANTS)
+    folds, rows = _k_fold(torch, BinaryAccuracy(device="cuda"), reqs, "cuda")
+    plain, planed, ratios = [], [], []
+    for i in range(N_PAIRS):
+        got = {}
+        for side in (("plain", "plane") if i % 2 == 0 else ("plane", "plain")):
+            rec, engine = _engine_pass(torch, np, reqs, folds, rows, f"{what} {side}",
+                                       **({} if side == "plain" else plane))
+            engine.close()
+            got[side] = rec
+        plain.append(got["plain"])
+        planed.append(got["plane"])
+        ratios.append(got["plain"]["req_per_s"] / got["plane"]["req_per_s"])
+    overhead_pct = (statistics.median(ratios) - 1.0) * 100.0
+    return {
+        "overhead_pct": overhead_pct, "gate_pct": N_GATE_PCT, "within_gate": overhead_pct < N_GATE_PCT,
+        "pair_ratios": ratios, "plain_req_per_s": [r["req_per_s"] for r in plain],
+        "plane_req_per_s": [r["req_per_s"] for r in planed],
+        "plain_best_req_per_s": max(r["req_per_s"] for r in plain),
+        "plane_best_req_per_s": max(r["req_per_s"] for r in planed),
+        # the dispatcher's wall ms in the plane's own code, a pass, and its share of the pass
+        "dispatcher_plane_ms_per_pass": [r["plane_ms"] for r in planed],
+        "dispatcher_share": [r["plane_ms"] / (r["seconds"] * 1e3) for r in planed],
+        "requests": len(reqs),
+    }
+
+
+def _n2_skew_pass(np, guard, flood: bool) -> float:
+    """benchmarks/engine_throughput.py's skew_pass on the card: the light
+    tenants' submit->commit p99 in seconds."""
+    import gc
+    import threading
+
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.engine import StreamingEngine
+
+    rng = np.random.default_rng(23)
+    heavy_args = (rng.integers(0, 2, N2_HEAVY_ROWS), rng.integers(0, 2, N2_HEAVY_ROWS))
+    light_args = (rng.integers(0, 2, 1), rng.integers(0, 2, 1))
+    engine = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, max_queue=N2_QUEUE,
+                             capacity=N2_CAPACITY, guard=guard)
+    lat_lock, light_lat, stop = threading.Lock(), [], threading.Event()
+    try:
+        for rows in K_BUCKETS:  # warm the ladder, one rung a flush
+            engine.submit("heavy", rng.integers(0, 2, rows), rng.integers(0, 2, rows))
+            engine.flush(timeout=300)
+        for k in range(N2_LIGHT_TENANTS):
+            engine.submit(f"light-{k}", *light_args)
+        engine.flush(timeout=300)
+        engine.reset()
+        gc.collect()
+        gc.disable()
+
+        def heavy_client():
+            while not stop.is_set():
+                for _ in range(N2_BURST):
+                    engine.submit("heavy", *heavy_args)
+                if stop.wait(0.4):
+                    return
+
+        def record(t0):
+            def done(f):
+                with lat_lock:
+                    light_lat.append(time.perf_counter() - t0)
+            return done
+
+        def light_client(k):
+            for _ in range(N2_LIGHT_REQUESTS):
+                t0 = time.perf_counter()
+                engine.submit(f"light-{k}", *light_args).add_done_callback(record(t0))
+                time.sleep(0.0005)  # paced: a polite interactive tenant
+
+        threads = [threading.Thread(target=light_client, args=(k,)) for k in range(N2_LIGHT_TENANTS)]
+        heavy = threading.Thread(target=heavy_client)
+        if flood:
+            heavy.start()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(300)
+        stop.set()
+        if flood:
+            heavy.join(300)
+        engine.flush(timeout=300)
+        _check(len(light_lat) == N2_LIGHT_TENANTS * N2_LIGHT_REQUESTS,
+               f"N2: {len(light_lat)} light receipts of {N2_LIGHT_TENANTS * N2_LIGHT_REQUESTS}")
+        snap = engine.telemetry_snapshot()
+        _check(snap["failed"] == 0 and snap["shed"] == 0, f"N2: {snap['failed']} failed, {snap['shed']} shed")
+        return float(np.percentile(np.asarray(light_lat), 99, method="nearest"))
+    finally:
+        gc.enable()
+        stop.set()
+        engine.close()
+
+
+def phase_n2(np) -> dict:
+    import statistics
+
+    from metrics_tpu_torch.engine import GuardConfig
+
+    guard = GuardConfig(shed=False, drain_quantum_rows=N2_QUANTUM)
+    guarded, unguarded = [], []
+    for _ in range(N2_GUARDED_PAIRS):
+        guarded.append((_n2_skew_pass(np, guard, flood=False), _n2_skew_pass(np, guard, flood=True)))
+    for _ in range(N2_UNGUARDED_PAIRS):
+        unguarded.append((_n2_skew_pass(np, None, flood=False), _n2_skew_pass(np, None, flood=True)))
+    g_ratio = statistics.median(f / s for s, f in guarded)
+    u_ratio = statistics.median(f / s for s, f in unguarded)
+    return {
+        "solo_p99_ms": min(s for s, _ in guarded) * 1e3, "guarded_p99_ms": min(f for _, f in guarded) * 1e3,
+        "unguarded_p99_ms": min(f for _, f in unguarded) * 1e3,
+        "guarded_pairs_ms": [[s * 1e3, f * 1e3] for s, f in guarded],
+        "unguarded_pairs_ms": [[s * 1e3, f * 1e3] for s, f in unguarded],
+        "guarded_over_solo": g_ratio, "unguarded_over_solo": u_ratio, "jax_gates": N2_GATES,
+        "guarded_within_gate": g_ratio <= N2_GATES["guarded_le_x_solo"],
+        "unguarded_beyond_gate": u_ratio > N2_GATES["unguarded_gt_x_solo"],
+        "config": {"burst": N2_BURST, "heavy_rows": N2_HEAVY_ROWS, "light_tenants": N2_LIGHT_TENANTS,
+                   "light_requests": N2_LIGHT_REQUESTS, "drain_quantum_rows": N2_QUANTUM, "max_queue": N2_QUEUE,
+                   "capacity": N2_CAPACITY},
+    }
+
+
+def _n_fold(torch, np, metric, reqs, whole) -> dict:
+    """Per-tenant fold on the card: request ``i`` in one ``update_state`` where
+    ``whole(i)`` (the inline and eager paths), else a row at a time (a replay)."""
+    states = {}
+    for i, (key, args) in enumerate(reqs):
+        state = states.get(key) or metric.init_state()
+        parts = [args] if whole(i) else [tuple(a[r : r + 1] for a in args) for r in range(args[0].shape[0])]
+        for part in parts:
+            state = metric.update_state(state, *(torch.from_numpy(np.ascontiguousarray(a)).to("cuda") for a in part))
+        states[key] = state
+    return states
+
+
+def _n_states(torch, engine, folds, what: str) -> int:
+    """Every tenant's engine state ``torch.equal`` to its fold, ``_update_count``
+    included (the fold applied whole or by rows as the engine did)."""
+    states = engine._read_states(list(folds), False)
+    return _m_equal(torch, states, folds, what)
+
+
+def _update_launches(metric, args, torch) -> dict:
+    """The wrappers' launches of one eager ``update_state`` of ``metric``."""
+    from metrics_tpu_torch.kernels import launch_counts
+
+    before = launch_counts()
+    metric.update_state(metric.init_state(), *(torch.from_numpy(a).to("cuda") for a in args))
+    torch.cuda.synchronize()
+    return {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+
+
+def _n_reqs(np, seed: int, n: int):
+    rng = np.random.default_rng(seed)
+
+    def labels(rows):
+        return rng.integers(0, K2_CLASSES, rows).astype(np.int64), rng.integers(0, K2_CLASSES, rows).astype(np.int64)
+
+    return [(f"tenant-{int(rng.integers(0, K_TENANTS))}", labels(int(rng.integers(K2_ROWS[0], K2_ROWS[1] + 1))))
+            for _ in range(n)], labels
+
+
+def _wait_for(cond, what: str, timeout: float = 60.0) -> float:
+    t0 = time.perf_counter()
+    while not cond():
+        _check(time.perf_counter() - t0 < timeout, f"{what} within {timeout} s")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def phase_n3(torch, np) -> dict:
+    """Faults on the card, each a check, at K2's flagship collection (C = 1000)."""
+    from metrics_tpu_torch.engine import EngineQuarantined, GuardConfig, StreamingEngine
+    from metrics_tpu_torch.guard.faults import hold_dispatch_lock, wedge_dispatcher
+    from metrics_tpu_torch.kernels import launch_counts
+
+    kernels = ("stat_scores", "pair_count")
+    out = {}
+    reqs, labels = _n_reqs(np, 29, 2 * N3_REQUESTS)
+    engine = StreamingEngine(_k2_metric(), buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS,
+                             guard=GuardConfig(shed=False, **N3_WATCHDOG))
+    try:
+        _k_warm(engine, labels, K_BUCKETS, sorted({k for k, _ in reqs}))
+        per_update = _update_launches(_k2_metric(), labels(4), torch)
+        before, graphs0 = launch_counts(), engine.graph_launches()
+        old_worker = engine._worker
+        t0 = time.perf_counter()
+        with wedge_dispatcher(engine):
+            wedged = [engine.submit(key, *args) for key, args in reqs[:N3_REQUESTS]]
+            engine.flush(timeout=300)
+            takeover_s = time.perf_counter() - t0
+            _check(all(f.result(timeout=60)["bucket"] is None for f in wedged), "N3: a wedged request was replayed")
+            restart_s = _wait_for(lambda: not engine.degraded and engine._worker is not old_worker,
+                                  "N3: a fresh dispatcher")
+        old_worker.join(60)
+        _check(not old_worker.is_alive(), "N3: the superseded dispatcher did not retire")
+        fused = [engine.submit(key, *args) for key, args in reqs[N3_REQUESTS:]]
+        engine.flush(timeout=300)
+        _check(all(f.result(timeout=60)["bucket"] in K_BUCKETS for f in fused), "N3: the restart is not fused")
+        snap = engine.telemetry_snapshot()
+        _check((snap["worker_hangs"], snap["watchdog_restarts"], snap["failed"]) == (1, 1, 0),
+               f"N3: hangs {snap['worker_hangs']}, restarts {snap['watchdog_restarts']}, failed {snap['failed']}")
+        counted = {k: launch_counts()[k] - before[k] for k in kernels}
+        in_graphs = {k: engine.graph_launches().get(k, 0) - graphs0.get(k, 0) for k in kernels}
+        inline = {k: N3_REQUESTS * per_update.get(k, 0) for k in kernels}
+        for k in kernels:
+            # no graph was captured in the window: the wrappers counted the inline updates only
+            _check(counted[k] == inline[k], f"N3: {k} counted {counted[k]}, inline updates {inline[k]}")
+            _check(in_graphs[k] > 0, f"N3: {k} never launched in a replay after the restart")
+        folds = _n_fold(torch, np, _k2_metric(), reqs, lambda i: i < N3_REQUESTS)
+        leaves = _n_states(torch, engine, folds, "N3 takeover vs fold")
+        out["takeover"] = {"requests_inline": N3_REQUESTS, "requests_fused_after": N3_REQUESTS,
+                           "takeover_s": takeover_s, "restart_s": restart_s, "leaves_equal": leaves,
+                           "launches_counted_inline": counted, "launches_per_inline_update": per_update,
+                           "launches_in_replays_after": in_graphs, "worker_restarts": engine.health()["worker_restarts"]}
+
+        # the held lock: a worker wedged inside a device call cannot be superseded
+        before_states = _m_states(engine)
+        t0 = time.perf_counter()
+        with wedge_dispatcher(engine), hold_dispatch_lock(engine):
+            held = [engine.submit(key, *args) for key, args in reqs[:8]]
+            quarantine_s = _wait_for(lambda: engine.quarantined, "N3: the engine quarantines")
+            for f in held:
+                _check(isinstance(f.exception(timeout=60), EngineQuarantined), "N3: a pending future did not fail")
+            failed_s = time.perf_counter() - t0
+        _check(engine.health()["state"] == "QUARANTINED", "N3: health is not QUARANTINED")
+        try:
+            engine.submit(*reqs[0][:1], *reqs[0][1])
+            _check(False, "N3: a quarantined engine accepted a submit")
+        except EngineQuarantined:
+            pass
+        _m_equal(torch, _m_states(engine), before_states, "N3 quarantine left the states alone")
+        out["held_lock"] = {"pending": len(held), "quarantine_s": quarantine_s, "all_failed_s": failed_s}
+    finally:
+        t0 = time.perf_counter()
+        engine.close()
+        out.setdefault("held_lock", {})["close_s"] = time.perf_counter() - t0
+    _check(out["held_lock"]["close_s"] < 60, "N3: close() of the quarantined engine hung")
+
+    # the capture governor: a budget of one capture, novel (signature, bucket) keys run eagerly on cuda:0
+    gov = StreamingEngine(_k2_metric(), buckets=(4, 8, 16, 64), max_queue=K_QUEUE, capacity=K_TENANTS,
+                          guard=GuardConfig(shed=False, compile_rate_per_s=0.0, compile_burst=1.0,
+                                            breaker_failure_threshold=1, breaker_probation_s=1e6))
+    try:
+        rng = np.random.default_rng(31)
+        # novel keys: buckets 8, 16 and 64, and float scores of shape (3, C) (another signature)
+        sizes = (1, 3, 6, 2, 12, 40, 3, 1)
+        greqs = [(f"tenant-{i % 4}", (rng.random((r, K2_CLASSES)).astype(np.float32) if i == 6 else
+                                      rng.integers(0, K2_CLASSES, r), rng.integers(0, K2_CLASSES, r)))
+                 for i, r in enumerate(sizes)]
+        per_update = _update_launches(_k2_metric(), labels(4), torch)
+        before = launch_counts()
+        buckets = []
+        for key, args in greqs:
+            buckets.append(gov.submit(key, *args).result(timeout=300)["bucket"])
+            gov.flush(timeout=300)
+        snap = gov.telemetry_snapshot()
+        eager = [i for i, b in enumerate(buckets) if b is None]
+        _check(len(eager) == snap["compile_rejections"] == 4 and snap["compiles"] == 1,
+               f"N3 governor: buckets {buckets}, {snap['compile_rejections']} rejections, {snap['compiles']} captures")
+        graphs = gov.graph_stats()
+        captured = {k: sum(g["captured_launches"].get(k, 0) for g in graphs) for k in kernels}
+        counted = {k: launch_counts()[k] - before[k] for k in kernels}
+        for k in kernels:
+            want = 2 * captured[k] + len(eager) * per_update.get(k, 0)
+            _check(counted[k] == want, f"N3 governor: {k} counted {counted[k]}, 2 x captured + eager {want}")
+        devices = {f"{d.type}:{0 if d.index is None else d.index}"
+                   for d in [leaf.device for leaf in gov._keyed.leaves()] + [gov.device]}
+        _check(devices == {"cuda:0"}, f"N3 governor: the eager route left cuda:0 ({devices})")
+        folds = _n_fold(torch, np, _k2_metric(), greqs, lambda i: buckets[i] is None)
+        leaves = _n_states(torch, gov, folds, "N3 governor vs fold")
+        out["governor"] = {"buckets": buckets, "compile_rejections": snap["compile_rejections"],
+                           "captures": snap["compiles"], "eager_chunks": len(eager), "launches_counted": counted,
+                           "launches_per_eager_update": per_update, "devices": sorted(devices), "leaves_equal": leaves,
+                           "breaker": gov.health()["breakers"]["compile"]["state"]}
+    finally:
+        gov.close()
+    return out
+
+
+def phase_n(torch, np) -> dict:
+    """The guard plane on the card (N1 to N3)."""
+    from metrics_tpu_torch.engine import GuardConfig
+
+    t0 = time.perf_counter()
+    out = {"N1": _paired_overhead(torch, np, "N1", {"guard": GuardConfig()})}
+    print(f"phase N1 {json.dumps(out['N1'])}")
+    out["N2"] = phase_n2(np)
+    print(f"phase N2 {json.dumps(out['N2'])}")
+    out["N3"] = phase_n3(torch, np)
+    print(f"phase N3 {json.dumps(out['N3'])}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase N: {out['seconds']:.1f} s")
+    return out
+
+
+# --------------------------------------------------------------------------- Phase O: the tier plane
+
+O2_HOT, O2_REGISTERED, O2_SWEEP, O2_STRIDE = 8_000, 1_000_000, 12_000, 64  # engine_throughput.py --tier (:1092)
+O2_FOOTPRINT_TENANTS = 10_000
+O3_HOT, O3_TENANTS, O3_ROWS = 512, 256, 8  # (:1154-1176)
+O3_CONTRACT_S = 0.1  # one dispatch interval, the JAX benchmark's readmission bound
+# requests round-robin over the tenants, a flush every hot-set's worth of submits, so
+# each batch promotes a hot set's worth and the pass after it demotes as many
+O4_FLAGSHIP_TENANTS, O4_FLAGSHIP_HOT, O4_FLAGSHIP_WARM, O4_FLAGSHIP_REQUESTS = 32, 8, 8, 128
+O4_QUANTILE_TENANTS, O4_QUANTILE_HOT, O4_QUANTILE_WARM, O4_QUANTILE_REQUESTS = 64, 16, 16, 1024
+
+
+def phase_o2(torch, np) -> dict:
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.engine import StreamingEngine, TierConfig
+
+    ref = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, capacity=64)
+    try:
+        for k in range(512):
+            ref._alloc_slot(f"ref-{k}")
+        ref.flush(timeout=300)
+        with ref._dispatch_lock:
+            ref._grow()
+        per_tenant = sum(ref._slab_bytes().values()) / ref._keyed.capacity
+    finally:
+        ref.close()
+    big = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=64,
+                          tier=TierConfig(hot_capacity=O2_HOT, idle_demote_s=3600.0, check_interval_s=0.0))
+    try:
+        t0 = time.perf_counter()
+        registered = big.register_tenants([f"reg-{i}" for i in range(O2_REGISTERED)])
+        reg_s = time.perf_counter() - t0
+        slab_after_reg = sum(big._slab_bytes().values())
+        one = (np.ones(1, np.int64), np.ones(1, np.int64))
+        capped_at = None
+        t0 = time.perf_counter()
+        for i in range(O2_SWEEP):
+            big.submit(f"act-{i}", *one)
+            if i % O2_STRIDE == O2_STRIDE - 1:
+                big.flush(timeout=300)
+                if capped_at is None and big._keyed.capacity >= 8192:
+                    capped_at = (i, big.telemetry_snapshot()["compiles"])
+        big.flush(timeout=300)
+        sweep_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 60
+        while big.tier_stats()["hot"] > O2_HOT and time.monotonic() < deadline:
+            time.sleep(0.01)
+        stats = big.tier_stats()
+        snap = big.telemetry_snapshot()
+        torch.cuda.synchronize()
+        allocated = torch.cuda.memory_allocated()
+        slab = stats["slab_bytes"]
+        checks = {
+            "registered_1m": registered == O2_REGISTERED,
+            "all_tenants_accounted": stats["hot"] + stats["warm"] + stats["cold"] == O2_REGISTERED + O2_SWEEP,
+            "registration_left_slab_alone": slab_after_reg < per_tenant * 1024,
+            "hot_set_trimmed_to_cap": stats["hot"] <= O2_HOT,
+            "slab_capped_at_10k_footprint": slab / per_tenant <= O2_FOOTPRINT_TENANTS,
+            "no_capture_after_the_cap": capped_at is not None and snap["compiles"] == capped_at[1],
+        }
+        for name, ok in checks.items():
+            _check(ok, f"O2: {name} failed ({stats}, capped at {capped_at}, {snap['compiles']} captures)")
+        return {
+            "checks": checks, "slab_bytes": slab, "slab_capacity": big._keyed.capacity,
+            "footprint_tenants": slab / per_tenant, "per_tenant_bytes": per_tenant,
+            "cuda_memory_allocated": allocated, "registration_keys_per_s": O2_REGISTERED / reg_s,
+            "registration_s": reg_s, "sweep_s": sweep_s, "sweep_req_per_s": O2_SWEEP / sweep_s,
+            "hot": stats["hot"], "warm": stats["warm"], "cold": stats["cold"], "captures": snap["compiles"],
+            "capped_at_submit": capped_at[0], "captures_at_cap": capped_at[1], "key_growths": snap["key_growths"],
+            "tier_demotions": snap["tier_demotions"], "tier_promotions": snap["tier_promotions"],
+            "config": {"hot_capacity": O2_HOT, "registered": O2_REGISTERED, "sweep_tenants": O2_SWEEP,
+                       "flush_every": O2_STRIDE},
+        }
+    finally:
+        big.close()
+
+
+def phase_o3(np) -> dict:
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.engine import StreamingEngine, TierConfig
+
+    rng = np.random.default_rng(37)
+    engine = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=64,
+                             tier=TierConfig(hot_capacity=O3_HOT, idle_demote_s=3600.0, check_interval_s=3600.0))
+    try:
+        for k in range(O3_TENANTS):
+            engine.submit(f"warm-{k}", rng.integers(0, 2, O3_ROWS), rng.integers(0, 2, O3_ROWS))
+        engine.flush(timeout=300)
+        _check(engine.demote_tenant("warm-0"), "O3: warm-0 not demoted")  # both paths once
+        engine.pin_tenant("warm-0")
+        engine.unpin_tenant("warm-0")
+        lat = []
+        for k in range(1, O3_TENANTS):
+            key = f"warm-{k}"
+            _check(engine.demote_tenant(key), f"O3: {key} not demoted")
+            t0 = time.perf_counter()
+            engine.pin_tenant(key)  # promotes synchronously, as a submit to a warm tenant does
+            lat.append(time.perf_counter() - t0)
+            engine.unpin_tenant(key)
+            _check(engine.tenant_tier(key) == "hot", f"O3: {key} not readmitted")
+        snap = engine.telemetry_snapshot()
+        _check(snap["tier_promotions"] == snap["tier_demotions"] == O3_TENANTS, f"O3: {snap['tier_promotions']} "
+               f"promotions, {snap['tier_demotions']} demotions")
+        p99 = float(np.percentile(np.asarray(lat), 99, method="nearest"))
+        return {"p50_ms": float(np.percentile(np.asarray(lat), 50, method="nearest")) * 1e3, "p99_ms": p99 * 1e3,
+                "max_ms": max(lat) * 1e3, "samples": len(lat), "contract_ms": O3_CONTRACT_S * 1e3,
+                "within_contract": p99 < O3_CONTRACT_S}
+    finally:
+        engine.close()
+
+
+def _o4_serve(torch, np, name, make, reqs, kernels, tier_kw, directory) -> dict:
+    """One metric tiered around its hand kernels: a tiered engine (checkpointing
+    into ``directory``), an untiered twin, the same requests from one thread
+    with a flush every ``len(tenants)`` submits; leaves equal to the fold and
+    the twin; the wrappers' counters against the graphs; a crash and a
+    recovery; the tier's transfers timed."""
+    import tempfile
+
+    from metrics_tpu_torch.engine import CheckpointConfig, StreamingEngine, TierConfig
+    from metrics_tpu_torch.engine import runtime
+    from metrics_tpu_torch.kernels import launch_counts
+
+    keys = sorted({k for k, _ in reqs})
+    stride = tier_kw["hot_capacity"]
+    spill = tempfile.mkdtemp(dir=directory)
+    # neither slab grows during the run, so every graph captured stays in graph_stats():
+    # the tiered one holds the hot set and one batch's promotions, the twin every tenant
+    kw = dict(buckets=K_BUCKETS, max_queue=K_QUEUE)
+    ckpt = CheckpointConfig(directory=os.path.join(directory, "ckpt"), interval_s=3600.0, retain=M_RETAIN,
+                            durable=False)
+    tiered = StreamingEngine(make(), checkpoint=ckpt, tier=TierConfig(spill_directory=spill, durable=False,
+                                                                     idle_demote_s=3600.0, check_interval_s=0.0,
+                                                                     **tier_kw), capacity=2 * stride, **kw)
+    twin = StreamingEngine(make(), capacity=len(keys), **kw)
+    # a promotion's wall time, and within it the entry's fetch (the warm dict, or a spill
+    # file read and checked) and its restore into the slab row (the H2D copies); the rest
+    # is the P record (the entry serialized into the WAL) and the bookkeeping
+    spent = {"promote_ms": 0.0, "demote_ms": 0.0, "fetch_ms": 0.0, "restore_ms": 0.0}
+    tiered._promote_tenant = _m_timed(tiered._promote_tenant, spent, "promote_ms")
+    tiered._demote_tenants = _m_timed(tiered._demote_tenants, spent, "demote_ms")
+    tiered._tier.pop_entry = _m_timed(tiered._tier.pop_entry, spent, "fetch_ms")
+    restore = runtime.restore_entry
+    runtime.restore_entry = _m_timed(restore, spent, "restore_ms")
+    before = launch_counts()
+    try:
+        half = len(reqs) // 2
+        for engine in (tiered, twin):
+            for i, (key, args) in enumerate(reqs):
+                engine.submit(key, *args)
+                if i % stride == stride - 1:
+                    engine.flush(timeout=300)
+                    if engine is tiered:  # the eviction pass follows the batch: let it trim to the hot set
+                        _wait_for(lambda: tiered.tier_stats()["hot"] <= stride, f"O4 {name}: the trim")
+                if engine is tiered and i == half:
+                    engine.flush(timeout=300)
+                    _check(engine.checkpoint_now() is not None, f"O4 {name}: the mid-run snapshot failed")
+            engine.flush(timeout=300)
+        runtime.restore_entry = restore
+        counted = {k: launch_counts()[k] - before[k] for k in kernels}
+        snap = tiered.telemetry_snapshot()
+        _check(snap["fused"] and snap["failed"] == 0 and snap["fused_fallbacks"] == 0,
+               f"O4 {name}: fused {snap['fused']}, {snap['failed']} failed")
+        for c in ("tier_demotions", "tier_promotions", "tier_spills"):
+            _check(snap[c] > 0, f"O4 {name}: no {c}")
+        _check(tiered._keyed.capacity == 2 * stride and snap["key_growths"] == 0,
+               f"O4 {name}: the tiered slab grew to {tiered._keyed.capacity} rows")
+        folds, rows = _k_fold(torch, make(), reqs, "cuda")
+        states = tiered._read_states(keys, False)  # non-resident tenants read from host RAM and disk
+        leaves = _m_equal(torch, states, twin._read_states(keys, False), f"O4 {name} tiered vs twin")
+        for key in keys:
+            for path, x in _k_leaves(states[key]).items():
+                y = _k_leaves(folds[key])[path]
+                if path.endswith("_update_count"):
+                    _check(int(x) == rows[key], f"O4 {name} {key}: {int(x)} updates for {rows[key]} rows")
+                else:
+                    _check(x.dtype == y.dtype and torch.equal(x.cpu(), y.cpu()), f"O4 {name} {key}: {path} vs fold")
+        graphs = tiered.graph_stats() + twin.graph_stats()
+        captured = {k: sum(g["captured_launches"].get(k, 0) for g in graphs) for k in kernels}
+        in_graphs = {k: sum(g["captured_launches"].get(k, 0) * g["replays"] for g in graphs) for k in kernels}
+        for k in kernels:
+            _check(counted[k] == 2 * captured[k] and in_graphs[k] > 0,
+                   f"O4 {name}: {k} counted {counted[k]}, captured {captured[k]}, in replays {in_graphs[k]}")
+        tier_leaves = tiered._read_states(keys, False)
+        entry_bytes = sum(leaf.numel() * leaf.element_size() for leaf in tiered._keyed.leaves()) // \
+            tiered._keyed.capacity
+    finally:
+        runtime.restore_entry = restore
+        tiered.close(checkpoint=False)  # the crash: the WAL holds D and P records past the snapshot
+        twin.close()
+    recovered = StreamingEngine(make(), checkpoint=ckpt, capacity=2 * stride, **kw)
+    try:
+        rsnap = recovered.telemetry_snapshot()
+        _check(rsnap["recoveries"] == 1 and rsnap["failed"] == 0 and recovered._tier is not None,
+               f"O4 {name}: recoveries {rsnap['recoveries']}, failed {rsnap['failed']}")
+        rec_leaves = _m_equal(torch, recovered._read_states(keys, False), tier_leaves, f"O4 {name} recovered")
+        replayed = rsnap["replayed"]
+    finally:
+        recovered.close(checkpoint=False)
+    # the same bytes as one tenant's state, copied between pinned host memory and the card
+    host = torch.empty(entry_bytes, dtype=torch.uint8).pin_memory()
+    dev = torch.empty(entry_bytes, dtype=torch.uint8, device="cuda")
+    h2d = _time_ms(lambda: dev.copy_(host, non_blocking=True), 20)
+    d2h = _time_ms(lambda: host.copy_(dev, non_blocking=True), 20)
+    return {
+        "requests": len(reqs), "tenants": len(keys), "tier": dict(tier_kw), "slab_rows": 2 * stride,
+        "twin_slab_rows": len(keys), "leaves_equal_twin": leaves,
+        "leaves_equal_after_recovery": rec_leaves, "records_replayed": replayed,
+        "promotions": snap["tier_promotions"], "demotions": snap["tier_demotions"], "spills": snap["tier_spills"],
+        "ms_per_promotion": spent["promote_ms"] / snap["tier_promotions"],
+        "ms_per_demotion": spent["demote_ms"] / snap["tier_demotions"], "bytes_per_tenant": entry_bytes,
+        "fetch_ms_per_promotion": spent["fetch_ms"] / snap["tier_promotions"],
+        "restore_ms_per_promotion": spent["restore_ms"] / snap["tier_promotions"],
+        "pinned_h2d_ms": h2d, "pinned_d2h_ms": d2h, "launches_counted": counted, "captured": captured,
+        "launches_in_replays": in_graphs,
+    }
+
+
+def phase_o4(torch, np) -> dict:
+    import tempfile
+
+    from metrics_tpu_torch import QuantileSketch
+
+    rng = np.random.default_rng(41)
+
+    def labels(rows):
+        return rng.integers(0, K2_CLASSES, rows).astype(np.int64), rng.integers(0, K2_CLASSES, rows).astype(np.int64)
+
+    flagship = [(f"tenant-{i % O4_FLAGSHIP_TENANTS}", labels(int(rng.integers(K2_ROWS[0], K2_ROWS[1] + 1))))
+                for i in range(O4_FLAGSHIP_REQUESTS)]
+    quantile = [(f"tenant-{i % O4_QUANTILE_TENANTS}", (rng.lognormal(0.0, 1.0, 1).astype(np.float32),))
+                for i in range(O4_QUANTILE_REQUESTS)]
+    out = {}
+    # promote records carry whole entries (4 MB a flagship tenant): the WAL and the spill
+    # files go to memory where the machine has it
+    with tempfile.TemporaryDirectory(dir="/dev/shm" if os.path.isdir("/dev/shm") else None) as d:
+        for name, make, reqs, kernels, tier_kw in (
+            ("flagship", _k2_metric, flagship, ("stat_scores", "pair_count"),
+             dict(hot_capacity=O4_FLAGSHIP_HOT, warm_capacity=O4_FLAGSHIP_WARM)),
+            ("quantile", QuantileSketch, quantile, ("hist_add",),
+             dict(hot_capacity=O4_QUANTILE_HOT, warm_capacity=O4_QUANTILE_WARM)),
+        ):
+            os.makedirs(os.path.join(d, name))
+            out[name] = _o4_serve(torch, np, name, make, reqs, kernels, tier_kw, os.path.join(d, name))
+    return out
+
+
+def phase_o(torch, np) -> dict:
+    """The tier plane on the card (O1 to O4)."""
+    from metrics_tpu_torch.engine import TierConfig
+
+    t0 = time.perf_counter()
+    out = {"O1": _paired_overhead(torch, np, "O1", {"tier": TierConfig(hot_capacity=8)})}
+    print(f"phase O1 {json.dumps(out['O1'])}")
+    out["O2"] = phase_o2(torch, np)
+    print(f"phase O2 {json.dumps(out['O2'])}")
+    out["O3"] = phase_o3(np)
+    print(f"phase O3 {json.dumps(out['O3'])}")
+    out["O4"] = phase_o4(torch, np)
+    print(f"phase O4 {json.dumps(out['O4'])}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase O: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3002,6 +3640,8 @@ def main() -> int:
 
     classification_l = phase_l(torch, np)
     durable = phase_m(torch, np, obs, instrument)
+    guard = phase_n(torch, np)
+    tier = phase_o(torch, np)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -3030,6 +3670,11 @@ def main() -> int:
                 "phase_j1_per_step": {k: v[route] for k, v in collection_step["launches_per_step"].items()},
                 "phase_j2_per_update": {k: v[route] for k, v in six["launches_per_update"].items()},
                 "phase_j2_forming_update": six["launches_forming_update"][route],
+                # the guard and tier planes around the flagship collection (Phases N3, O4)
+                "phase_n3_takeover_inline": guard["N3"]["takeover"]["launches_counted_inline"][route],
+                "phase_n3_replays_after_restart": guard["N3"]["takeover"]["launches_in_replays_after"][route],
+                "phase_n3_governor_counted": guard["N3"]["governor"]["launches_counted"][route],
+                "phase_o4_in_replays": tier["O4"]["flagship"]["launches_in_replays"][route],
             },
         })
     shape_fields = ("shape", *fields)
@@ -3049,6 +3694,10 @@ def main() -> int:
             "max_abs_err": scatter_err[kernel],
             **{k: rec[k] for k in fields},
             **({"shapes": [{k: r[k] for k in shape_fields} for r in shapes]} if shapes else {}),
+            **({"launches_by_path": {"phase_e_updates": sketch_launches[kernel],
+                                     "phase_o4_in_replays": tier["O4"]["quantile"]["launches_in_replays"][kernel],
+                                     "phase_o4_counted": tier["O4"]["quantile"]["launches_counted"][kernel]}}
+               if kernel == "hist_add" else {}),
         })
     walk = sketch_recs[f"cms_walk_{HH_BATCH}"]
     kernels.append({
@@ -3076,7 +3725,7 @@ def main() -> int:
     })
     print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six,
                       "engine": engine, "binary_multilabel_mse": classification_l, "durable": durable,
-                      "card": card}))
+                      "guard": guard, "tier": tier, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

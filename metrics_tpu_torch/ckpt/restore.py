@@ -113,9 +113,11 @@ def migrate(snapshot: Snapshot, target_version: int) -> Any:
 def host_tree(tree: Any) -> Any:
     """``tree`` with every tensor replaced by a numpy copy on the host (dicts,
     lists and tuples rebuilt, anything else kept): what the snapshot format
-    serializes. Count states keep their dtype (int32 stays int32)."""
+    serializes. Count states keep their dtype (int32 stays int32). A CPU
+    tensor is copied too, so the copy never aliases a slab that later writes
+    change."""
     if isinstance(tree, torch.Tensor):
-        return tree.detach().cpu().numpy()
+        return tree.detach().to("cpu", copy=True).numpy()
     if isinstance(tree, dict):
         return {k: host_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):

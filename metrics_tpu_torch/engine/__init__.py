@@ -1,6 +1,6 @@
 """Streaming metric engine — async micro-batched, multi-tenant metric serving
-(port of ``metrics_tpu/engine`` with its durable state plane; without the guard,
-replication and tier planes).
+(port of ``metrics_tpu/engine`` with its durable state, guard and tier planes;
+without the replication plane).
 
 Turns any ``Metric`` / ``MetricCollection`` into a service::
 
@@ -17,6 +17,9 @@ dispatcher, one CUDA graph per micro-batch shape, backpressure and degradation,
 snapshots, the WAL and recovery),
 ``stream.py`` (stacked multi-tenant keyed state and sliding windows),
 ``telemetry.py`` (counters, occupancy, p50/p99 latency in the port's obs registry).
+Overload and abuse protection is the guard plane (``guard=GuardConfig(...)``,
+:mod:`metrics_tpu_torch.guard`); million-tenant residency is the tier plane
+(``tier=TierConfig(...)``, :mod:`metrics_tpu_torch.tier`).
 """
 
 from metrics_tpu_torch.engine.bucketing import (
@@ -30,17 +33,35 @@ from metrics_tpu_torch.engine.bucketing import (
 from metrics_tpu_torch.engine.runtime import CheckpointConfig, EngineBackpressure, EngineClosed, StreamingEngine
 from metrics_tpu_torch.engine.stream import EagerKeyedState, KeyedState
 from metrics_tpu_torch.engine.telemetry import EngineTelemetry
+from metrics_tpu_torch.guard import (
+    DeadlineExceeded,
+    EngineQuarantined,
+    GuardConfig,
+    GuardRejected,
+    QuotaExceeded,
+    RequestShed,
+    TenantQuarantined,
+)
+from metrics_tpu_torch.tier import TierConfig
 
 __all__ = [
     "DEFAULT_BUCKETS",
     "BucketConfig",
     "CheckpointConfig",
+    "DeadlineExceeded",
     "EagerKeyedState",
     "EngineBackpressure",
     "EngineClosed",
+    "EngineQuarantined",
     "EngineTelemetry",
+    "GuardConfig",
+    "GuardRejected",
     "KeyedState",
+    "QuotaExceeded",
+    "RequestShed",
     "StreamingEngine",
+    "TenantQuarantined",
+    "TierConfig",
     "choose_bucket",
     "inspect_request",
     "pad_micro_batch",

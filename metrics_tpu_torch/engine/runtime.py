@@ -1,5 +1,6 @@
 """StreamingEngine — async micro-batched, multi-tenant metric serving
-(port of ``metrics_tpu/engine/runtime.py``, the core without the planes).
+(port of ``metrics_tpu/engine/runtime.py`` with its durable, guard and tier
+planes; replication waits for a later slice).
 
 The pure functional core (``Metric.update_state`` / ``compute_from`` /
 ``merge_states``) is the substrate: state is an explicit tree of tensors and
@@ -32,7 +33,8 @@ is counted in telemetry):
    thread, on the same device (``fused_fallbacks``);
 3. if the dispatcher thread itself dies, the engine completes its in-flight work
    synchronously and every later ``submit`` runs inline on the caller's thread
-   (``inline_dispatches``) — no request is ever silently lost.
+   (``inline_dispatches``) — no request is ever silently lost. With a guard
+   plane that allows restarts, a fresh dispatcher then takes over.
 
 Backpressure at a full queue follows ``policy``: ``"block"`` (wait for space),
 ``"drop"`` (raise :class:`EngineBackpressure` immediately), ``"timeout"`` (wait up to
@@ -54,13 +56,33 @@ engine's own bucket graphs, so the recovered state is the lost engine's, bit for
 bit, on the device kind that journaled it. Snapshots and WAL directories are the
 JAX package's format: either package recovers from what the other wrote.
 
-Not ported yet: the guard, replication and tier planes (``guard=``,
-``replication=``, ``tier=``, ROADMAP A.7), and with them trace contexts, the flight
-recorder, dispatcher restarts, ``export_tenant``, ``import_tenant`` and the WAL's
-demote and promote records; ``compute(sync=True)`` (A.8); ``rollup`` (A.9). Each
-raises ``NotImplementedError`` naming its item. Reads compute eagerly from a copy of
-the tenant's state (the JAX package's jitted read path is not captured yet, so
-``read_jit_fallbacks`` stays 0).
+Guard plane (``guard=GuardConfig(...)``, :mod:`metrics_tpu_torch.guard`): admission
+(quotas, quarantined tenants, expired deadlines) on the caller's thread at
+``submit``; a weighted fair drain, deadline expiry and CoDel shedding on the
+dispatcher; breakers around graph captures (a refused novel signature runs
+eagerly on the engine's own device, ``compile_rejections``) and checkpoint
+commits; and a watchdog that supersedes a hung dispatcher. A CUDA graph replay
+cannot be interrupted, so the watchdog probes the dispatch lock: free, the hang
+was outside the device path and the taken-over requests are applied inline on
+the engine's stream (then a fresh dispatcher starts); held, the engine
+quarantines itself and fails every pending future fast. A superseded worker
+checks its epoch under the dispatch lock and never replays.
+
+Tier plane (``tier=TierConfig(...)``, :mod:`metrics_tpu_torch.tier`): the slab
+holds at most ``hot_capacity`` tenants; the coldest are demoted between
+micro-batches to host-RAM entries (a pass that demotes many copies their rows
+off the card in one gather per leaf), the warm overflow spills to MTCKPT1 files,
+and a submit to a non-resident tenant promotes it into a free slab row, in
+place, before the replay that reads it. Freed rows are reused before the slab
+grows, so past its doubling boundary a sweep over more tenants than the hot
+set captures no new graph. Demotions, promotions and retirements are journaled
+(``D``, ``P``, ``T``) and a snapshot carries the residency map.
+
+Not ported yet: the replication plane (``replication=``, ROADMAP A.7), and with it
+trace contexts and the flight recorder; ``compute(sync=True)`` (A.8); ``rollup``
+(A.9). Each raises ``NotImplementedError`` naming its item. Reads compute eagerly
+from a copy of the tenant's state (the JAX package's jitted read path is not
+captured yet, so ``read_jit_fallbacks`` stays 0).
 """
 
 from __future__ import annotations
@@ -78,8 +100,9 @@ from typing import Any, Callable, Dict, Hashable, Iterator, List, Optional, Sequ
 
 import numpy as np
 import torch
-from torch.utils._pytree import tree_flatten, tree_map
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from metrics_tpu_torch.ckpt import format as ckpt_format
 from metrics_tpu_torch.ckpt.format import _dtype_from_name
 from metrics_tpu_torch.ckpt.restore import dtype_name, host_tree
 from metrics_tpu_torch.ckpt.store import RequestJournal, SnapshotStore
@@ -100,10 +123,15 @@ from metrics_tpu_torch.engine.bucketing import (
 )
 from metrics_tpu_torch.engine.stream import EagerKeyedState, KeyedState, _clone_tree
 from metrics_tpu_torch.engine.telemetry import EngineTelemetry
+from metrics_tpu_torch.guard import EngineQuarantined, GuardConfig, GuardPlane, HangDetector, TenantQuarantined
+from metrics_tpu_torch.guard.watchdog import Watchdog
 from metrics_tpu_torch.kernels import launch_counts
 from metrics_tpu_torch.kernels.engine_scan import masked_scan_update
 from metrics_tpu_torch.metric import Metric, _as_state_tensor
+from metrics_tpu_torch.obs import OBS as _OBS
 from metrics_tpu_torch.obs import instrument as _obs
+from metrics_tpu_torch.tier import HOT, TierConfig, TierManager, capture_entry, peek_state, restore_entry
+from metrics_tpu_torch.tier.residency import capture_entries
 from metrics_tpu_torch.utils.checks import traced
 from metrics_tpu_torch.utils.device import resolve_device
 from metrics_tpu_torch.utils.graphs import capture
@@ -114,7 +142,7 @@ _WAL_FLUSH = ("none", "flush", "fsync")
 _WAL_FSYNC = ("never", "commit", "interval")
 
 # the planes that wait for a later slice, and their ROADMAP items
-_PLANES = (("guard", "A.7"), ("replication", "A.7"), ("tier", "A.7"))
+_PLANES = (("replication", "A.7"),)
 
 # WAL record encoding: the JAX package's, byte for byte, so either package replays
 # the other's journal. Hand-rolled rather than pickled, because encoding rides the
@@ -133,12 +161,15 @@ _PLANES = (("guard", "A.7"), ("replication", "A.7"), ("tier", "A.7"))
 #   transitions that are not submits, journaled in order with the chunks.
 # - b"T" RETIRE records (slot + key) — ``evict_tenant``, journaled before the slot
 #   returns to the free list, so replay reproduces retire-then-reuse in order.
-# - b"D" DEMOTE / b"P" PROMOTE records come from the JAX package's tier plane; the
-#   port replays them once that plane is ported (ROADMAP A.7) and raises until then.
+# - b"D" DEMOTE records (slot + key) — the tier plane moved a tenant out of the
+#   slab; replay captures the replayed row into the warm mirror and frees the slot.
+# - b"P" PROMOTE records (slot + key + the readmitted entry as an MTCKPT1 blob,
+#   empty for a cold-registered tenant with no state) — replay installs the slot
+#   and restores the embedded entry, never the spill file the live engine deleted.
 #
 # The JAX package may append a trace-context trailer (17 bytes per traced request)
 # to R and C records; the decoders stop at the positional body and ignore it, as
-# trace contexts come with A.7.
+# trace contexts come with the replication slice (A.7).
 
 _WAL_U32 = struct.Struct("<I")
 
@@ -205,15 +236,31 @@ def _encode_chunk_record(
     return b"".join(parts)
 
 
-def _encode_tier_record(kind: bytes, slot: int, key_bytes: bytes) -> bytes:
-    """One residency-transition WAL record; the port writes only b"T"."""
-    return b"".join([kind, _WAL_U32.pack(slot), _WAL_U32.pack(len(key_bytes)), key_bytes])
+def _encode_tier_record(kind: bytes, slot: int, key_bytes: bytes, blob: bytes = b"") -> bytes:
+    """One residency-transition WAL record (kind is b"D" / b"T" / b"P").
+
+    ``blob`` rides only on promote records: the readmitted entry as an
+    ``MTCKPT1`` container (empty for a cold-registered tenant that never had
+    state — replay then installs a fresh init row)."""
+    parts = [kind, _WAL_U32.pack(slot), _WAL_U32.pack(len(key_bytes)), key_bytes]
+    if kind == b"P":
+        parts.append(_WAL_U32.pack(len(blob)))
+        parts.append(blob)
+    return b"".join(parts)
 
 
-def _decode_tier_record(payload: bytes) -> Tuple[int, Hashable]:
+def _decode_tier_record(payload: bytes) -> Tuple[int, Hashable, Optional[bytes]]:
     (slot,) = _WAL_U32.unpack_from(payload, 1)
     (klen,) = _WAL_U32.unpack_from(payload, 5)
-    return slot, pickle.loads(payload[9 : 9 + klen])
+    off = 9
+    key = pickle.loads(payload[off : off + klen])
+    off += klen
+    blob: Optional[bytes] = None
+    if payload[:1] == b"P":
+        (blen,) = _WAL_U32.unpack_from(payload, off)
+        off += 4
+        blob = payload[off : off + blen]
+    return slot, key, blob
 
 
 def _numpy_leaf(x: Any) -> bool:
@@ -307,11 +354,19 @@ class _FusedUnsupported(Exception):
     """Internal: the metric's update cannot run inside the micro-batch kernel."""
 
 
+class _WorkerSuperseded(BaseException):
+    """Internal: a dispatcher found its epoch stale (a hang takeover superseded
+    it) and retires without touching shared state."""
+
+
 class _Request:
-    __slots__ = ("key", "slot", "args", "rows", "signature", "future", "t_submit", "rows_done", "seq")
+    __slots__ = ("key", "slot", "args", "rows", "signature", "future", "t_submit", "rows_done", "seq",
+                 "deadline", "priority", "t_enqueue", "is_probe")
 
     def __init__(self, key: Hashable, slot: Optional[int], args: Tuple[Any, ...],
-                 rows: int, signature: Signature, future: "Future", t_submit: float) -> None:
+                 rows: int, signature: Signature, future: "Future", t_submit: float,
+                 deadline: Optional[float] = None, priority: int = 0,
+                 t_enqueue: float = 0.0, is_probe: bool = False) -> None:
         self.key = key
         self.slot = slot
         self.args = args
@@ -325,6 +380,14 @@ class _Request:
         # mid-batch fused→eager demotion must not re-apply them)
         self.rows_done = 0
         self.seq: Optional[int] = None  # WAL seq of this request's own record, once journaled
+        # guard plane: absolute deadline and shed priority on the guard clock,
+        # the enqueue stamp sojourn-time shedding reads, and whether this
+        # request is a quarantined tenant's single half-open probe (a probe
+        # rejected in-queue must free its slot, not wedge the tenant)
+        self.deadline = deadline
+        self.priority = priority
+        self.t_enqueue = t_enqueue
+        self.is_probe = is_probe
 
 
 def _component_metrics(metric: Any) -> List[Metric]:
@@ -444,7 +507,13 @@ class StreamingEngine:
         checkpoint: a :class:`CheckpointConfig` turns on the durable state plane:
             periodic snapshots, the WAL and, with ``resume=True`` (its default),
             recovery from what the directory holds when the engine starts.
-        guard, replication, tier: the JAX package's other planes; not ported yet —
+        guard: a :class:`~metrics_tpu_torch.guard.GuardConfig` turns on the guard
+            plane: quotas, the fair drain, deadlines and shedding, breakers,
+            tenant quarantine and (with ``watchdog_timeout_s``) the watchdog.
+        tier: a :class:`~metrics_tpu_torch.tier.TierConfig` turns on the tier
+            plane: at most ``hot_capacity`` tenants in the device slab, the rest
+            in host RAM and on disk.
+        replication: the JAX package's replication plane; not ported yet —
             anything but ``None`` raises ``NotImplementedError`` (ROADMAP A.7).
         device: where the engine serves; ``None`` serves on the metric's device (a
             metric's default device is the GPU). Otherwise the engine's clone of
@@ -477,9 +546,9 @@ class StreamingEngine:
         capacity: int = 8,
         telemetry_window: int = 2048,
         checkpoint: Optional[CheckpointConfig] = None,
-        guard: Optional[Any] = None,
+        guard: Optional[GuardConfig] = None,
         replication: Optional[Any] = None,
-        tier: Optional[Any] = None,
+        tier: Optional[TierConfig] = None,
         device: Optional[Any] = None,
         telemetry_labels: Optional[Dict[str, str]] = None,
         start: bool = True,
@@ -488,7 +557,7 @@ class StreamingEngine:
             raise MetricsTPUUserError(
                 f"StreamingEngine serves a Metric or MetricCollection, got {type(metric_or_collection)!r}"
             )
-        planes = {"guard": guard, "replication": replication, "tier": tier}
+        planes = {"replication": replication}
         for name, item in _PLANES:
             if planes[name] is not None:
                 raise NotImplementedError(
@@ -529,6 +598,14 @@ class StreamingEngine:
         )
         self._window = window
 
+        # tier plane: None-checked on every hot path — an untiered engine pays
+        # one attribute test per drained batch and nothing per request.
+        # _tier_policy tells a configured tier (the eviction pass runs) from one
+        # made lazily by the replay or restore of residency records (mechanics
+        # only: nothing is demoted until a policy is configured).
+        self._tier: Optional[TierManager] = TierManager(tier, self._metric) if tier is not None else None
+        self._tier_policy = tier is not None
+
         # the dispatcher's stream and the graph memory pool all its graphs share
         # (a graph's temporaries are dead once its replay ends, and replays run one
         # at a time on this stream)
@@ -548,9 +625,13 @@ class StreamingEngine:
         self._inflight = 0
         self._closed = False
         self._degraded = False
-        # set by the guard plane's hang watchdog (ROADMAP A.7); health() reports it
-        self._quarantined = False
+        self._quarantined = False  # a hung worker wedged in a device call: fail fast
         self._worker_error: Optional[BaseException] = None
+        # dispatcher generations: a hang takeover supersedes a worker by bumping
+        # the epoch; a worker re-checks its epoch wherever it touches shared
+        # state (under the dispatch lock before any replay) and retires if stale
+        self._worker_epoch = 0
+        self._worker_restarts = 0
         self._active_batch: Optional[List[_Request]] = None
         self._zombie_workers = 0
         # serializes use of the private metric instance and of the slab
@@ -572,8 +653,24 @@ class StreamingEngine:
         self._wal_slots_sent: set = set()  # slot ids already introduced to the journal
         self._replay_slot_keys: Dict[int, Hashable] = {}
         self._snapshot_seqs: Dict[int, int] = {}  # generation -> WAL seq it covers
+        # guard plane (None-checked on every hot path, like checkpointing)
+        self._guard: Optional[GuardPlane] = None
+        self._hang_detector: Optional[HangDetector] = None
+        self._watchdog: Optional[Watchdog] = None
+        if guard is not None:
+            self._guard = GuardPlane(guard, telemetry=self.telemetry, max_rows=self._max_rows)
+            if guard.watchdog_timeout_s is not None:
+                self._hang_detector = HangDetector(guard.watchdog_timeout_s, clock=guard.clock)
+                self._watchdog = Watchdog(self._hang_detector.hung, self._on_worker_hang,
+                                          poll_s=guard.watchdog_poll_s)
+        self._last_health_state = "SERVING"  # the on_health_transition hook's edge detector
         if checkpoint is not None:
-            self._init_checkpoint(checkpoint)
+            try:
+                self._init_checkpoint(checkpoint)
+            except BaseException:
+                if self._watchdog is not None:
+                    self._watchdog.stop()
+                raise
 
         self._worker: Optional[threading.Thread] = None
         if start:
@@ -585,10 +682,14 @@ class StreamingEngine:
         with self._lock:
             if self._worker is not None or self._closed:
                 return
-            self._worker = threading.Thread(
-                target=self._run, name="metrics-tpu-torch-engine-dispatch", daemon=True
-            )
-            self._worker.start()
+            self._spawn_worker()
+
+    def _spawn_worker(self) -> None:
+        """Start a dispatcher thread for the CURRENT epoch (caller holds the lock)."""
+        self._worker = threading.Thread(
+            target=self._run, args=(self._worker_epoch,), name="metrics-tpu-torch-engine-dispatch", daemon=True
+        )
+        self._worker.start()
 
     def close(self, flush: bool = True, checkpoint: bool = True) -> None:
         """Stop accepting work; by default drain what was already accepted.
@@ -601,9 +702,11 @@ class StreamingEngine:
         with self._lock:
             if self._closed:
                 return
-        if flush:
+        if flush and not self._quarantined:
             self.flush()
-        if flush and checkpoint and self._ckpt_writer is not None:
+        if flush and checkpoint and self._ckpt_writer is not None and not self._quarantined:
+            # a quarantined engine's dispatch lock may be held by the wedged
+            # worker forever: taking a final snapshot would hang close()
             self._ckpt_writer.checkpoint_sync(self._checkpoint_view)
         with self._lock:
             self._closed = True
@@ -611,6 +714,8 @@ class StreamingEngine:
             self._not_full.notify_all()
             self._idle.notify_all()
             worker = self._worker
+        if self._watchdog is not None:
+            self._watchdog.stop()
         if worker is not None and worker is not threading.current_thread():
             worker.join(timeout=10.0)
             if worker.is_alive():
@@ -625,6 +730,7 @@ class StreamingEngine:
                     RuntimeWarning,
                     stacklevel=2,
                 )
+        self._publish_health()
         if self._ckpt_writer is not None:
             self._ckpt_writer.close()
         if self._journal is not None:
@@ -651,53 +757,104 @@ class StreamingEngine:
 
     # ------------------------------------------------------------------ client API
 
-    def submit(self, key: Hashable, *args: Any) -> "Future":
+    def submit(self, key: Hashable, *args: Any, deadline: Optional[float] = None, priority: int = 0) -> "Future":
         """Enqueue one update for tenant ``key``; resolves to a receipt dict
         (``key``, ``rows``, ``bucket``) once the state update has committed.
 
         Raises :class:`EngineBackpressure` per the configured policy when the queue is
-        full, and :class:`EngineClosed` after :meth:`close`.
+        full, and :class:`EngineClosed` after :meth:`close`. With a guard plane
+        (``guard=GuardConfig(...)``): ``deadline`` (seconds from now) makes the
+        request fail fast with :class:`~metrics_tpu_torch.guard.DeadlineExceeded`
+        if it expires before dispatch; ``priority`` orders overload shedding
+        (requests at or below the configured shed priority may be dropped under
+        standing overload); quota-exhausted and quarantined tenants are refused
+        at entry (:class:`~metrics_tpu_torch.guard.QuotaExceeded`,
+        :class:`~metrics_tpu_torch.guard.TenantQuarantined`); a quarantined engine
+        refuses everything with :class:`~metrics_tpu_torch.guard.EngineQuarantined`.
         """
         t_submit = time.perf_counter()
         rows, signature = inspect_request(args)
-        future: Future = Future()
-        with self._not_full:
-            if self._closed:
-                raise EngineClosed("submit() on a closed StreamingEngine")
-            if self._degraded or self._worker is None:
-                # synchronous per-call dispatch (dispatcher dead or never started)
-                req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit)
-                self.telemetry.count("submitted")
-                self._apply_inline(req)
-                return future
-            wait_deadline = time.monotonic() + self._submit_timeout
-            while len(self._queue) >= self._max_queue:
-                if self._policy == "drop":
-                    self.telemetry.count("dropped")
-                    raise EngineBackpressure(f"queue full ({self._max_queue}); request dropped")
-                if self._policy == "timeout":
-                    remaining = wait_deadline - time.monotonic()
-                    if remaining <= 0:
-                        self.telemetry.count("timed_out")
-                        raise EngineBackpressure(
-                            f"queue full ({self._max_queue}); timed out after {self._submit_timeout}s"
-                        )
-                    self._not_full.wait(remaining)
-                else:
-                    self._not_full.wait()
+        guard = self._guard
+        abs_deadline: Optional[float] = None
+        t_enqueue = 0.0
+        is_probe = False
+        if guard is not None:
+            if self._quarantined:
+                raise EngineQuarantined("submit() on a quarantined StreamingEngine (dispatcher wedged in a device call)")
+            # full admission only when there is something to check: a guarded
+            # submit with no quotas, no deadline and a clean quarantine ledger
+            # costs attribute loads, not calls
+            if deadline is not None or guard.admission_active or guard._quarantine_entries:
+                abs_deadline, is_probe = guard.admit(key, rows, deadline)
+            if guard.stamp_enqueue:
+                # the default guard clock IS perf_counter: reuse the entry stamp
+                t_enqueue = t_submit if guard.clock is time.perf_counter else guard.clock()
+        try:
+            future: Future = Future()
+            with self._not_full:
                 if self._closed:
-                    raise EngineClosed("StreamingEngine closed while waiting for queue space")
-                if self._degraded:
-                    req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit)
+                    raise EngineClosed("submit() on a closed StreamingEngine")
+                self._check_admissible(key)
+                if self._degraded or self._worker is None:
+                    # synchronous per-call dispatch (dispatcher dead or never started)
+                    req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit,
+                                   abs_deadline, priority, t_enqueue, is_probe)
                     self.telemetry.count("submitted")
                     self._apply_inline(req)
                     return future
-            req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit)
-            self._queue.append(req)
-            self.telemetry.count("submitted")
-            self.telemetry.gauge_queue_depth(len(self._queue))
-            self._not_empty.notify()
-        return future
+                backlog = guard.backlog if guard is not None else None
+                wait_deadline = time.monotonic() + self._submit_timeout
+                while len(self._queue) + (backlog.count if backlog is not None else 0) >= self._max_queue:
+                    if self._policy == "drop":
+                        self.telemetry.count("dropped")
+                        raise EngineBackpressure(f"queue full ({self._max_queue}); request dropped")
+                    if self._policy == "timeout":
+                        remaining = wait_deadline - time.monotonic()
+                        if remaining <= 0:
+                            self.telemetry.count("timed_out")
+                            raise EngineBackpressure(
+                                f"queue full ({self._max_queue}); timed out after {self._submit_timeout}s"
+                            )
+                        self._not_full.wait(remaining)
+                    else:
+                        self._not_full.wait()
+                    if self._closed:
+                        raise EngineClosed("StreamingEngine closed while waiting for queue space")
+                    if self._quarantined:
+                        raise EngineQuarantined("StreamingEngine quarantined while waiting for queue space")
+                    if self._degraded:
+                        req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit,
+                                       abs_deadline, priority, t_enqueue, is_probe)
+                        self.telemetry.count("submitted")
+                        self._apply_inline(req)
+                        return future
+                # the backpressure wait released the lock: a hold may have landed
+                self._check_admissible(key)
+                req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit,
+                               abs_deadline, priority, t_enqueue, is_probe)
+                self._queue.append(req)
+                self.telemetry.count("submitted")
+                self.telemetry.gauge_queue_depth(len(self._queue))
+                self._not_empty.notify()
+            return future
+        except Exception:
+            if is_probe:
+                # the admitted quarantine probe never reached processing: free
+                # the probe slot so the tenant is not wedged in probation
+                guard.abandon_probe(key)
+            raise
+
+    def _check_admissible(self, key: Hashable) -> None:
+        """The checks ``submit`` repeats under the engine lock: an engine
+        quarantined, or a tenant held (a migration in flight), since admission."""
+        if self._quarantined:
+            raise EngineQuarantined("submit() on a quarantined StreamingEngine (dispatcher wedged in a device call)")
+        guard = self._guard
+        if guard is not None and guard.quarantine.is_held(key):
+            # refused synchronously, or this row would commit on the source
+            # after the drain barrier exported the tenant
+            raise TenantQuarantined(f"tenant {key!r} is held (migration in flight); "
+                                    "reload the partition map and resubmit")
 
     def flush(self, timeout: Optional[float] = None) -> None:
         """Block until every accepted request has committed (or ``timeout`` elapses).
@@ -705,10 +862,12 @@ class StreamingEngine:
         Holds through a worker death too: the death handler keeps ``_inflight`` equal
         to the number of accepted-but-unreplayed requests while it replays them
         inline, so 'accepted implies committed after flush' survives degradation.
+        The guard's backlog counts as accepted work.
         """
         deadline = None if timeout is None else time.monotonic() + timeout
+        backlog = self._guard.backlog if self._guard is not None else None
         with self._idle:
-            while self._queue or self._inflight:
+            while self._queue or self._inflight or (backlog is not None and backlog.count):
                 if deadline is None:
                     self._idle.wait()
                 else:
@@ -726,11 +885,14 @@ class StreamingEngine:
         which fires only on a full drain).
         """
         deadline = None if timeout is None else time.monotonic() + timeout
+        backlog = self._guard.backlog if self._guard is not None else None
         with self._idle:
             while True:
                 pending = any(req.key == key for req in self._queue)
                 if not pending and self._active_batch is not None:
                     pending = any(req.key == key for req in self._active_batch)
+                if not pending and backlog is not None and backlog.count:
+                    pending = backlog.pending_for(key) > 0
                 if not pending and self._inflight and self._active_batch is None:
                     # worker-death replay: the pending list lives off-structure
                     # and may hold our key — wait it out
@@ -742,8 +904,8 @@ class StreamingEngine:
                 self._idle.wait(0.05)
 
     def evict_tenant(self, key: Hashable) -> bool:
-        """Forget ``key`` entirely: its state and its window history. Returns
-        False for an unknown key.
+        """Forget ``key`` entirely: its state, its window history and its
+        residency records. Returns False for an unknown key.
 
         Waits out only this key's accepted requests (not the whole engine), then,
         under the dispatch lock, journals the retirement (``b"T"``) BEFORE the slot
@@ -752,52 +914,139 @@ class StreamingEngine:
         whichever new tenant reused it — scrubs the tenant's rows to their initial
         values and frees the slot, where the next new tenant takes it. Works on
         untiered engines too. The slab is written in place, so the captured graphs
-        stay valid. (The tier bookkeeping comes with the tier plane, ROADMAP A.7.)
+        stay valid.
         """
+        self._check_quarantined("evict_tenant")
         self.drain_tenant(key)
         with self._dispatch_lock, self._on_stream():
-            if not self._is_resident(key):
+            resident = self._is_resident(key)
+            tiered = self._tier is not None and self._tier.has(key)
+            if not resident and not tiered:
                 return False
-            keyed = self._keyed
-            if self._journal is not None:
-                slot = keyed._slots.get(key, 0) if isinstance(keyed, KeyedState) else 0
-                self._journal_append([_encode_tier_record(b"T", int(slot), self._key_bytes(key))])
-            slot = keyed.evict(key)
-            keyed.release_slot(slot)
-            if slot is not None:
-                self._wal_slots_sent.discard(slot)
+            self._retire(key)
             self._sync()
         self.telemetry.count("tier_evictions")
         return True
 
+    def _retire(self, key: Hashable) -> None:
+        """Journal ``b"T"``, then forget ``key`` in every tier and free its slot
+        (caller holds the dispatch lock, on the engine's stream)."""
+        keyed = self._keyed
+        if self._journal is not None:
+            slot = keyed._slots.get(key, 0) if isinstance(keyed, KeyedState) else 0
+            self._journal_append([_encode_tier_record(b"T", int(slot), self._key_bytes(key))])
+        tier = self._tier
+        if tier is not None:
+            tier.discard(key)
+            tier.forget_heat(key)
+            tier.pinned.discard(key)
+        if self._is_resident(key):
+            slot = keyed.evict(key)
+            keyed.release_slot(slot)
+            if slot is not None:
+                self._wal_slots_sent.discard(slot)
+
     def export_tenant(self, key: Hashable, *, retire: bool = True) -> Optional[Dict[str, Any]]:
-        """Capture one tenant's full entry for a move to another engine; waits for the tier plane."""
-        raise NotImplementedError("export_tenant() captures a residency entry through the tier plane, "
-                                  "which is not ported yet (ROADMAP A.7)")
+        """Capture one tenant's full entry, whatever tier it occupies (numpy
+        leaves, the JAX package's entry layout). Returns ``None`` for an unknown key.
+
+        With ``retire=True`` the tenant is also forgotten here, journaled like
+        :meth:`evict_tenant` so a recovered engine agrees it left. With
+        ``retire=False`` the capture is a pure read (no journal record, no
+        eviction): the caller retires the source copy once the destination's is
+        durable."""
+        self._check_quarantined("export_tenant")
+        with self._dispatch_lock, self._on_stream():
+            keyed = self._keyed
+            if self._is_resident(key):
+                entry = capture_entry(keyed, key)
+            elif self._tier is not None and self._tier.has(key):
+                peeked = self._tier.peek_entry(key)
+                entry = dict(peeked) if peeked is not None else {"state": None, "ring": [], "rot": int(keyed.rotations)}
+            else:
+                return None
+            entry.pop("_spill_file", None)
+            if not retire:
+                return entry
+            self._retire(key)
+            self._sync()
+        self.telemetry.count("tier_evictions")
+        return entry
 
     def import_tenant(self, key: Hashable, entry: Optional[Dict[str, Any]]) -> None:
-        """Install a tenant exported by another engine; waits for the tier plane."""
-        raise NotImplementedError("import_tenant() installs a residency entry through the tier plane, "
-                                  "which is not ported yet (ROADMAP A.7)")
+        """Install an exported tenant entry (from either package).
+
+        Exports are captured live, so their ring rows occupy the last
+        ``len(ring)`` source segments; re-stamping the entry with THIS engine's
+        rotation counter places them in the same positions relative to this
+        window (an empty ring is padded with init segments first to give the
+        rows somewhere to land). An entry with no state at all (a
+        registered-but-silent cold tenant) stays off the slab when this engine
+        is tiered — it lands as a cold registration. A resident entry is written
+        into the tenant's slab row in place, journaled as a ``b"P"`` record."""
+        self._check_quarantined("import_tenant")
+        with self._dispatch_lock, self._on_stream():
+            keyed = self._keyed
+            rows: List[Any] = []
+            if entry is not None:
+                entry = dict(entry)
+                entry.pop("_spill_file", None)
+                entry["rot"] = int(keyed.rotations)
+                rows = list(entry.get("ring") or [])
+            empty = entry is None or (entry.get("state") is None and not any(r is not None for r in rows))
+            if empty and self._tier is not None and not self._is_resident(key):
+                self._tier.discard(key)
+                self._tier.register_cold(key)
+                return
+            ring = keyed._ring
+            if rows and ring is not None and len(ring) < len(rows):
+                while len(ring) < len(rows):
+                    if isinstance(keyed, KeyedState):
+                        ring.append((keyed.capacity, tree_unflatten(keyed._tiled(keyed.capacity), keyed._treedef)))
+                    else:
+                        ring.append({})
+            slot = keyed.slot_for(key)
+            self._grow()
+            if self._journal is not None:
+                blob = b"" if entry is None else ckpt_format.dumps(entry, meta={"kind": "tier-promote"})
+                self._journal_append([_encode_tier_record(b"P", int(slot or 0), self._key_bytes(key), blob)])
+                if slot is not None:
+                    self._wal_slots_sent.add(slot)
+            if self._tier is not None:
+                self._tier.discard(key)
+            if entry is not None:
+                restore_entry(keyed, key, entry)
+            self._sync()
 
     def _read_states(self, keys: Optional[Sequence[Hashable]], window: bool) -> Dict[Hashable, Any]:
         """Copies of the tenants' states, taken under the dispatch lock on the
         caller's stream. That stream first waits for the engine's stream and is
         synchronised before the lock is released, so no later replay can overwrite
-        the slab under a copy still in flight."""
+        the slab under a copy still in flight. A non-resident tenant is read from
+        its warm or cold entry without readmission (a sweep over a million cold
+        tenants must not thrash the hot set); ``keys=None`` reads every tenant,
+        resident ones first."""
         with self._dispatch_lock:
-            keyed = self._keyed
+            keyed, tier = self._keyed, self._tier
             if keys is None:
-                keys = keyed.keys
+                keys = list(keyed.keys)
+                if tier is not None:
+                    keys += [key for key in tier.keys() if not self._is_resident(key)]
             for key in keys:
-                if not self._is_resident(key):
+                if not self._is_resident(key) and (tier is None or not tier.has(key)):
                     raise KeyError(f"unknown tenant key {key!r}")
+
+            def read(key: Hashable) -> Any:
+                if self._is_resident(key):
+                    return keyed.merged_state(key) if window else keyed.state_of(key)
+                return peek_state(self._metric, keyed, tier.peek_entry(key) or {}, window=window)
+
             if self._stream is None:
-                return {key: keyed.merged_state(key) if window else keyed.state_of(key) for key in keys}
+                return {key: read(key) for key in keys}
             with torch.cuda.device(self._device):
                 current = torch.cuda.current_stream()
                 current.wait_stream(self._stream)
-                states = {key: keyed.merged_state(key) if window else keyed.state_of(key) for key in keys}
+                states = {key: read(key) for key in keys}
                 current.synchronize()
             return states
 
@@ -820,6 +1069,7 @@ class StreamingEngine:
         comm plane (ROADMAP A.8) and raises.
         """
         self._check_read("compute", window, sync)
+        self._check_quarantined("compute")
         self.flush()
         state = self._read_states([key], window)[key]
         with self._read_lock:
@@ -829,6 +1079,7 @@ class StreamingEngine:
         """``compute`` for every known tenant key — one flush, one consistent snapshot
         (every state is copied under one dispatch-lock acquisition)."""
         self._check_read("compute_all", window, sync)
+        self._check_quarantined("compute_all")
         self.flush()
         states = self._read_states(None, window)
         with self._read_lock:
@@ -846,8 +1097,14 @@ class StreamingEngine:
             raise EngineClosed("wal_watermark() on a closed StreamingEngine")
         return 0, int(self._wal_seq)
 
+    def _check_quarantined(self, op: str) -> None:
+        """Fail fast instead of deadlocking on a dispatch lock a wedged worker holds."""
+        if self._quarantined:
+            raise EngineQuarantined(f"{op}() on a quarantined StreamingEngine (dispatcher wedged in a device call)")
+
     def rotate_window(self) -> None:
         """Close the current sliding-window segment for ALL tenants (flushes first)."""
+        self._check_quarantined("rotate_window")
         self.flush()
         with self._dispatch_lock, self._on_stream():
             # journaled INSIDE the lock, before the transition: a recovery replays
@@ -859,14 +1116,23 @@ class StreamingEngine:
         self.telemetry.count("window_rotations")
 
     def reset(self) -> None:
-        """Drop all tenant state (keys stay allocated). The slab is written in
-        place, so captured graphs stay valid."""
+        """Drop all tenant state (keys stay allocated; non-resident tenants become
+        cold with an initial state). The slab is written in place, so captured
+        graphs stay valid."""
+        self._check_quarantined("reset")
         self.flush()
+        orphans: List[str] = []
         with self._dispatch_lock, self._on_stream():
             if self._journal is not None:
                 self._journal_append([b"Z"])
             self._keyed.reset()
+            if self._tier is not None:
+                # their spill files are orphans once the reset is journaled
+                orphans = self._tier.reset()
             self._sync()
+        if self._tier is not None and self._tier.store is not None:
+            for name in orphans:
+                self._tier.store.delete(name)
 
     @property
     def fused(self) -> bool:
@@ -879,19 +1145,27 @@ class StreamingEngine:
         return self._degraded
 
     @property
+    def quarantined(self) -> bool:
+        """True once a hung dispatcher could not be safely superseded (it holds
+        the dispatch lock, inside a device call): the engine fails fast instead
+        of hanging callers."""
+        return self._quarantined
+
+    @property
     def device(self) -> torch.device:
         return self._device
 
     def health(self) -> Dict[str, Any]:
         """The engine's health state machine, one plain dict, with the JAX
-        package's keys for an engine without planes.
+        package's keys.
 
         ``state`` walks ``SERVING → DEGRADED → QUARANTINED``: ``DEGRADED`` once the
-        dispatcher died and submits run inline, the WAL was disabled after an IO
-        failure (serving continues without it), or a zombie worker survived
-        ``close()``; ``QUARANTINED`` once a hung dispatcher could not be
-        superseded (the guard plane's watchdog, ROADMAP A.7). Without the guard
-        plane there are no breakers, no shedding and no quarantined tenants.
+        dispatcher died and submits run inline, a circuit breaker is open, the
+        overload controller is shedding, the WAL was disabled after an IO
+        failure, or a zombie worker survived ``close()``; ``QUARANTINED`` once a
+        hung dispatcher could not be superseded (the guard's watchdog). A guard
+        plane's ``on_health_transition`` hook is called once per edge, outside
+        the engine's locks.
         """
         with self._lock:
             quarantined = self._quarantined
@@ -899,26 +1173,59 @@ class StreamingEngine:
             zombies = self._zombie_workers
             worker = self._worker
             closed = self._closed
+            restarts = self._worker_restarts
             queue_depth = len(self._queue)
+            if self._guard is not None:
+                queue_depth += self._guard.backlog.count
+        guard = self._guard
+        breakers = guard.breaker_snapshots() if guard is not None else {}
+        shedding = guard.shedding if guard is not None else False
         wal_disabled = self._wal_error is not None
         if quarantined:
             state = "QUARANTINED"
-        elif degraded or zombies or wal_disabled:
+        elif (degraded or zombies or shedding or wal_disabled
+              or any(snap["state"] != "closed" for snap in breakers.values())):
             state = "DEGRADED"
         else:
             state = "SERVING"
-        return {
+        out = {
             "state": state,
             "closed": closed,
             "worker_alive": worker is not None and worker.is_alive() and not degraded,
-            "worker_restarts": 0,
+            "worker_restarts": restarts,
             "zombie_workers": zombies,
             "queue_depth": queue_depth,
-            "shedding": False,
+            "shedding": shedding,
             "wal_disabled": wal_disabled,
-            "breakers": {},
-            "quarantined_tenants": {},
+            "breakers": breakers,
+            "quarantined_tenants": dict(guard.quarantine.active()) if guard is not None else {},
         }
+        if guard is not None:
+            guard.publish_health(state)
+        # detected under the lock (once per transition, however many readers
+        # see it), fired outside every lock, errors absorbed but not hidden
+        hook_args: Optional[Tuple[str, str]] = None
+        with self._lock:
+            if state != self._last_health_state:
+                hook_args = (self._last_health_state, state)
+                self._last_health_state = state
+        if hook_args is not None and guard is not None and guard.cfg.on_health_transition is not None:
+            try:
+                guard.cfg.on_health_transition(*hook_args)
+            except Exception as exc:  # noqa: BLE001 — an observer crash must not poison health reads
+                warnings.warn(
+                    f"on_health_transition({hook_args[0]!r} -> {hook_args[1]!r}) raised "
+                    f"{type(exc).__name__}: {exc} — the transition will not re-fire",
+                    RuntimeWarning,
+                    stacklevel=2,
+                )
+        return out
+
+    def _publish_health(self) -> None:
+        """Refresh the health gauge and the transition hook after a state
+        change (nothing without a guard plane)."""
+        if self._guard is not None:
+            self.health()
 
     def telemetry_snapshot(self) -> Dict[str, Any]:
         snap = self.telemetry.snapshot()
@@ -926,8 +1233,13 @@ class StreamingEngine:
         snap["degraded"] = self._degraded
         snap["quarantined"] = self._quarantined
         snap["tenants"] = len(self._keyed.keys)
+        tier = self._tier
+        if tier is not None:
+            snap["tenants"] += len(tier.warm) + len(tier.cold)
+            snap["tier"] = {"hot": len(self._keyed.keys), "warm": len(tier.warm), "cold": len(tier.cold),
+                            "pinned": len(tier.pinned)}
         if isinstance(self._keyed, KeyedState):
-            snap["slab_bytes"] = sum(leaf.numel() * leaf.element_size() for leaf in self._slab_leaves())
+            snap["slab_bytes"] = sum(self._slab_bytes().values())
         if self._ckpt_writer is not None:
             snap["ckpt_generation"] = self._ckpt_writer.last_generation
             snap["wal_seq"] = self._wal_seq
@@ -965,43 +1277,107 @@ class StreamingEngine:
         trees = [keyed.stacked] + [snap for _, snap in (keyed._ring or [])]
         return [leaf for tree in trees for leaf in tree_flatten(tree)[0]]
 
+    def _slab_bytes(self) -> Dict[str, int]:
+        """Device bytes held by the stacked slab (live + ring), per dtype, from
+        the tensors' sizes."""
+        out: Dict[str, int] = {}
+        if not isinstance(self._keyed, KeyedState):
+            return out
+        for leaf in self._slab_leaves():
+            name = dtype_name(leaf)
+            out[name] = out.get(name, 0) + leaf.numel() * leaf.element_size()
+        return out
+
     def _alloc_slot(self, key: Hashable) -> Optional[int]:
+        tier = self._tier
+        if tier is not None and not self._is_resident(key) and tier.has(key):
+            # non-resident tenant: the slot stays unresolved — the dispatcher
+            # readmits it under the dispatch lock right before the micro-batch
+            # that needs the row (no disk IO or slab writes on the submit path)
+            return None
         return self._keyed.slot_for(key)
 
     def _is_resident(self, key: Hashable) -> bool:
-        """O(1) tenant membership (``keyed.keys`` materialises a tuple)."""
+        """O(1) hot-tier membership (``keyed.keys`` materialises a tuple)."""
         keyed = self._keyed
         table = keyed._slots if isinstance(keyed, KeyedState) else keyed._states
         return key in table
 
-    def _run(self) -> None:
+    def _grow(self, min_slots: Optional[int] = None) -> None:
+        """Grow the slab to fit every allocated slot (caller holds the dispatch
+        lock): counted, and the graphs of the old capacity dropped."""
+        if self._keyed.ensure_capacity(min_slots=min_slots):
+            self.telemetry.count("key_growths")
+            self.telemetry.observe_resize(self._keyed.last_resize_s)
+            self._drop_stale_graphs()
+
+    def _run(self, epoch: int = 0) -> None:
+        detector = self._hang_detector
+        backlog = self._guard.backlog if self._guard is not None else None
         while True:
             with self._not_empty:
-                while not self._queue and not self._closed:
+                while (not self._queue and not (backlog is not None and backlog.count)
+                       and not self._closed and self._worker_epoch == epoch):
                     self._not_empty.wait(0.1)
-                if not self._queue and self._closed:
+                if self._worker_epoch != epoch:
+                    return  # superseded while idle: a fresh generation owns the queue
+                if not self._queue and not (backlog is not None and backlog.count) and self._closed:
                     return
-                batch, self._queue = self._queue, []
+                if self._guard is not None:
+                    # the arrival queue moves into the guard's fair backlog;
+                    # selection costs O(quantum), never O(backlog)
+                    batch, rejected = self._guard.form_drain(self._queue)
+                else:
+                    batch, rejected = self._queue, []
+                self._queue = []
                 self._inflight = len(batch)
+                # a hang takeover replays exactly this list (minus resolved futures)
                 self._active_batch = batch
-                self.telemetry.gauge_queue_depth(0)
+                self.telemetry.gauge_queue_depth(backlog.count if backlog is not None else 0)
                 self._not_full.notify_all()
+                if not batch and not (backlog is not None and backlog.count):
+                    self._idle.notify_all()
+            if detector is not None:
+                detector.mark_busy()
+            # fail expired and shed requests fast, outside the engine lock (future
+            # callbacks run arbitrary user code)
+            for req, exc in rejected:
+                self.telemetry.count("failed")
+                req.future.set_exception(exc)
+            if not batch:
+                if detector is not None:
+                    detector.mark_idle()
+                continue
             self._worker_gate.wait()
+            with self._lock:
+                if self._worker_epoch != epoch:
+                    return  # declared hung at the gate: the takeover owns the batch now
             try:
-                self._process(batch)
+                self._process(batch, epoch)
                 with self._lock:
+                    if self._worker_epoch != epoch:
+                        return  # superseded mid-batch: the takeover owns the accounting
                     self._active_batch = None
                     self._inflight = 0
                     self._idle.notify_all()
                 self._maybe_checkpoint()
+                self._maybe_tier()
+                if detector is not None:
+                    detector.mark_idle()
+            except _WorkerSuperseded:
+                return
             except BaseException as exc:  # noqa: BLE001 — dispatcher death: degrade, don't lose work
-                self._on_worker_death(exc, batch)
+                self._on_worker_death(exc, batch, epoch)
                 return
 
-    def _process(self, batch: List[_Request]) -> None:
+    def _check_epoch(self, epoch: Optional[int]) -> None:
+        if epoch is not None and self._worker_epoch != epoch:
+            raise _WorkerSuperseded()
+
+    def _process(self, batch: List[_Request], epoch: Optional[int] = None) -> None:
         if self._fused:
             try:
-                self._process_fused(batch)
+                self._process_fused(batch, epoch)
                 return
             except _FusedUnsupported:
                 pass
@@ -1012,20 +1388,48 @@ class StreamingEngine:
             # capture, so a malformed request fails ITS future there while an
             # uncapturable-but-valid update succeeds for every request.
             remaining = [req for req in batch if not req.future.done()]
-            self._process_eager(remaining)
+            self._process_eager(remaining, epoch)
             if remaining and all(req.future.exception() is None for req in remaining):
                 self._demote_to_eager()
             return
-        self._process_eager([req for req in batch if not req.future.done()])
+        self._process_eager([req for req in batch if not req.future.done()], epoch)
 
     # ---------------------------------------------------- fused (bucketed) dispatch
 
-    def _process_fused(self, batch: List[_Request]) -> None:
+    def _process_fused(self, batch: List[_Request], epoch: Optional[int] = None) -> None:
         with self._dispatch_lock, self._on_stream():
-            if self._keyed.ensure_capacity():
-                self.telemetry.count("key_growths")
-                self.telemetry.observe_resize(self._keyed.last_resize_s)
-                self._drop_stale_graphs()
+            # re-validated under the lock a hang takeover must take before it
+            # applies anything: a superseded worker never replays
+            self._check_epoch(epoch)
+            if self._tier is not None:
+                # a request's slot was resolved at submit, outside this lock: the
+                # tenant may have been demoted since (slot freed, maybe reused) or
+                # was non-resident to begin with (slot None). Re-resolve each
+                # slot, promoting non-resident tenants into their rows right
+                # before the micro-batch that reads them. The lower tiers are
+                # checked before the slot table: a submit racing a demotion can
+                # allocate a fresh row for a key whose state sits in the warm
+                # mirror, and the promotion restores that state over it.
+                tier = self._tier
+                warm, cold = tier.warm, tier.cold
+                keyed = self._keyed
+                slots = keyed._slots if isinstance(keyed, KeyedState) else None
+                heat = tier._heat if self._tier_policy else None
+                clock = tier.cfg.clock
+                for req in batch:
+                    if req.future.done():
+                        continue
+                    key = req.key
+                    if key in warm or key in cold:
+                        req.slot = self._promote_tenant(key)
+                    elif slots is not None:
+                        slot = slots.get(key)
+                        req.slot = slot if slot is not None else keyed.slot_for(key)
+                    else:
+                        req.slot = keyed.slot_for(key)
+                    if heat is not None:
+                        heat[key] = clock()
+            self._grow()
             for signature, reqs in self._signature_groups(batch):
                 self._dispatch_group(signature, reqs)
 
@@ -1087,6 +1491,14 @@ class StreamingEngine:
         total_rows: int,
     ) -> None:
         bucket = choose_bucket(total_rows, self._buckets)
+        if (self._guard is not None and (signature, bucket, self._keyed.capacity) not in self._kernels
+                and not self._guard.allow_compile()):
+            # capture breaker open: a novel signature would grow the graph cache —
+            # run this chunk eagerly on the engine's device instead. Captured
+            # graphs keep serving everyone else; the signature sprayer pays with
+            # its own latency.
+            self._apply_chunk_eager(units)
+            return
         kernel = self._get_kernel(signature, bucket, self._keyed.capacity)
         columns, key_ids, mask, host = pad_micro_batch(
             [(req.slot, chunk_args, rows) for req, chunk_args, rows, _ in units], bucket, self._device
@@ -1109,6 +1521,41 @@ class StreamingEngine:
             self.telemetry.count("processed")
             self.telemetry.observe_latency(now - req.t_submit)
             req.future.set_result({"key": req.key, "rows": req.rows, "bucket": bucket})
+            if self._guard is not None and self._guard._quarantine_entries:
+                # successes only matter to tenants with a live failure ledger
+                self._guard.on_request_outcome(req.key, True)
+
+    def _apply_chunk_eager(self, units: List[Tuple[_Request, Tuple[Any, ...], int, bool]]) -> None:
+        """Apply one chunk's rows eagerly (capture breaker open; caller holds the
+        dispatch lock, on the engine's stream): one whole-chunk ``update_state``
+        per request on the engine's device, the eager path's semantics, journaled
+        the same way (one ``R`` record per chunk unit) so a replay reproduces
+        exactly what was applied."""
+        for req, chunk_args, rows, is_last in units:
+            if req.future.done():
+                continue  # an earlier chunk of this request already failed it
+            try:
+                if self._journal is not None:
+                    self._journal_append([_encode_request_record(self._key_bytes(req.key), chunk_args)])
+                self._grow()
+                args = tuple(as_request_tensor(a, self._device) for a in chunk_args)
+                state = self._keyed.state_of(req.key)
+                self._keyed.set_state(req.key, self._metric.update_state(state, *args))
+                self._sync()
+            except Exception as exc:  # noqa: BLE001 — fail THIS request, keep serving
+                self.telemetry.count("failed")
+                req.future.set_exception(exc)
+                if self._guard is not None:
+                    self._guard.on_request_outcome(req.key, False)
+                continue
+            req.rows_done += rows
+            if not is_last:
+                continue
+            self.telemetry.count("processed")
+            self.telemetry.observe_latency(time.perf_counter() - req.t_submit)
+            req.future.set_result({"key": req.key, "rows": req.rows, "bucket": None})
+            if self._guard is not None:
+                self._guard.on_request_outcome(req.key, True)
 
     def _get_kernel(self, signature: Signature, bucket: int, capacity: int) -> Callable:
         cache_key = (signature, bucket, capacity)
@@ -1158,8 +1605,9 @@ class StreamingEngine:
 
     # ---------------------------------------------------- eager / degraded dispatch
 
-    def _process_eager(self, batch: List[_Request]) -> None:
+    def _process_eager(self, batch: List[_Request], epoch: Optional[int] = None) -> None:
         for req in batch:
+            self._check_epoch(epoch)
             self._apply_inline(req)
 
     def _apply_inline(self, req: _Request) -> None:
@@ -1167,13 +1615,22 @@ class StreamingEngine:
 
         Applies only the rows a fused chunk has not already committed, so a request
         caught mid-demotion is never double-counted; the skip check and the
-        applied marker both sit under the dispatch lock, so two appliers serialize.
+        applied marker both sit under the dispatch lock, so two appliers (a hang
+        takeover and the superseded worker) serialize. Runs on the engine's device
+        and stream whatever thread calls it (the watchdog's, in a takeover).
         """
         try:
             args = req.args if req.rows_done == 0 else tuple(a[req.rows_done :] for a in req.args)
             with self._dispatch_lock, self._on_stream():
                 if req.future.done() or (req.rows > 0 and req.rows_done >= req.rows):
                     return
+                if self._tier is not None:
+                    # readmit a non-resident tenant before touching its state;
+                    # journaled (P) before the request record below, so replay
+                    # restores then applies in the same order
+                    self._resolve_slot(req.key)
+                    if self._tier_policy:
+                        self._tier.touch(req.key)
                 # journal INSIDE the dispatch lock: a snapshot (same lock) must never
                 # record WAL coverage of a not-yet-applied request. Trimmed args keep
                 # rows already committed (and chunk-journaled) out of the record
@@ -1192,6 +1649,8 @@ class StreamingEngine:
             except Exception:  # noqa: BLE001 — already resolved by a racing applier
                 return
             self.telemetry.count("failed")
+            if self._guard is not None:
+                self._guard.on_request_outcome(req.key, False)
             return
         try:
             req.future.set_result({"key": req.key, "rows": req.rows, "bucket": None})
@@ -1203,26 +1662,41 @@ class StreamingEngine:
             # lands here, and counting it would make a healthy engine look degraded
             self.telemetry.count("inline_dispatches")
         self.telemetry.observe_latency(time.perf_counter() - req.t_submit)
+        if self._guard is not None and self._guard._quarantine_entries:
+            self._guard.on_request_outcome(req.key, True)
 
-    def _on_worker_death(self, exc: BaseException, batch: List[_Request]) -> None:
+    def _on_worker_death(self, exc: BaseException, batch: List[_Request], epoch: Optional[int] = None) -> None:
         """Dispatcher crashed: complete all accepted work inline, then degrade.
 
         ``_inflight`` stays equal to the unreplayed remainder throughout, so a
         concurrent ``flush()`` keeps blocking until the replay finishes — 'accepted
-        implies committed after flush' holds across the degradation. (The JAX
-        package's guard plane can restart a dispatcher afterwards; that waits for
-        ROADMAP A.7.)
+        implies committed after flush' holds across the degradation. With a guard
+        plane configured for restarts, a fresh dispatcher starts once the replay
+        completes and the engine returns to ``SERVING``.
         """
         self._worker_error = exc
         self.telemetry.count("worker_deaths")
         with self._lock:
+            if epoch is not None and self._worker_epoch != epoch:
+                return  # a hang takeover already owns this batch and the queue
+            # supersede ourselves so a concurrent hang takeover cannot double-own
+            self._worker_epoch += 1
             self._degraded = True
             self._active_batch = None
             pending = [req for req in batch if not req.future.done()] + self._queue
+            if self._guard is not None:
+                pending += self._guard.take_backlog()
             self._queue = []
             self._inflight = len(pending)
             self.telemetry.gauge_queue_depth(0)
             self._not_full.notify_all()
+        self._apply_taken_over(pending)
+        self._maybe_restart_worker()
+        self._publish_health()
+
+    def _apply_taken_over(self, pending: List[_Request]) -> None:
+        """Apply a death or hang takeover's requests inline, keeping
+        ``_inflight`` equal to what is left."""
         try:
             for req in pending:
                 self._apply_inline(req)
@@ -1232,7 +1706,309 @@ class StreamingEngine:
             with self._lock:
                 self._inflight = 0
                 self._idle.notify_all()
+            if self._hang_detector is not None:
+                self._hang_detector.mark_idle()
 
+    def _on_worker_hang(self) -> None:
+        """Watchdog callback: the dispatcher has been busy on one batch past the
+        timeout. Supersede it (epoch bump) and decide by probing the dispatch lock:
+
+        - taken within ``hang_lock_timeout_s`` → the worker is stuck *outside*
+          the device path, and can never dispatch again (it re-checks its epoch
+          under this very lock). Apply the taken-over batch and queue inline on
+          the engine's stream, then restart a fresh dispatcher if configured.
+        - not taken → the worker holds it inside a device call (a graph replay
+          cannot be interrupted); applying the requests again would risk a
+          double commit if that call ever completes. QUARANTINE the engine: fail
+          every pending future fast and refuse all further calls.
+        """
+        guard = self._guard
+        with self._lock:
+            if self._closed or self._degraded or self._quarantined:
+                return
+            if self._active_batch is None and not self._queue and not guard.backlog.count:
+                return  # raced with the batch's completion: nothing is stuck
+            self._worker_epoch += 1
+            self._degraded = True  # submits go inline while this is sorted out
+            batch = self._active_batch or []
+            self._active_batch = None
+            pending = [req for req in batch if not req.future.done()] + self._queue
+            pending += guard.take_backlog()
+            self._queue = []
+            self._inflight = len(pending)
+            self.telemetry.gauge_queue_depth(0)
+            self._not_full.notify_all()
+        self.telemetry.count("worker_hangs")
+        self._worker_error = TimeoutError(
+            f"dispatcher hung: busy past the {guard.cfg.watchdog_timeout_s}s watchdog timeout"
+        )
+        if not self._dispatch_lock.acquire(timeout=guard.cfg.hang_lock_timeout_s):
+            self._quarantine_engine(pending)
+            return
+        self._dispatch_lock.release()
+        self._apply_taken_over(pending)
+        self._maybe_restart_worker()
+        self._publish_health()
+
+    def _quarantine_engine(self, pending: List[_Request]) -> None:
+        """The wedged worker cannot be taken over safely: fail fast from now on."""
+        with self._lock:
+            self._quarantined = True
+            self._not_full.notify_all()
+        exc = EngineQuarantined("StreamingEngine quarantined: dispatcher wedged in a device call; "
+                                "request not committed")
+        for req in pending:
+            if not req.future.done():
+                self.telemetry.count("failed")
+                req.future.set_exception(exc)
+            if req.is_probe and self._guard is not None:
+                self._guard.abandon_probe(req.key)
+        with self._lock:
+            self._inflight = 0
+            self._idle.notify_all()
+        if self._hang_detector is not None:
+            self._hang_detector.mark_idle()
+        self._publish_health()
+
+    def _maybe_restart_worker(self) -> None:
+        """Start a fresh dispatcher after a death or hang takeover, budget permitting."""
+        guard = self._guard
+        if guard is None or not guard.cfg.restart:
+            return
+        with self._lock:
+            if self._closed or self._quarantined:
+                return
+            if self._worker_restarts >= guard.cfg.max_restarts:
+                return  # stay degraded-inline: restart storms help nobody
+            self._worker_restarts += 1
+            self._degraded = False
+            self._spawn_worker()
+        self.telemetry.count("watchdog_restarts")
+        _obs.record_guard_event(guard._engine_label, "watchdog_restarts")
+
+    # ---------------------------------------------------- tier plane
+
+    def _ensure_tier(self) -> TierManager:
+        """The residency manager — made lazily when replayed residency records or
+        a tiered snapshot reach an engine built without ``tier=``. A lazy manager
+        is mechanics only (demoted state stays readmittable); the eviction pass
+        never runs without a configured policy."""
+        if self._tier is None:
+            self._tier = TierManager(TierConfig(), self._metric)
+            self._tier_policy = False
+        return self._tier
+
+    def _resolve_slot(self, key: Hashable) -> Optional[int]:
+        """Slot for ``key``, promoting it first if it lives in a lower tier
+        (caller holds the dispatch lock, on the engine's stream)."""
+        tier = self._tier
+        if tier is not None and tier.has(key):
+            return self._promote_tenant(key)
+        return self._keyed.slot_for(key)
+
+    def _promote_tenant(self, key: Hashable) -> Optional[int]:
+        """Readmit one non-resident tenant into the slab (dispatch lock held, on
+        the engine's stream): the entry is written into the slot's existing row
+        in place, so every captured graph still reads it.
+
+        A cold tenant's spill file is read back through the MTCKPT1 container
+        (bit-identical), and deleted only AFTER the promote record, which embeds
+        the entry, is journaled: a recovery never dereferences a dead file."""
+        tier = self._tier
+        src = tier.tier_of(key)
+        entry, _ = tier.pop_entry(key)
+        keyed = self._keyed
+        slot = keyed.slot_for(key)
+        self._grow()
+        spill = entry.pop("_spill_file", None) if entry is not None else None
+        if self._journal is not None:
+            blob = b"" if entry is None else ckpt_format.dumps(entry, meta={"kind": "tier-promote"})
+            self._journal_append([_encode_tier_record(b"P", int(slot or 0), self._key_bytes(key), blob)])
+            if slot is not None:
+                self._wal_slots_sent.add(slot)
+        if entry is not None:
+            restore_entry(keyed, key, entry)
+        if spill is not None and tier.store is not None:
+            tier.store.delete(spill)
+        self.telemetry.count("tier_promotions")
+        _obs.record_tier_promotion(self.telemetry.engine_id, src or "unknown")
+        return slot
+
+    def _demote_tenant(self, key: Hashable) -> bool:
+        """Demote one hot tenant to the warm mirror (dispatch lock held, on the
+        engine's stream).
+
+        Capture → journal → evict → release: the demote record lands before the
+        slot becomes reusable, so replay reproduces retire-then-reuse in commit
+        order and a recovered engine never aliases the freed row."""
+        if not self._is_resident(key):
+            return False
+        self._demote_many([key], [capture_entry(self._keyed, key)])
+        return True
+
+    def _demote_tenants(self, keys: Sequence[Hashable]) -> int:
+        """Demote many hot tenants at once (dispatch lock held, on the engine's
+        stream): their rows leave the card in one gather and one copy per leaf
+        (:func:`~metrics_tpu_torch.tier.capture_entries`), are scrubbed in one
+        pass per leaf, and the entries, the ``D`` records and the free-list end
+        as one :meth:`_demote_tenant` call per key would leave them."""
+        keys = [key for key in keys if self._is_resident(key)]
+        if keys:
+            self._demote_many(keys, capture_entries(self._keyed, keys))
+        return len(keys)
+
+    def _demote_many(self, keys: List[Hashable], entries: List[Dict[str, Any]]) -> None:
+        keyed, tier = self._keyed, self._tier
+        if self._journal is not None:
+            slot_of = keyed._slots if isinstance(keyed, KeyedState) else {}
+            self._journal_append([_encode_tier_record(b"D", int(slot_of.get(key, 0)), self._key_bytes(key))
+                                  for key in keys])
+        if isinstance(keyed, KeyedState):
+            slots = keyed.evict_many(keys)
+            keyed.release_slots(slots)
+        else:
+            slots = [keyed.evict(key) for key in keys]
+        for key, entry, slot in zip(keys, entries, slots):
+            if slot is not None:
+                self._wal_slots_sent.discard(slot)
+            tier.warm[key] = entry
+            tier.forget_heat(key)
+        self.telemetry.count("tier_demotions", len(keys))
+        for _ in keys:
+            _obs.record_tier_demotion(self.telemetry.engine_id)
+
+    def _maybe_tier(self) -> None:
+        """The between-batches eviction pass (dispatcher thread, like
+        ``_maybe_checkpoint``): demote the coldest hot tenants down to
+        ``hot_capacity`` (quarantined first, pinned never), then push the warm
+        overflow to disk. Spill IO runs OFF the dispatch lock — only the manifest
+        flip retakes it — so promotions never queue behind a disk write."""
+        tier = self._tier
+        if tier is None or not self._tier_policy:
+            return
+        keyed = self._keyed
+        hot_count = len(keyed._slots) if isinstance(keyed, KeyedState) else len(keyed._states)
+        if not tier.due(hot_count):
+            return
+        guard = self._guard
+        quarantined = set(guard.quarantine.active()) if guard is not None else set()
+        with self._dispatch_lock, self._on_stream():
+            hot_keys = keyed.keys
+            victims = tier.victims(hot_keys, len(hot_keys) - tier.cfg.hot_capacity, quarantined)
+            if victims:
+                self._demote_tenants(victims)
+                self._sync()
+        store = tier.store
+        if store is not None:
+            for key in tier.spill_victims():
+                with self._dispatch_lock:
+                    entry = tier.warm.get(key)
+                if entry is None:
+                    continue  # promoted between passes
+                try:
+                    name, blob = store.spill(key, entry)
+                except Exception:  # noqa: BLE001 — disk trouble: stay warm, stay serving
+                    self.telemetry.count("tier_spill_failures")
+                    break
+                with self._dispatch_lock:
+                    flipped = tier.warm.get(key) is entry
+                    if flipped:
+                        del tier.warm[key]
+                        tier.cold[key] = name
+                if not flipped:
+                    store.delete(name)  # promoted while we wrote: an orphaned file
+                    continue
+                self.telemetry.count("tier_spills")
+                _obs.record_tier_spill(self.telemetry.engine_id, len(blob))
+        self._publish_tier_gauges()
+
+    def _publish_tier_gauges(self) -> None:
+        if not _OBS.enabled:
+            return
+        eid = self.telemetry.engine_id
+        tier = self._tier
+        if tier is not None:
+            keyed = self._keyed
+            hot = len(keyed._slots) if isinstance(keyed, KeyedState) else len(keyed._states)
+            _obs.set_tier_residency(eid, hot, len(tier.warm), len(tier.cold))
+        shard = self.telemetry.label("shard")
+        for dtype, nbytes in self._slab_bytes().items():
+            _obs.set_engine_slab_bytes(eid, dtype, nbytes, shard=shard)
+
+    def _require_tier(self, op: str) -> TierManager:
+        if self._tier is None:
+            raise MetricsTPUUserError(f"{op}() requires the engine to be built with tier=TierConfig(...)")
+        return self._tier
+
+    def register_tenants(self, keys: Sequence[Hashable]) -> int:
+        """Register tenants as COLD residents — one manifest entry each, no slab
+        growth, no spill file: a registered-but-silent tenant costs nothing on
+        the device until its first submit promotes it. Returns how many keys
+        were newly registered (known keys, hot or tiered, are left alone)."""
+        tier = self._require_tier("register_tenants")
+        keyed = self._keyed
+        table = keyed._slots if isinstance(keyed, KeyedState) else keyed._states
+        added = 0
+        with self._dispatch_lock:
+            for key in keys:
+                if key in table:
+                    continue
+                if tier.register_cold(key):
+                    added += 1
+        return added
+
+    def pin_tenant(self, key: Hashable) -> None:
+        """Exempt ``key`` from tier eviction; a non-resident pinned tenant is
+        promoted at once (pinning promises slab residency)."""
+        tier = self._require_tier("pin_tenant")
+        with self._dispatch_lock, self._on_stream():
+            tier.pinned.add(key)
+            if not self._is_resident(key) and tier.has(key):
+                self._promote_tenant(key)
+                self._sync()
+
+    def unpin_tenant(self, key: Hashable) -> None:
+        if self._tier is not None:
+            with self._dispatch_lock:
+                self._tier.pinned.discard(key)
+
+    def demote_tenant(self, key: Hashable) -> bool:
+        """Demote one tenant to the warm mirror now (an operations hook; flushes
+        first). Returns False if the key is unknown, pinned or already
+        non-resident."""
+        tier = self._require_tier("demote_tenant")
+        self._check_quarantined("demote_tenant")
+        self.flush()
+        with self._dispatch_lock, self._on_stream():
+            if key in tier.pinned:
+                return False
+            demoted = self._demote_tenant(key)
+            self._sync()
+        return demoted
+
+    def tenant_tier(self, key: Hashable) -> Optional[str]:
+        """Which tier ``key`` occupies: "hot", "warm" or "cold"; ``None`` for an
+        unknown tenant."""
+        with self._dispatch_lock:
+            if self._is_resident(key):
+                return HOT
+            return self._tier.tier_of(key) if self._tier is not None else None
+
+    def tier_stats(self) -> Dict[str, Any]:
+        """Residency counts and the device slab's footprint, one plain dict."""
+        with self._dispatch_lock:
+            keyed = self._keyed
+            hot = len(keyed._slots) if isinstance(keyed, KeyedState) else len(keyed._states)
+            out: Dict[str, Any] = {"hot": hot, "warm": 0, "cold": 0, "pinned": 0,
+                                   "slab_bytes": sum(self._slab_bytes().values())}
+            tier = self._tier
+            if tier is not None:
+                out["warm"] = len(tier.warm)
+                out["cold"] = len(tier.cold)
+                out["pinned"] = len(tier.pinned)
+                if self._tier_policy:
+                    out["hot_capacity"] = tier.cfg.hot_capacity
+        return out
 
     # ---------------------------------------------------- durable state plane
 
@@ -1278,6 +2054,8 @@ class StreamingEngine:
         generation whose tail records must still be replayable — so the rotation
         point is the OLDEST retained generation's coverage."""
         self.telemetry.count("checkpoints")
+        if self._guard is not None and self._guard.ckpt_breaker is not None:
+            self._guard.ckpt_breaker.record_success()
         journal = self._journal
         if journal is None:
             return
@@ -1298,8 +2076,10 @@ class StreamingEngine:
             journal.rotate(covered_seq=covered)
 
     def _on_snapshot_error(self, exc: BaseException) -> None:
-        """Writer-thread callback: count the absorbed failure."""
+        """Writer-thread callback: count the absorbed failure, feed the breaker."""
         self.telemetry.count("checkpoint_failures")
+        if self._guard is not None and self._guard.ckpt_breaker is not None:
+            self._guard.ckpt_breaker.record_failure()
 
     def _key_bytes(self, key: Hashable) -> bytes:
         key_bytes = self._wal_key_cache.get(key)
@@ -1394,6 +2174,8 @@ class StreamingEngine:
             keyed = self._keyed
             tree: Dict[str, Any] = {"kind": "engine", "seq": int(self._wal_seq)}
             tree["rotations"] = int(keyed.rotations)
+            if self._tier is not None:
+                tree["tier"] = self._tier.snapshot_view()
             if isinstance(keyed, KeyedState):
                 tree["mode"] = "fused"
                 tree["capacity"] = int(keyed.capacity)
@@ -1412,11 +2194,34 @@ class StreamingEngine:
                     for seg in (keyed._ring or [])
                 ]
             self._sync()
-        meta = {"tenants": len(keyed.keys), "seq": tree["seq"]}
+        tenants = len(keyed.keys)
+        if self._tier is not None:
+            tenants += len(self._tier.warm) + len(self._tier.cold)
+        meta = {"tenants": tenants, "seq": tree["seq"]}
         return tree, meta
 
     def _maybe_checkpoint(self) -> None:
         if self._ckpt_writer is None:
+            return
+        breaker = self._guard.ckpt_breaker if self._guard is not None else None
+        if breaker is not None:
+            if not breaker.permit():
+                # repeated commit failures: suspend snapshot attempts for the
+                # (exponentially growing) probation; the WAL covers the gap
+                self.telemetry.count("ckpt_suspended")
+                return
+            issued = False
+            try:
+                issued = self._ckpt_writer.maybe_checkpoint(self._checkpoint_view)
+            except Exception:  # noqa: BLE001 — a snapshot failure must not kill the dispatcher
+                self.telemetry.count("checkpoint_failures")
+                breaker.record_failure()
+                return
+            finally:
+                if not issued:
+                    # nothing was attempted (not due, writer busy): a permitted
+                    # half-open probe must not stay claimed forever
+                    breaker.abandon_probe()
             return
         try:
             self._ckpt_writer.maybe_checkpoint(self._checkpoint_view)
@@ -1436,18 +2241,15 @@ class StreamingEngine:
 
     def _validate_engine_snapshot(self, snap: Any) -> None:
         """The recovery scan's check of one generation: raises ``ValueError`` (the
-        generation is skipped) where it does not fit this engine's metric, and
-        ``NotImplementedError`` for a tiered engine's snapshot (ROADMAP A.7)."""
+        generation is skipped) where it does not fit this engine's metric."""
         tree = snap.tree
         if snap.schema_version != _ENGINE_SCHEMA_VERSION:
             raise ValueError(f"engine snapshot schema v{snap.schema_version} != v{_ENGINE_SCHEMA_VERSION}")
         if not isinstance(tree, dict) or tree.get("kind") != "engine":
             raise ValueError("not an engine snapshot")
-        if tree.get("tier"):
-            raise NotImplementedError(
-                "this engine snapshot holds tenants out of the device slab (a tiered engine's); restoring it "
-                "needs the tier plane, which is not ported yet (ROADMAP A.7)"
-            )
+        tier_view = tree.get("tier")
+        if tier_view is not None and not isinstance(tier_view, dict):
+            raise ValueError("engine snapshot tier section is not a mapping")
         mode = tree.get("mode")
         ref = self._metric.init_state()
         ref_leaves = tree_flatten(ref)[0]
@@ -1479,7 +2281,17 @@ class StreamingEngine:
         """Install a validated snapshot (caller holds the dispatch lock). A fused
         snapshot is copied into the live slab in place (grown to its capacity
         first), so no graph is left bound to freed memory; an eager one demotes a
-        fused engine up front — recovering slower beats refusing to recover."""
+        fused engine up front — recovering slower beats refusing to recover. A
+        ``tier`` section restores the residency map; a snapshot without one
+        clears any stale local map."""
+        self._restore_slab(tree)
+        view = tree.get("tier")
+        if view:
+            self._ensure_tier().restore_view(view)
+        elif self._tier is not None:
+            self._tier.restore_view({})
+
+    def _restore_slab(self, tree: Dict[str, Any]) -> None:
         if tree["mode"] == "fused":
             ref = self._metric.init_state()
             self._keyed.restore(
@@ -1546,11 +2358,7 @@ class StreamingEngine:
             columns.append(col.astype(narrow_name(col.dtype.name), copy=False))
         keyed, dev = self._keyed, self._device
         if isinstance(keyed, KeyedState):
-            max_id = int(key_ids.max()) + 1 if len(key_ids) else 0
-            if keyed.ensure_capacity(min_slots=max_id):
-                self.telemetry.count("key_growths")
-                self.telemetry.observe_resize(keyed.last_resize_s)
-                self._drop_stale_graphs()
+            self._grow(min_slots=int(key_ids.max()) + 1 if len(key_ids) else 0)
             try:
                 kernel = self._get_kernel(self._chunk_signature(columns), int(len(key_ids)), keyed.capacity)
                 kernel(keyed, _as_state_tensor(key_ids, dev), _as_state_tensor(mask, dev),
@@ -1575,22 +2383,71 @@ class StreamingEngine:
         accumulation rounds as it did in the lost process."""
         args = tuple(as_request_tensor(a, self._device) for a in args)
         keyed = self._keyed
+        tier = self._tier
+        if tier is not None and not self._is_resident(key) and tier.has(key):
+            # defensive: a live engine journals a P record before any R for a
+            # non-resident tenant, but an older snapshot's tier section can
+            # still mark the key non-resident at this point of the replay
+            entry, _ = tier.pop_entry(key)
+            keyed.slot_for(key)
+            self._grow()
+            if entry is not None:
+                restore_entry(keyed, key, entry)
         keyed.slot_for(key)
         if isinstance(keyed, EagerKeyedState):
             keyed.update(key, *args)
         else:
-            keyed.ensure_capacity()
+            self._grow()
             keyed.set_state(key, self._metric.update_state(keyed.state_of(key), *args))
 
+    def _replay_demote(self, payload: bytes) -> None:
+        """Replay one b"D" record: capture the tenant's row from the REPLAYED slab
+        (bit-identical to what the journaling engine captured, because replay is
+        bit-identical up to this record), park it warm, free the slot. The live
+        engine may have spilled the entry since — content is what matters; tier
+        placement is local policy."""
+        _, key, _ = _decode_tier_record(payload)
+        if not self._is_resident(key):
+            return  # the snapshot already reflects the demotion
+        tier = self._ensure_tier()
+        entry = capture_entry(self._keyed, key)
+        slot = self._keyed.evict(key)
+        self._keyed.release_slot(slot)
+        if slot is not None:
+            self._replay_slot_keys.pop(slot, None)
+            self._wal_slots_sent.discard(slot)
+        tier.warm[key] = entry
+        tier.forget_heat(key)
+
     def _replay_retire(self, payload: bytes) -> None:
-        """Replay one b"T" record: forget the tenant and free its slot."""
-        _, key = _decode_tier_record(payload)
+        """Replay one b"T" record: forget the tenant in every tier, free its slot."""
+        _, key, _ = _decode_tier_record(payload)
+        if self._tier is not None:
+            self._tier.discard(key)
+            self._tier.forget_heat(key)
         if self._is_resident(key):
             slot = self._keyed.evict(key)
             self._keyed.release_slot(slot)
             if slot is not None:
                 self._replay_slot_keys.pop(slot, None)
                 self._wal_slots_sent.discard(slot)
+
+    def _replay_promote(self, payload: bytes) -> None:
+        """Replay one b"P" record: install the journaling engine's slot id and
+        restore the embedded entry blob through the MTCKPT1 path — never the
+        spill file, which the live engine deleted once this record was durable."""
+        slot, key, blob = _decode_tier_record(payload)
+        keyed = self._keyed
+        if isinstance(keyed, KeyedState):
+            keyed.install_slot(key, slot)
+            self._replay_slot_keys[slot] = key
+            self._grow(min_slots=slot + 1)
+        else:
+            keyed.slot_for(key)
+        if blob:
+            restore_entry(keyed, key, ckpt_format.loads(blob).tree)
+        if self._tier is not None:
+            self._tier.discard(key)
 
     def _apply_wal_payload(self, payload: bytes) -> None:
         """Dispatch one WAL record to its replayer (caller holds the dispatch lock,
@@ -1602,24 +2459,25 @@ class StreamingEngine:
             self._replay_request(*_decode_request_record(payload))
         elif kind == b"Z":
             self._keyed.reset()
+            if self._tier is not None:
+                for name in self._tier.reset():
+                    if self._tier.store is not None:
+                        self._tier.store.delete(name)
         elif kind == b"W":
             self._keyed.rotate()
+        elif kind == b"D":
+            self._replay_demote(payload)
         elif kind == b"T":
             self._replay_retire(payload)
-        elif kind in (b"D", b"P"):
-            raise NotImplementedError(
-                f"WAL record {kind.decode()!r} ({'demote' if kind == b'D' else 'promote'}) comes from a tiered "
-                "engine; replaying it needs the tier plane, which is not ported yet (ROADMAP A.7)"
-            )
+        elif kind == b"P":
+            self._replay_promote(payload)
         else:
             raise ValueError(f"unknown WAL record kind {kind!r}")
 
     def _recover(self) -> None:
         """Restart path: newest valid snapshot + exactly-once WAL replay, on this
         engine's device. A record that failed when it was first accepted fails
-        again and is counted (``failed``); a record of a plane that is not ported
-        raises ``NotImplementedError`` out of the constructor instead of being
-        skipped."""
+        again and is counted (``failed``)."""
         t0 = time.perf_counter()
         found = self._ckpt_store.latest_valid(validate=self._validate_engine_snapshot)
         with self._dispatch_lock, self._on_stream():
@@ -1646,8 +2504,6 @@ class StreamingEngine:
                 for seq, payload in self._journal.replay(after_seq=self._wal_seq):
                     try:
                         self._apply_wal_payload(payload)
-                    except NotImplementedError:
-                        raise
                     except Exception:  # noqa: BLE001 — it failed when first accepted too
                         self.telemetry.count("failed")
                     replayed += 1

@@ -251,6 +251,38 @@ class KeyedState:
                 if slot < cap:
                     self._scrub(tree_flatten(snap)[0], slot)
 
+    def _scrub_rows(self, leaves: List[torch.Tensor], slots: List[int]) -> None:
+        """Rows ``slots`` (distinct) of every leaf back to init: one
+        ``index_copy_`` per leaf."""
+        if not slots or not leaves:
+            return
+        idx = torch.tensor(slots, dtype=torch.int64).to(leaves[0].device)
+        for leaf, init in zip(leaves, self._init_leaves):
+            leaf.index_copy_(0, idx, init.expand((len(slots),) + init.shape))
+
+    def evict_many(self, keys: Sequence[Hashable]) -> List[Optional[int]]:
+        """:meth:`evict` for many tenants, the live rows scrubbed in one pass per
+        leaf. Returns the freed slot ids in the order of ``keys``."""
+        slots = [self._slots.pop(key, None) for key in keys]
+        self._scrub_rows(self.leaves(), [s for s in slots if s is not None and s < self.capacity])
+        return slots
+
+    def release_slots(self, slots: Sequence[Optional[int]]) -> None:
+        """:meth:`release_slot` for many ids, in order (the free-list ends as
+        the same calls one at a time would leave it), each ring segment
+        scrubbed in one pass per leaf."""
+        fresh: List[int] = []
+        with self._alloc_lock:
+            for slot in slots:
+                if slot is None or int(slot) in self._free_set:
+                    continue
+                slot = int(slot)
+                self._free_slots.append(slot)
+                self._free_set.add(slot)
+                fresh.append(slot)
+        for cap, snap in self._ring or ():
+            self._scrub_rows(tree_flatten(snap)[0], [s for s in fresh if s < cap])
+
     # ------------------------------------------------------------------ windowing
 
     def _reset_live(self) -> None:

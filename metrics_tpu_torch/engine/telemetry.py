@@ -9,9 +9,9 @@ not ride the ``obs.enable()`` master switch.
 
 :meth:`EngineTelemetry.snapshot` returns the JAX package's keys: the counters,
 ``queue_depth``, ``resize_seconds``, ``batch_occupancy_hist``, ``latency_s`` and
-``mean_batch_occupancy``. The counters of the planes that are not ported yet
-(guard, replication, tier) are declared and read 0, so a dashboard built on the
-JAX engine reads the port's unchanged.
+``mean_batch_occupancy``. The counters of the replication plane, which is not
+ported yet, are declared and read 0, so a dashboard built on the JAX engine
+reads the port's unchanged.
 
 Counter names are a closed set: :meth:`count` on a name that was never declared
 raises instead of silently minting a new series; extend the set explicitly with
@@ -57,7 +57,7 @@ _COUNTERS = (
     "wal_records",          # requests journaled ahead of their state commit
     "replayed",             # journaled requests re-applied during recovery
     "recoveries",           # restart-time restores from a valid snapshot
-    # guard plane (ROADMAP A.7: not ported yet, these read 0)
+    # guard plane
     "shed",                    # requests dropped by the overload controller
     "quota_rejections",        # submits refused by a tenant's token bucket
     "deadline_expired",        # requests whose deadline lapsed before dispatch
@@ -85,7 +85,7 @@ _COUNTERS = (
     "promotions",           # follower→primary promotions served by this engine
     "demotions",            # primary→follower step-downs (lease loss / re-attach)
     "read_jit_fallbacks",   # compiled read path disabled (the port reads eagerly: stays 0)
-    # tier plane (ROADMAP A.7: not ported yet, these read 0)
+    # tier plane
     "tier_promotions",      # readmissions into the device slab (warm/cold -> hot)
     "tier_demotions",       # demotions out of the slab (hot -> warm mirror)
     "tier_spills",          # warm entries pushed to disk (warm -> cold)

@@ -1,5 +1,7 @@
-"""Observability (port of ``metrics_tpu/obs``: the master gate and the kernel
-counters only; tracing, the flight recorder and fleet telemetry are not ported yet)."""
+"""Observability (port of ``metrics_tpu/obs``: the master gate, the registry and
+the series of the metric core, the kernel plane and the engine's durable, guard
+and tier planes; tracing, the flight recorder and fleet telemetry are not ported
+yet)."""
 
 from metrics_tpu_torch.obs.registry import OBS, REGISTRY
 

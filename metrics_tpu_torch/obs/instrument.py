@@ -1,6 +1,6 @@
-"""Instrumentation hooks of the metric core, the kernel plane and the durable
-state plane (port of the metric, kernel and ckpt sections of
-``metrics_tpu/obs/instrument.py``).
+"""Instrumentation hooks of the metric core, the kernel plane, the durable
+state plane and the engine's guard and tier planes (port of the metric,
+kernel, ckpt, guard and tier sections of ``metrics_tpu/obs/instrument.py``).
 
 Every hook returns at once, or hands back a shared no-op, while ``OBS.enabled``
 is false. Unlike the JAX package, whose callers are jitted and so count
@@ -169,3 +169,132 @@ def ckpt_span(name: str, **attrs: Any) -> Any:
     """The trace span of a durable-state-plane step (serialize, commit, restore):
     a shared no-op until the port has a tracer (ROADMAP A.7)."""
     return _NULL_OP
+
+
+# ---------------------------------------------------------------------- guard plane
+
+GUARD_SHED = REGISTRY.counter(
+    "metrics_tpu_torch_guard_shed_total",
+    "Requests dropped by the overload controller (queue sojourn above target for a full interval), per engine.",
+)
+GUARD_QUOTA_REJECTIONS = REGISTRY.counter(
+    "metrics_tpu_torch_guard_quota_rejections_total",
+    "Submits refused at admission because the tenant's token bucket was empty, per engine.",
+)
+GUARD_DEADLINE_EXPIRED = REGISTRY.counter(
+    "metrics_tpu_torch_guard_deadline_expired_total",
+    "Requests whose deadline expired before dispatch (failed fast, no batch slot), per engine.",
+)
+GUARD_WATCHDOG_RESTARTS = REGISTRY.counter(
+    "metrics_tpu_torch_guard_watchdog_restarts_total",
+    "Dispatcher workers superseded and restarted after the watchdog declared them hung, per engine.",
+)
+GUARD_QUARANTINES = REGISTRY.counter(
+    "metrics_tpu_torch_guard_quarantines_total",
+    "Tenants placed under quarantine probation after repeated request failures, per engine.",
+)
+GUARD_BREAKER_STATE = REGISTRY.gauge(
+    "metrics_tpu_torch_guard_breaker_state",
+    "Circuit breaker state per engine and dependency (0=closed, 1=half-open, 2=open).",
+)
+GUARD_HEALTH_STATE = REGISTRY.gauge(
+    "metrics_tpu_torch_guard_health_state",
+    "Engine health state machine (0=SERVING, 1=DEGRADED, 2=QUARANTINED).",
+)
+
+_GUARD_EVENT_COUNTERS = {
+    "shed": GUARD_SHED,
+    "quota_rejections": GUARD_QUOTA_REJECTIONS,
+    "deadline_expired": GUARD_DEADLINE_EXPIRED,
+    "watchdog_restarts": GUARD_WATCHDOG_RESTARTS,
+    "quarantines": GUARD_QUARANTINES,
+}
+
+_HEALTH_CODES = {"SERVING": 0, "DEGRADED": 1, "QUARANTINED": 2}
+
+
+def record_guard_event(engine: str, kind: str, n: int = 1) -> None:
+    """Count one guard decision (kind in shed|quota_rejections|deadline_expired|
+    watchdog_restarts|quarantines) against its engine label. (The JAX package
+    also dumps a flight-recorder bundle on quarantines and restarts; the
+    recorder comes with the replication slice, ROADMAP A.7.)"""
+    if not OBS.enabled:
+        return
+    _GUARD_EVENT_COUNTERS[kind].inc(n, engine=engine)
+
+
+def set_guard_breaker_state(engine: str, breaker: str, state_code: int) -> None:
+    if not OBS.enabled:
+        return
+    GUARD_BREAKER_STATE.set(state_code, engine=engine, breaker=breaker)
+
+
+def set_guard_health(engine: str, state: str) -> None:
+    if not OBS.enabled:
+        return
+    GUARD_HEALTH_STATE.set(_HEALTH_CODES[state], engine=engine)
+
+
+def guard_span(name: str, **attrs: Any) -> Any:
+    """The trace span of guard-plane internals (drain forming, hang handling):
+    a shared no-op until the port has a tracer (ROADMAP A.7)."""
+    return _NULL_OP
+
+
+# ---------------------------------------------------------------------- tier plane
+
+TIER_RESIDENCY = REGISTRY.gauge(
+    "metrics_tpu_torch_tier_residency",
+    "Tenants resident in each tier of a tiered StreamingEngine (hot = stacked device slab, warm = host-RAM "
+    "mirror, cold = disk spill manifest), per engine and tier.",
+)
+TIER_PROMOTIONS = REGISTRY.counter(
+    "metrics_tpu_torch_tier_promotions_total",
+    "Tenant readmissions into the device slab, per engine and source tier (warm = host mirror restore, "
+    "cold = MTCKPT1 spill-file restore).",
+)
+TIER_DEMOTIONS = REGISTRY.counter(
+    "metrics_tpu_torch_tier_demotions_total",
+    "Tenant demotions out of the device slab into the host-RAM mirror, per engine.",
+)
+TIER_SPILL_BYTES = REGISTRY.counter(
+    "metrics_tpu_torch_tier_spill_bytes_total",
+    "Bytes written to cold-tier spill files (MTCKPT1 containers), per engine.",
+)
+ENGINE_SLAB_BYTES = REGISTRY.gauge(
+    "metrics_tpu_torch_engine_slab_bytes",
+    "Device bytes held by the stacked tenant slab (live segment + window ring), per engine, dtype group and "
+    "shard (empty shard label = unsharded).",
+)
+
+
+def set_tier_residency(engine: str, hot: int, warm: int, cold: int) -> None:
+    if not OBS.enabled:
+        return
+    TIER_RESIDENCY.set(hot, engine=engine, tier="hot")
+    TIER_RESIDENCY.set(warm, engine=engine, tier="warm")
+    TIER_RESIDENCY.set(cold, engine=engine, tier="cold")
+
+
+def record_tier_promotion(engine: str, source: str) -> None:
+    if not OBS.enabled:
+        return
+    TIER_PROMOTIONS.inc(1, engine=engine, source=source)
+
+
+def record_tier_demotion(engine: str) -> None:
+    if not OBS.enabled:
+        return
+    TIER_DEMOTIONS.inc(1, engine=engine)
+
+
+def record_tier_spill(engine: str, nbytes: int) -> None:
+    if not OBS.enabled:
+        return
+    TIER_SPILL_BYTES.inc(nbytes, engine=engine)
+
+
+def set_engine_slab_bytes(engine: str, dtype: str, nbytes: int, shard: str = "") -> None:
+    if not OBS.enabled:
+        return
+    ENGINE_SLAB_BYTES.set(nbytes, engine=engine, dtype=dtype, shard=shard)

@@ -11,9 +11,10 @@ families are ``BinaryAccuracy``, ``MeanSquaredError``, the flagship
 flagship collection), a windowed engine, an inline (eager-path) writer and an
 evicted tenant (the ``T`` record). States must match leaf for leaf
 (``assert_trees_match``: integer states bit for bit with their dtype, float
-states within rtol 1e-6). The JAX package's demote and promote records (``D``,
-``P``) and a tiered snapshot raise naming ROADMAP A.7; its trace trailers are
-read past.
+states within rtol 1e-6). Tiered engines cross too: a directory whose WAL holds
+demote and promote records (``D``, ``P``) and whose snapshot carries a ``tier``
+section (warm entries by value, cold tenants by spill file), written by either
+package, recovers in the other. The JAX package's trace trailers are read past.
 """
 
 import pickle
@@ -33,7 +34,7 @@ from metrics_tpu.engine import CheckpointConfig as JaxCheckpointConfig
 from metrics_tpu.engine import StreamingEngine as JaxEngine
 from metrics_tpu.engine import runtime as jax_runtime
 from metrics_tpu.obs.context import TraceContext
-from metrics_tpu_torch.ckpt import SnapshotStore, dumps, loads
+from metrics_tpu_torch.ckpt import SnapshotStore, loads
 from metrics_tpu_torch.ckpt.faults import flip_bit
 from metrics_tpu_torch.classification import BinaryAccuracy, BinaryAUROC
 from metrics_tpu_torch.engine import CheckpointConfig, EngineClosed, StreamingEngine
@@ -475,24 +476,126 @@ def _jax_journal(tmp_path, payloads):
     j.close()
 
 
-@pytest.mark.parametrize("kind", [b"D", b"P"])
-def test_a_tier_record_raises_naming_a7(kind, tmp_path):
+@pytest.mark.parametrize("kind", [b"D", b"P", b"P-empty"])
+def test_a_jax_tier_record_replays_as_in_jax(kind, tmp_path):
+    """A JAX-written WAL with one tier record after some requests: the port's
+    recovery ends where the JAX engine's does — a ``D`` parks the tenant warm
+    with its captured row, a ``P`` installs the journaled slot and restores the
+    embedded entry (an empty blob: a fresh row)."""
     key = pickle.dumps("t0")
-    _jax_journal(tmp_path, [jax_runtime._encode_request_record(key, (np.array([1]), np.array([1]))),
-                            jax_runtime._encode_tier_record(kind, 0, key, b"")])
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        StreamingEngine(tcls.BinaryAccuracy(**CPU), buckets=(8,), checkpoint=_cfg(tmp_path))
+    rng = np.random.default_rng(21)
+    p, t = _binary(rng, 3)
+    entry = {"state": {k: np.asarray(v) for k, v in jcls.BinaryAccuracy().update_state(
+        jcls.BinaryAccuracy().init_state(), jnp.asarray(p), jnp.asarray(t)).items()}, "ring": [], "rot": 0}
+    blob = b"" if kind == b"P-empty" else jax_runtime.ckpt_format.dumps(entry, meta={"kind": "tier-promote"})
+    records = [jax_runtime._encode_request_record(key, (p, t)),
+               jax_runtime._encode_tier_record(kind[:1], 3 if kind[:1] == b"P" else 0, pickle.dumps("t9")
+                                               if kind[:1] == b"P" else key, blob)]
+    _jax_journal(tmp_path, records)
+    ref = JaxEngine(jcls.BinaryAccuracy(), buckets=(8,), checkpoint=JaxCheckpointConfig(
+        directory=str(tmp_path), interval_s=3600.0, durable=False))
+    ref_tiers = {k: ref.tenant_tier(k) for k in ("t0", "t9")}
+    ref_states = {k: ref._keyed.state_of(k) for k in ref._keyed.keys}
+    ref_warm = {k: v for k, v in (ref._tier.warm.items() if ref._tier is not None else ())}
+    ref.close(checkpoint=False)
+    engine = StreamingEngine(tcls.BinaryAccuracy(**CPU), buckets=(8,), checkpoint=_cfg(tmp_path))
+    try:
+        assert engine.telemetry_snapshot()["replayed"] == 2 and engine.telemetry_snapshot()["failed"] == 0
+        assert {k: engine.tenant_tier(k) for k in ("t0", "t9")} == ref_tiers
+        assert set(engine._keyed.keys) == set(ref_states)
+        for k, state in ref_states.items():
+            assert_trees_match(engine._keyed.state_of(k), state, k)
+        for k, warm in ref_warm.items():
+            assert_trees_match(engine._tier.warm[k], warm, k)
+        if kind[:1] == b"P":
+            assert engine._keyed._slots["t9"] == 3
+            engine.submit("new", p, t).result(timeout=WAIT_S)
+            assert engine._keyed._slots["new"] not in (engine._keyed._slots["t0"], 3)
+    finally:
+        engine.close(checkpoint=False)
 
 
-def test_a_tiered_snapshot_raises_naming_a7(tmp_path):
-    engine = StreamingEngine(tcls.BinaryAccuracy(**CPU), buckets=(8,), checkpoint=_cfg(tmp_path, wal=False))
-    _submit(engine, _stream(12, 10))
-    tree, meta = engine._checkpoint_view()
-    engine.close(checkpoint=False)
-    tree["tier"] = {"warm": {}, "cold": {"t9": "spill-0"}}
-    SnapshotStore(str(tmp_path), durable=False).commit(dumps(tree, meta=meta))
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        StreamingEngine(tcls.BinaryAccuracy(**CPU), buckets=(8,), checkpoint=_cfg(tmp_path, wal=False))
+def _tier_cfg(pkg_cfg, tmp_path, name):
+    return pkg_cfg(hot_capacity=3, warm_capacity=2, spill_directory=str(tmp_path / name), idle_demote_s=1000.0,
+                   check_interval_s=0.0)
+
+
+@pytest.mark.parametrize("family", ["binary_accuracy", "flagship", "windowed"])
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_tiered_directory_of_either_package_recovers_in_the_other(family, writer, tmp_path):
+    """A tiered writer (hot set 3, warm set 2, the rest spilled) serves 8
+    tenants, takes a snapshot whose tier section holds warm and cold tenants,
+    serves more (demotions, promotions, an eviction, a rotation), and crashes:
+    the other package's engine recovers from the snapshot, the spill files and
+    the WAL's D, P and T records, and every tenant — readmitted — holds the
+    writer's state."""
+    make_jax, make_port, gen, kw = CROSS[family]
+    window = "window" in kw
+    engine_kw = {"buckets": (8,), "capacity": 2, **kw}
+    reqs = _requests(gen, seed=7 + len(family), n=60, keys=8)
+    from metrics_tpu.engine import TierConfig as JaxTierConfig
+    from metrics_tpu_torch.engine import TierConfig
+
+    jax_args, port_args = (lambda a: tuple(map(jnp.asarray, a))), (lambda a: a)
+    if writer == "jax":
+        w = JaxEngine(make_jax(), checkpoint=JaxCheckpointConfig(directory=str(tmp_path / "ckpt"),
+                                                                 interval_s=3600.0, durable=False),
+                      tier=_tier_cfg(JaxTierConfig, tmp_path, "spill"), **engine_kw)
+        args_w = jax_args
+    else:
+        w = StreamingEngine(make_port(), checkpoint=_cfg(tmp_path / "ckpt"),
+                            tier=_tier_cfg(TierConfig, tmp_path, "spill"), **engine_kw)
+        args_w = port_args
+
+    def serve(chunk):
+        for key, args in chunk:
+            w.submit(key, *args_w(args))
+            w.flush(timeout=WAIT_S)
+
+    try:
+        serve(reqs[:30])
+        tiers = w.tier_stats()
+        assert tiers["warm"] >= 1 and tiers["cold"] >= 1
+        assert w.checkpoint_now() is not None
+        serve(reqs[30:45])
+        if window:
+            w.rotate_window()
+        assert w.evict_tenant(reqs[0][0]) is True
+        serve(reqs[45:])
+        keys = sorted(set(k for k, _ in reqs))
+        want_tiers = {k: w.tenant_tier(k) for k in keys}
+        assert {"hot", "warm", "cold"} <= set(want_tiers.values()) or len(keys) < 6
+        assert w.telemetry_snapshot()["tier_promotions"] >= 1
+        for k in keys:
+            if want_tiers[k] is not None:
+                w.pin_tenant(k)
+        want = _live_states(w, window)
+    finally:
+        w.close(checkpoint=False)
+    journal = JaxJournal(str(tmp_path / "ckpt"), durable=False)
+    kinds = {payload[:1] for _, payload in journal.replay()}
+    journal.close()
+    assert {b"D", b"P", b"T"} <= kinds
+    if writer == "jax":
+        r = StreamingEngine(make_port(), checkpoint=_cfg(tmp_path / "ckpt"), **engine_kw)
+    else:
+        r = JaxEngine(make_jax(), checkpoint=JaxCheckpointConfig(directory=str(tmp_path / "ckpt"),
+                                                                 interval_s=3600.0, durable=False), **engine_kw)
+    try:
+        snap = r.telemetry_snapshot()
+        assert snap["recoveries"] == 1 and snap["replayed"] >= 1 and snap["failed"] == 0
+        for k in keys:
+            if want_tiers[k] is None:
+                assert r.tenant_tier(k) is None
+            else:
+                r.pin_tenant(k)
+        got = _live_states(r, window)
+        assert set(got) == set(want)
+        for key in want:
+            port, ref = (got[key], want[key]) if writer == "jax" else (want[key], got[key])
+            assert_trees_match(port, ref, f"{family} {key}")
+    finally:
+        r.close(checkpoint=False)
 
 
 def test_trace_trailers_of_jax_records_are_read_past(tmp_path):

@@ -159,9 +159,24 @@ def fold_rows(metric, stream):
     return states
 
 
-def run_stream(engine, stream):
-    """Submit in order from this thread, flush, and check every receipt."""
-    futures = [engine.submit(key, *args) for key, args in stream]
+def submit_in_one_drain(engine, stream):
+    """Submit ``stream`` in order while holding the engine's lock. The
+    dispatcher drains its queue under that lock, so it takes the whole stream
+    in one batch and cuts the same micro-batches however late it wakes (both
+    packages' engines drain so). The lock is reentrant, so ``submit`` takes it
+    again here; the stream must fit the queue."""
+    assert len(stream) <= engine._max_queue
+    with engine._lock:
+        return [engine.submit(key, *args) for key, args in stream]
+
+
+def run_stream(engine, stream, one_drain=False):
+    """Submit in order from this thread (with ``one_drain``, as one drained
+    batch), flush, and check every receipt."""
+    if one_drain:
+        futures = submit_in_one_drain(engine, stream)
+    else:
+        futures = [engine.submit(key, *args) for key, args in stream]
     engine.flush(timeout=WAIT_S)
     done, not_done = wait(futures, timeout=WAIT_S)
     assert not not_done
@@ -169,14 +184,15 @@ def run_stream(engine, stream):
 
 
 def run_both(family, stream, **engine_kw):
-    """The same stream through both engines; ``(port snapshot, JAX snapshot,
+    """The same stream through both engines, each taking it in one drained
+    batch, so both cut the same micro-batches; ``(port snapshot, JAX snapshot,
     port states, JAX states, port computes, JAX computes)``."""
     make_jax, make_port, _ = FAMILIES[family]
     ref = JaxEngine(make_jax(), **engine_kw)
     port = StreamingEngine(make_port(), **engine_kw)
     try:
-        run_stream(ref, stream)
-        run_stream(port, stream)
+        run_stream(ref, stream, one_drain=True)
+        run_stream(port, stream, one_drain=True)
         out = (port.telemetry_snapshot(), ref.telemetry_snapshot(), engine_states(port), engine_states(ref),
                port.compute_all(), ref.compute_all())
     finally:
@@ -783,28 +799,83 @@ def test_evict_tenant_on_an_untiered_engine_matches_jax():
 # --------------------------------------------------------------------------- what waits, devices, hooks
 
 
-@pytest.mark.parametrize("plane,item", [("guard", "A.7"), ("replication", "A.7"), ("tier", "A.7")])
+@pytest.mark.parametrize("plane,item", [("replication", "A.7")])
 def test_planes_not_ported_raise_naming_their_item(plane, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         StreamingEngine(FAMILIES["accuracy"][1](), **{plane: object()})
-    engine = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,), start=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        engine.export_tenant("k")
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        engine.import_tenant("k", None)
+
+
+def _plane(plane):
+    from metrics_tpu_torch.engine import GuardConfig, TierConfig
+
+    return {"guard": GuardConfig(shed=False), "tier": TierConfig(hot_capacity=2, check_interval_s=0.0)}[plane]
+
+
+@pytest.mark.parametrize("plane", ["guard", "tier"])
+def test_guard_and_tier_planes_serve_as_jax_does(plane):
+    """``guard=`` and ``tier=`` are ported: each serves a stream over more
+    tenants than a hot set of 2, and every tenant's state equals the JAX
+    engine's with the same plane."""
+    from metrics_tpu.engine import GuardConfig as JaxGuardConfig
+    from metrics_tpu.engine import TierConfig as JaxTierConfig
+
+    jax_plane = {"guard": JaxGuardConfig(shed=False), "tier": JaxTierConfig(hot_capacity=2, check_interval_s=0.0)}
+    stream = _stream(FAMILIES["accuracy"][2], seed=31, n=30, keys=5)
+    port = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,), **{plane: _plane(plane)})
+    ref = JaxEngine(FAMILIES["accuracy"][0](), buckets=(8,), **{plane: jax_plane[plane]})
+    try:
+        for engine in (port, ref):
+            for key, args in stream:
+                engine.submit(key, *args).result(timeout=WAIT_S)
+        values = port.compute_all()
+        assert set(values) == set(ref.compute_all())
+        for key, value in ref.compute_all().items():
+            assert_trees_match(values[key], value, key)
+        if plane == "tier":
+            assert port.tier_stats()["hot"] <= 3 and port.telemetry_snapshot()["tier_demotions"] >= 1
+        else:
+            assert port.health()["breakers"].keys() == ref.health()["breakers"].keys()
+    finally:
+        port.close()
+        ref.close()
+
+
+def test_export_and_import_tenant_move_a_tenant():
+    """``export_tenant`` captures and retires a tenant (a ``T`` record, a freed
+    slot); ``import_tenant`` on another engine installs it with its state."""
+    stream = _stream(FAMILIES["accuracy"][2], seed=32, n=20, keys=3)
+    src = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,))
+    dst = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,))
+    try:
+        run_stream(src, stream)
+        want = src._keyed.state_of("t1")
+        assert src.export_tenant("nobody") is None
+        entry = src.export_tenant("t1")
+        assert "t1" not in src._keyed.keys and src.telemetry_snapshot()["tier_evictions"] == 1
+        dst.import_tenant("t1", entry)
+        assert_trees_match(dst._keyed.state_of("t1"), want, "t1")
+        assert_trees_match(dst.export_tenant("t1", retire=False)["state"], want, "t1")
+        assert "t1" in dst._keyed.keys
+    finally:
+        src.close()
+        dst.close()
 
 
 @pytest.mark.parametrize("plane", ["guard", "replication", "tier"])
 def test_checkpoint_is_accepted_and_the_other_planes_still_raise(plane, tmp_path):
-    """``checkpoint=`` (the durable state plane) is ported: the engine takes it
-    beside no other plane, serves and journals; with it, each other plane still
-    raises naming A.7."""
+    """``checkpoint=`` (the durable state plane) is ported, and so are the guard
+    and tier planes: the engine takes checkpointing beside either, serves and
+    journals; beside ``replication=`` it still raises naming A.7."""
     from metrics_tpu_torch.engine import CheckpointConfig
 
     cfg = CheckpointConfig(directory=str(tmp_path), interval_s=3600.0, durable=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-        StreamingEngine(FAMILIES["accuracy"][1](), checkpoint=cfg, **{plane: object()})
-    engine = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,), checkpoint=cfg)
+    if plane == "replication":
+        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
+            StreamingEngine(FAMILIES["accuracy"][1](), checkpoint=cfg, replication=object())
+        planes = {}
+    else:
+        planes = {plane: _plane(plane)}
+    engine = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,), checkpoint=cfg, **planes)
     try:
         run_stream(engine, [("k", (np.array([1], np.int32), np.array([1], np.int32)))])
         assert engine.telemetry_snapshot()["wal_records"] == 1

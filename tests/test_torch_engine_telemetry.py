@@ -19,6 +19,7 @@ from tests.test_torch_engine import (  # noqa: F401  (_one_torch_thread: the aut
     _one_torch_thread,
     _stream,
     run_stream,
+    submit_in_one_drain,
 )
 
 # the health keys of an engine without planes (tests/engine/test_health_schema.py)
@@ -43,9 +44,8 @@ def test_engine_snapshot_matches_jax_for_the_same_traffic():
                                                                                   capacity=4)
     try:
         for engine in (ref, port):
-            engine._worker_gate.clear()  # one drained batch, so both engines cut the same micro-batches
-            futures = [engine.submit(key, *args) for key, args in stream]
-            engine._worker_gate.set()
+            # one drained batch, so both engines cut the same micro-batches
+            futures = submit_in_one_drain(engine, stream)
             engine.flush(timeout=WAIT_S)
             assert all(f.result(timeout=WAIT_S) for f in futures)
         got, want = port.telemetry_snapshot(), ref.telemetry_snapshot()

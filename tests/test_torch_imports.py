@@ -107,6 +107,19 @@ def test_durable_state_plane_modules_are_scanned(relpath):
     assert relpath in SOURCES
 
 
+GUARD_TIER_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("guard/__init__", "guard/errors", "guard/quota", "guard/breaker", "guard/shed", "guard/fairness",
+                 "guard/quarantine", "guard/watchdog", "guard/config", "guard/plane", "guard/faults",
+                 "tier/__init__", "tier/config", "tier/coldstore", "tier/residency")
+]
+
+
+@pytest.mark.parametrize("relpath", GUARD_TIER_MODULES)
+def test_guard_and_tier_plane_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
 def _series(reg):
     """One registry's worth of every kind of series: labelled and unlabelled
     counters (integral and fractional), a gauge, histograms with explicit and
