@@ -160,7 +160,9 @@ checkout, and then:
   printed. K5: an update that reads a value on the host cannot be captured:
   one demotion (``fused_fallbacks == 1``), every request answered, then
   eager updates on the card with ``hist_add`` launched, states equal to
-  the fold, and random numbers still drawn after the failed capture. K6:
+  the fold, ``compute`` and ``compute_all`` of the demoted engine equal to
+  the fold's values, and random numbers still drawn after the failed
+  capture. K6:
   ``BinaryAccuracy()`` with its value checks on, at
   ``benchmarks/engine_throughput.py``'s headline configuration (the K1
   engine settings; 8000 batch-1 int64 requests, seed 0), beside 300 naive
@@ -234,6 +236,33 @@ checkout, and then:
   crash and a recovery from the snapshot's tier section and the WAL's D and
   P records gives the same leaves; ms a promotion and a demotion against a
   pinned copy of the same bytes.
+- Phase P drives the replication plane (``replication=ReplConfig(...)``). P1:
+  the shipping overhead at K6's configuration, 6 pairs of a checkpoint-only
+  pass and a checkpointing pass whose primary also ships over a drained
+  ``LoopbackLink`` (``ship_interval_s=0.02``), the median pair ratio (the JAX
+  gate of 5% a record) beside the shipper thread's wall and CPU ms. P2: read
+  scale-out (``engine_throughput.py --replica``): K6's primary ships over a
+  directory spool under 4 writers of 64-row batches paced at 1 ms; its
+  compute() rate over 2 s against a follower's in its own process on the
+  same card (this script started with ``--replica-reader SPOOL SECONDS``),
+  with the follower's quiet rate, its readers' wait for the dispatch lock and
+  its lag; the JAX limits (5x, 500/s) are records. P3: K2's collection at
+  C = 1000 and K1's quantiles, each a journaled primary and a follower on
+  ``cuda:0`` over a ``LoopbackLink`` with their own graphs: the follower
+  tracks a live segment; the primary restarts (a new epoch) and the follower
+  rebootstraps into its slab in place (the same data pointers); a segment
+  is held behind the follower's dispatch lock and replayed alone under the
+  profiler (its launches equal captured x replays, 2 ``stat_scores`` + 1
+  ``pair_count`` / 2 ``hist_add`` a row of every graph); the primary is
+  dropped without ``close()`` and the follower promoted (ms, and its drain,
+  fence and pin spans); the deposed primary's shipments are fenced and
+  leave the promoted states alone; the promoted engine serves 128 requests;
+  every leaf ``torch.equal`` to the primary's at the applied seq and to the
+  fold. P4: a zombie primary over TCP refused at the follower's receive
+  side; a guard quarantine promoting its follower through ``failover_hook``
+  with the flight bundle loaded back; a traced submit's trace id in the
+  follower's ``engine.replay`` span and the primary's node snapshot in the
+  fleet aggregator.
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
@@ -2079,6 +2108,8 @@ def _k_submit(engine, reqs, threads: int) -> float:
     import threading
     from concurrent.futures import wait
 
+    from metrics_tpu_torch.utils.graphs import collector_paused
+
     futures, lock = [], threading.Lock()
 
     def client(tid: int) -> None:
@@ -2087,8 +2118,7 @@ def _k_submit(engine, reqs, threads: int) -> float:
             futures.extend(mine)
 
     gc.collect()
-    gc.disable()
-    try:
+    with collector_paused():  # the pause the engine's captures share: no capture sees it end
         t0 = time.perf_counter()
         workers = [threading.Thread(target=client, args=(tid,)) for tid in range(threads)]
         for th in workers:
@@ -2098,8 +2128,6 @@ def _k_submit(engine, reqs, threads: int) -> float:
             _check(not th.is_alive(), "a client thread did not finish")
         engine.flush(timeout=300)
         seconds = time.perf_counter() - t0
-    finally:
-        gc.enable()
     done, not_done = wait(futures, timeout=60)
     _check(not not_done and len(done) == len(reqs), f"{len(not_done)} of {len(reqs)} futures unanswered")
     errors = [f.exception() for f in done if f.exception() is not None]
@@ -2407,10 +2435,18 @@ def phase_k5(torch, np, scatter) -> dict:
         _check(eager >= 2 * len(reqs), f"K5: {eager} hist_add launches for {len(reqs)} eager updates")
         folds, rows = _k_fold(torch, HostCheckedQuantiles(), reqs, "cuda")
         compared = _k_check_states(torch, engine, folds, rows, "K5")
+        # the demoted engine's read path (eager states, no slab) against the fold
+        metric, everything = HostCheckedQuantiles(), engine.compute_all()
+        _check(set(everything) == set(folds), f"K5: compute_all keys {sorted(everything)}")
+        for key, fold in folds.items():
+            want = metric.compute_from(fold)
+            for what, got in (("compute", engine.compute(key)), ("compute_all", everything[key])):
+                _check(torch.isfinite(got).all().item() and torch.equal(got.cpu(), want.cpu()),
+                       f"K5: {what}({key}) {got.tolist()} vs the fold's {want.tolist()}")
         _check(torch.randn(4, device="cuda").isfinite().all().item(), "K5: random numbers after a failed capture")
         rec = {"requests": len(reqs), "req_per_s": len(reqs) / seconds, "fused_fallbacks": snap["fused_fallbacks"],
                "compiles": snap["compiles"], "hist_add_launches_eager": eager, "state_leaves_equal": compared,
-               "latency_s": snap["latency_s"]}
+               "reads_equal": 2 * len(folds), "latency_s": snap["latency_s"]}
     finally:
         engine.close()
     print(f"phase K5 {json.dumps(rec)}")
@@ -2685,6 +2721,20 @@ def _m_timed(fn, spent: dict, key: str):
             return fn(*args, **kwargs)
         finally:
             spent[key] += (time.perf_counter() - t0) * 1e3
+
+    return run
+
+
+def _m_cpu_timed(fn, spent: dict, key: str):
+    """``fn`` adding the CPU ms its thread spends in it to ``spent[key]`` at each
+    call (``time.thread_time``: waits for the GIL and sleeps do not count)."""
+
+    def run(*args, **kwargs):
+        t0 = time.thread_time()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            spent[key] += (time.thread_time() - t0) * 1e3
 
     return run
 
@@ -2996,6 +3046,9 @@ def _engine_pass(torch, np, reqs, folds, rows, what: str, **engine_kw) -> tuple:
         engine._guard.form_drain = _m_timed(engine._guard.form_drain, spent, "plane_ms")
     if engine._tier is not None:
         engine._maybe_tier = _m_timed(engine._maybe_tier, spent, "plane_ms")
+    if engine._shipper is not None:  # the shipper thread's ticks (its own thread, not the dispatcher's)
+        spent["plane_cpu_ms"] = 0.0
+        engine._shipper.tick = _m_timed(_m_cpu_timed(engine._shipper.tick, spent, "plane_cpu_ms"), spent, "plane_ms")
     seconds = _k_submit(engine, reqs, K_THREADS)
     spent = dict(spent)
     _k_check_states(torch, engine, folds, rows, what)
@@ -3042,11 +3095,13 @@ def _paired_overhead(torch, np, what: str, plane: dict) -> dict:
 def _n2_skew_pass(np, guard, flood: bool) -> float:
     """benchmarks/engine_throughput.py's skew_pass on the card: the light
     tenants' submit->commit p99 in seconds."""
+    import contextlib
     import gc
     import threading
 
     from metrics_tpu_torch.classification import BinaryAccuracy
     from metrics_tpu_torch.engine import StreamingEngine
+    from metrics_tpu_torch.utils.graphs import collector_paused
 
     rng = np.random.default_rng(23)
     heavy_args = (rng.integers(0, 2, N2_HEAVY_ROWS), rng.integers(0, 2, N2_HEAVY_ROWS))
@@ -3054,6 +3109,7 @@ def _n2_skew_pass(np, guard, flood: bool) -> float:
     engine = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, max_queue=N2_QUEUE,
                              capacity=N2_CAPACITY, guard=guard)
     lat_lock, light_lat, stop = threading.Lock(), [], threading.Event()
+    paused = contextlib.ExitStack()
     try:
         for rows in K_BUCKETS:  # warm the ladder, one rung a flush
             engine.submit("heavy", rng.integers(0, 2, rows), rng.integers(0, 2, rows))
@@ -3063,7 +3119,7 @@ def _n2_skew_pass(np, guard, flood: bool) -> float:
         engine.flush(timeout=300)
         engine.reset()
         gc.collect()
-        gc.disable()
+        paused.enter_context(collector_paused())
 
         def heavy_client():
             while not stop.is_set():
@@ -3102,7 +3158,7 @@ def _n2_skew_pass(np, guard, flood: bool) -> float:
         _check(snap["failed"] == 0 and snap["shed"] == 0, f"N2: {snap['failed']} failed, {snap['shed']} shed")
         return float(np.percentile(np.asarray(light_lat), 99, method="nearest"))
     finally:
-        gc.enable()
+        paused.close()
         stop.set()
         engine.close()
 
@@ -3470,7 +3526,7 @@ def _o4_serve(torch, np, name, make, reqs, kernels, tier_kw, directory) -> dict:
         counted = {k: launch_counts()[k] - before[k] for k in kernels}
         snap = tiered.telemetry_snapshot()
         _check(snap["fused"] and snap["failed"] == 0 and snap["fused_fallbacks"] == 0,
-               f"O4 {name}: fused {snap['fused']}, {snap['failed']} failed")
+               f"O4 {name}: fused {snap['fused']}, {snap['failed']} failed, capture error {tiered._fused_error!r}")
         for c in ("tier_demotions", "tier_promotions", "tier_spills"):
             _check(snap[c] > 0, f"O4 {name}: no {c}")
         _check(tiered._keyed.capacity == 2 * stride and snap["key_growths"] == 0,
@@ -3573,7 +3629,670 @@ def phase_o(torch, np) -> dict:
     return out
 
 
+
+# --------------------------------------------------------------------------- Phase P: the replication plane
+
+P_PAIRS = 6  # benchmarks/engine_throughput.py --replica's shipping pairs (:532-585)
+P_GATE_PCT = 5.0  # its shipping_overhead_lt_5pct: a record here, as M1's
+P_SHIP_INTERVAL_S = 0.02  # that gate's ReplConfig(ship_interval_s=0.02)
+P2_READ_S = 2.0  # the read windows of its scale-out gate (:595-666)
+P2_HEARTBEAT_S = 0.1
+P2_WRITERS, P2_WRITER_ROWS, P2_WRITER_PACE_S = 4, 64, 0.001
+P2_GATE_RATIO, P2_FLOOR_PER_S = 5.0, 500.0  # follower_ge_5x_primary_reads, follower_reads_ge_floor
+P3_SEGMENTS = {"flagship": 384, "quantile": 1024}  # requests a segment: live, after the restart, profiled
+P3_AFTER_PROMOTION = 128  # requests the promoted engine serves
+P3_PROFILE_ATTEMPTS = 5
+P3_ZOMBIE = 32  # requests the deposed primary journals and ships after the promotion
+P3_PER_ROW = {"flagship": {"stat_scores": 2, "pair_count": 1}, "quantile": {"hist_add": 2}}
+P4_REQUESTS = 256
+# the graphs are captured before the faults, one at a time, so a short watchdog outlasts nothing but the wedge
+P4_WATCHDOG = dict(watchdog_timeout_s=2.0, watchdog_poll_s=0.02, hang_lock_timeout_s=0.2)
+
+
+def _p_read_rate(engine, seconds: float, n_threads: int = 4) -> float:
+    """benchmarks/engine_throughput.py's _read_rate: aggregate compute() reads/s of
+    ``n_threads`` readers of one tenant for ``seconds`` (a read begun in the
+    window counts, and so does the time it takes)."""
+    import threading
+
+    counts = [0] * n_threads
+    t_end = time.perf_counter() + seconds
+
+    def reader(i: int) -> None:
+        while time.perf_counter() < t_end:
+            float(engine.compute("tenant-0"))
+            counts[i] += 1
+
+    threads = [threading.Thread(target=reader, args=(i,), name=f"p2-reader-{i}") for i in range(n_threads)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+        _check(not th.is_alive(), "a reader thread did not finish")
+    return sum(counts) / (time.perf_counter() - t0)
+
+
+def _p1_pass(torch, np, reqs, folds, rows, directory: str, ship: bool) -> dict:
+    """One K6 pass with checkpointing (M1's configuration) and, with ``ship``, a
+    shipping primary over a LoopbackLink that a thread drains and discards (the
+    follower of a real deployment replays on another host); the shipper
+    thread's wall ms in its ticks is summed."""
+    import threading
+
+    from metrics_tpu_torch.engine import CheckpointConfig, ReplConfig
+    from metrics_tpu_torch.repl import LoopbackLink
+
+    kw = {"checkpoint": CheckpointConfig(directory=directory, interval_s=M_INTERVAL_S, retain=M_RETAIN)}
+    stop, drainer = threading.Event(), None
+    if ship:
+        link = LoopbackLink()
+
+        def drain():
+            while not stop.is_set():
+                link.recv(timeout_s=0.05)
+
+        drainer = threading.Thread(target=drain, daemon=True)
+        drainer.start()
+        kw["replication"] = ReplConfig(role="primary", transport=link, ship_interval_s=P_SHIP_INTERVAL_S)
+    try:
+        rec, engine = _engine_pass(torch, np, reqs, folds, rows, "P1 ship" if ship else "P1 ckpt", **kw)
+        try:
+            snap = engine.telemetry_snapshot()
+            if ship:
+                _check(not engine._shipper.fenced and snap["ship_failures"] == 0,
+                       f"P1: fenced {engine._shipper.fenced}, {snap['ship_failures']} ship failures")
+                rec["shipped_records"] = snap["shipped_records"]
+        finally:
+            engine.close()  # the final snapshot, then the shipper's final publish
+        if ship:
+            _check(engine._shipper.last_shipped_seq == engine._wal_seq,
+                   f"P1: shipped through {engine._shipper.last_shipped_seq} of {engine._wal_seq}")
+    finally:
+        stop.set()
+        if drainer is not None:
+            drainer.join(60)
+    return rec
+
+
+def phase_p1(torch, np) -> dict:
+    """Shipping overhead at K6's configuration: P_PAIRS pairs of a checkpoint-only
+    pass and a checkpointing + shipping pass, alternating which goes first; the
+    median pair ratio less one, and the shipper thread's timed share of a pass."""
+    import statistics
+    import tempfile
+
+    from metrics_tpu_torch.classification import BinaryAccuracy
+
+    reqs = _k6_reqs(np, K1_REQUESTS, K_TENANTS)
+    folds, rows = _k_fold(torch, BinaryAccuracy(device="cuda"), reqs, "cuda")
+    ckpt, ship, ratios = [], [], []
+    for i in range(P_PAIRS):
+        got = {}
+        for side in (("ckpt", "ship") if i % 2 == 0 else ("ship", "ckpt")):
+            with tempfile.TemporaryDirectory() as d:
+                got[side] = _p1_pass(torch, np, reqs, folds, rows, d, side == "ship")
+        ckpt.append(got["ckpt"])
+        ship.append(got["ship"])
+        ratios.append(got["ckpt"]["req_per_s"] / got["ship"]["req_per_s"])
+    overhead_pct = (statistics.median(ratios) - 1.0) * 100.0
+    return {
+        "overhead_pct": overhead_pct, "gate_pct": P_GATE_PCT, "within_gate": overhead_pct < P_GATE_PCT,
+        "pair_ratios": ratios, "ckpt_req_per_s": [r["req_per_s"] for r in ckpt],
+        "ship_req_per_s": [r["req_per_s"] for r in ship],
+        "ckpt_best_req_per_s": max(r["req_per_s"] for r in ckpt), "ship_best_req_per_s": max(r["req_per_s"] for r in ship),
+        # the shipper thread's ticks a pass: wall ms (GIL waits included) and its own CPU ms
+        "shipper_ms_per_pass": [r["plane_ms"] for r in ship],
+        "shipper_share": [r["plane_ms"] / (r["seconds"] * 1e3) for r in ship],
+        "shipper_cpu_ms_per_pass": [r["plane_cpu_ms"] for r in ship],
+        "shipper_cpu_share": [r["plane_cpu_ms"] / (r["seconds"] * 1e3) for r in ship],
+        "shipped_records_per_pass": [r["shipped_records"] for r in ship],
+        "requests": len(reqs), "ship_interval_s": P_SHIP_INTERVAL_S,
+    }
+
+
+class _PTimedLock:
+    """A lock that adds the time P2's reader threads wait for it to ``waited["s"]``."""
+
+    def __init__(self, lock, waited: dict) -> None:
+        self._lock, self._waited = lock, waited
+
+    def acquire(self, *args, **kwargs):
+        import threading
+
+        t0 = time.perf_counter()
+        got = self._lock.acquire(*args, **kwargs)
+        if threading.current_thread().name.startswith("p2-reader"):
+            self._waited["s"] += time.perf_counter() - t0
+        return got
+
+    def release(self) -> None:
+        self._lock.release()
+
+    def locked(self) -> bool:
+        return self._lock.locked()
+
+    def __enter__(self):
+        self.acquire()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+def _p2_reader(spool: str, seconds: float) -> int:
+    """The read replica of Phase P2, in its own process (the parent starts this
+    script again with ``--replica-reader SPOOL SECONDS``): a follower on the card
+    over the primary's directory spool. Prints READY once it holds tenant-0,
+    then one JSON line with its compute() rate under the primary's write flood."""
+    import torch
+
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.engine import ReplConfig, StreamingEngine
+    from metrics_tpu_torch.repl import DirectoryTransport
+
+    if not torch.cuda.is_available():
+        print("READER_FAILED no CUDA GPU", flush=True)
+        return 1
+    follower = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, capacity=K_TENANTS,
+                               replication=ReplConfig(role="follower", transport=DirectoryTransport(spool, durable=False),
+                                                      poll_interval_s=0.01))
+    try:
+        deadline = time.perf_counter() + 120.0
+        while "tenant-0" not in follower._keyed.keys and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        if "tenant-0" not in follower._keyed.keys:
+            print("READER_FAILED bootstrap timed out", flush=True)
+            return 1
+        # the primary's warm-up records replayed (the follower captures its graphs on them,
+        # under its dispatch lock), then the read path warm
+        while (follower._applier.applied_seq < follower._applier.known_seq or follower._applier.applied_seq < 1) \
+                and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        float(follower.compute("tenant-0"))
+        # the readers' waits for the dispatch lock, which the applier holds through each replay
+        waited = {"s": 0.0}
+        follower._dispatch_lock = _PTimedLock(follower._dispatch_lock, waited)
+        t0 = time.perf_counter()
+        quiet = _p_read_rate(follower, 1.0)  # before the flood: the card and the lock are free
+        quiet_wait_share = waited["s"] / (4 * (time.perf_counter() - t0))
+        waited["s"] = 0.0
+        applied0 = follower._applier.applied_seq
+        print("READY", flush=True)
+        time.sleep(0.3)  # the parent starts its write flood: read under load
+        t0 = time.perf_counter()
+        rate = _p_read_rate(follower, seconds)
+        window_s = time.perf_counter() - t0
+        lag = follower.replica_lag()
+        snap = follower.telemetry_snapshot()
+        print(json.dumps({"reader": rate, "quiet_reader": quiet, "reader_lock_wait_share": waited["s"] / (4 * window_s),
+                          "quiet_reader_lock_wait_share": quiet_wait_share,
+                          "applied": follower._applier.applied_seq, "applied_in_window": follower._applier.applied_seq
+                          - applied0, "lag_seqs": lag.seqs_behind,
+                          "lag_s": lag.seconds_behind if math.isfinite(lag.seconds_behind) else None,
+                          "applied_records": snap["applied_records"], "snapshot_loads": snap["snapshot_loads"],
+                          "captures": snap["compiles"], "device": str(follower.device)}), flush=True)
+    finally:
+        follower.close()
+    return 0
+
+
+def phase_p2(torch, np) -> dict:
+    """Read scale-out: the primary at K6's configuration ships over a directory
+    spool while four writer threads flood it with 64-row batches paced at 1 ms;
+    its compute() rate over 2 s against a follower's in its own process on the
+    same card (benchmarks/engine_throughput.py --replica's procedure)."""
+    import tempfile
+    import threading
+
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.engine import CheckpointConfig, ReplConfig, StreamingEngine
+    from metrics_tpu_torch.repl import DirectoryTransport
+
+    with tempfile.TemporaryDirectory() as d:
+        spool = os.path.join(d, "spool")
+        primary = StreamingEngine(
+            BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS,
+            checkpoint=CheckpointConfig(directory=os.path.join(d, "ckpt"), interval_s=M_INTERVAL_S, retain=M_RETAIN),
+            replication=ReplConfig(role="primary", transport=DirectoryTransport(spool, durable=False),
+                                   ship_interval_s=P_SHIP_INTERVAL_S, heartbeat_interval_s=P2_HEARTBEAT_S))
+        stop, writers, reader = threading.Event(), [], None
+        written = [0] * P2_WRITERS
+        try:
+            rng = np.random.default_rng(1)
+            for rows in K_BUCKETS:
+                primary.submit("tenant-0", rng.integers(0, 2, rows), rng.integers(0, 2, rows))
+                primary.flush(timeout=300)
+            t0 = time.perf_counter()
+            reader = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--replica-reader", spool,
+                                       str(P2_READ_S)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            line = reader.stdout.readline()
+            _check("READY" in line, f"P2: the reader did not bootstrap: {line!r}")
+            ready_s = time.perf_counter() - t0
+
+            def write_load(tid: int) -> None:
+                w_rng = np.random.default_rng(100 + tid)
+                w_args = (w_rng.integers(0, 2, P2_WRITER_ROWS), w_rng.integers(0, 2, P2_WRITER_ROWS))
+                w_end = time.perf_counter() + P2_READ_S + 3.0
+                while not stop.is_set() and time.perf_counter() < w_end:
+                    primary.submit(f"tenant-{w_rng.integers(0, K_TENANTS)}", *w_args)
+                    written[tid] += 1
+                    time.sleep(P2_WRITER_PACE_S)
+
+            writers = [threading.Thread(target=write_load, args=(i,)) for i in range(P2_WRITERS)]
+            for w in writers:
+                w.start()
+            time.sleep(0.2)  # the standing load established
+            primary_reads = _p_read_rate(primary, P2_READ_S)
+            out, err = reader.communicate(timeout=600)
+            wal_at_reader_exit = primary._wal_seq
+            lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+            _check(reader.returncode == 0 and bool(lines), f"P2: reader rc {reader.returncode}, "
+                   f"stdout {out[-400:]!r}, stderr {err[-800:]!r}")
+            got = json.loads(lines[-1])
+        finally:
+            stop.set()
+            for w in writers:
+                w.join(300)
+            if reader is not None and reader.poll() is None:
+                reader.kill()
+                reader.wait(60)
+            primary.close()
+        snap = primary.telemetry_snapshot()
+        _check(snap["failed"] == 0 and not primary._shipper.fenced, f"P2: {snap['failed']} failed requests, "
+               f"fenced {primary._shipper.fenced}")
+    follower_reads = float(got["reader"])
+    ratio = follower_reads / max(primary_reads, 1e-9)
+    return {
+        "primary_reads_per_s": primary_reads, "follower_reads_per_s": follower_reads, "ratio": ratio,
+        "gate_ratio": P2_GATE_RATIO, "floor_per_s": P2_FLOOR_PER_S,
+        "within_gate": ratio >= P2_GATE_RATIO and follower_reads >= P2_FLOOR_PER_S,
+        "follower_quiet_reads_per_s": got["quiet_reader"], "follower_reader_lock_wait_share": got["reader_lock_wait_share"],
+        "follower_quiet_reader_lock_wait_share": got["quiet_reader_lock_wait_share"],
+        "follower_applied_in_window": got["applied_in_window"], "primary_wal_seq_at_reader_exit": wal_at_reader_exit,
+        "follower_lag_seqs": got["lag_seqs"], "follower_lag_s": got["lag_s"], "follower_applied_seq": got["applied"],
+        "follower_applied_records": got["applied_records"], "follower_snapshot_loads": got["snapshot_loads"],
+        "follower_captures": got["captures"], "follower_device": got["device"], "reader_ready_s": ready_s,
+        "writer_requests": sum(written), "primary_wal_seq": primary._wal_seq, "read_seconds": P2_READ_S,
+    }
+
+
+def _p_states(engine) -> dict:
+    """Copies of every tenant's state, read as compute() reads them: under the
+    dispatch lock, after the engine's stream (a follower's replays run there
+    without a sync each)."""
+    return engine._read_states(None, False)
+
+
+def _p_graph_replays(engine) -> dict:
+    return {(g["signature"], g["bucket"], g["capacity"]): (g["captured_launches"], g["replays"])
+            for g in engine.graph_stats()}
+
+
+def _p3_run(torch, np, name, make, segments, after, kernels, directory) -> dict:
+    """One metric at full width: a journaled primary and a follower on cuda:0 over a
+    LoopbackLink, each with its own graphs. The follower tracks a live segment;
+    the primary restarts (a new epoch) and the follower rebootstraps into its
+    slab in place; the follower replays a held segment alone under the
+    profiler; the primary is dropped without close() and the follower promoted;
+    the deposed primary's later shipments are refused; the promoted engine
+    serves ``after`` more requests. States against the primary's and the fold,
+    ``torch.equal`` leaf for leaf."""
+    import threading
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch import obs
+    from metrics_tpu_torch.engine import CheckpointConfig, ReplConfig, StreamingEngine
+    from metrics_tpu_torch.repl import LoopbackLink
+
+    link = LoopbackLink()
+    kw = dict(buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS)
+
+    def make_primary():
+        return StreamingEngine(make(), checkpoint=CheckpointConfig(
+            directory=os.path.join(directory, "primary"), interval_s=3600.0, retain=M_RETAIN, durable=False),
+            replication=ReplConfig(role="primary", transport=link, ship_interval_s=P_SHIP_INTERVAL_S,
+                                   heartbeat_interval_s=P2_HEARTBEAT_S), **kw)
+
+    primary = make_primary()
+    follower = StreamingEngine(make(), replication=ReplConfig(
+        role="follower", transport=link, poll_interval_s=0.005,
+        promote_checkpoint=CheckpointConfig(directory=os.path.join(directory, "promoted"), interval_s=3600.0,
+                                            retain=M_RETAIN, durable=False)), **kw)
+    applier = follower._applier
+    # the lag sampled while the follower tracks the live segments (not while this
+    # script holds its dispatch lock, nor while the primary restarts)
+    peak = {"seqs": 0, "seconds": 0.0}
+    watching, live = threading.Event(), threading.Event()
+
+    def watch_lag():
+        while not watching.wait(0.002):
+            if not live.is_set():
+                continue
+            lag = applier.lag()
+            peak["seqs"] = max(peak["seqs"], lag.seqs_behind)
+            if applier.bootstrapped and math.isfinite(lag.seconds_behind):
+                peak["seconds"] = max(peak["seconds"], lag.seconds_behind)
+
+    watcher = threading.Thread(target=watch_lag, daemon=True)
+    watcher.start()
+    served, rec = [], {"requests_per_segment": len(segments[0])}
+    zombie = None
+    try:
+        # 1. live: the follower tracks the primary
+        _wait_for(lambda: applier.bootstrapped, f"P3 {name}: the follower's bootstrap")
+        live.set()
+        live_s = _k_submit(primary, segments[0], K_THREADS)
+        served += segments[0]
+        _check(applier.await_seq(primary._wal_seq, 300), f"P3 {name}: the follower did not catch up")
+        live.clear()
+        rec["leaves_equal_live"] = _m_equal(torch, _p_states(follower), _p_states(primary), f"P3 {name} live")
+        rec["live_rows_per_s"] = sum(a[0].shape[0] for _, a in segments[0]) / live_s
+        # 2. the primary restarts on its directory: a new epoch; the follower rebootstraps
+        # from the restart snapshot into its live slab (its graphs stay bound)
+        slab = [t.data_ptr() for t in follower._keyed.leaves()]
+        loads = follower.telemetry_snapshot()["snapshot_loads"]
+        primary.close(checkpoint=False)
+        t0 = time.perf_counter()
+        primary = make_primary()
+        rec["restart_ms"] = (time.perf_counter() - t0) * 1e3
+        _check(primary._repl_epoch == 1, f"P3 {name}: the restarted primary's epoch is {primary._repl_epoch}")
+        _k_submit(primary, segments[1], K_THREADS)
+        served += segments[1]
+        rec["rebootstrap_s"] = _wait_for(lambda: applier.epoch == 1 and not applier._gap
+                                         and applier.applied_seq == primary._wal_seq, f"P3 {name}: the rebootstrap",
+                                         timeout=300)
+        live.set()  # tracking the restarted primary: one more live segment, timed
+        t0 = time.perf_counter()
+        _k_submit(primary, segments[2], K_THREADS)
+        served += segments[2]
+        _check(applier.await_seq(primary._wal_seq, 300), f"P3 {name}: the follower did not catch up")
+        rec["tracked_rows_per_s"] = sum(a[0].shape[0] for _, a in segments[2]) / (time.perf_counter() - t0)
+        live.clear()
+        _check([t.data_ptr() for t in follower._keyed.leaves()] == slab, f"P3 {name}: the rebootstrap moved the slab")
+        rec["snapshot_loads_in_rebootstrap"] = follower.telemetry_snapshot()["snapshot_loads"] - loads
+        _check(rec["snapshot_loads_in_rebootstrap"] >= 1, f"P3 {name}: no snapshot load in the rebootstrap")
+        rec["leaves_equal_after_rebootstrap"] = _m_equal(torch, _p_states(follower), _p_states(primary),
+                                                         f"P3 {name} after the rebootstrap")
+        # 3. the follower's replays alone under the profiler: its dispatch lock is held while
+        # the primary serves the segment (the applier waits on it with the records shipped),
+        # then released inside the profile; another segment while the counts disagree (the
+        # profiler drops a kernel record now and then), up to P3_PROFILE_ATTEMPTS
+        attempts = []
+        for attempt, seg in enumerate(segments[3:]):
+            g0 = _p_graph_replays(follower)
+            follower._dispatch_lock.acquire()
+            held = True
+            try:
+                live3_s = _k_submit(primary, seg, K_THREADS)
+                served += seg
+                target = primary._wal_seq
+                _wait_for(lambda: primary._shipper.last_shipped_seq >= target, f"P3 {name}: the segment shipped")
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    held = False
+                    follower._dispatch_lock.release()
+                    _check(applier.await_seq(target, 300), f"P3 {name}: the held segment was not replayed")
+                    follower._sync()
+                    replay_s = time.perf_counter() - t0
+            finally:
+                if held:
+                    follower._dispatch_lock.release()
+            g1 = _p_graph_replays(follower)
+            expected = {k: 0 for k in kernels}
+            for key, (captured, replays) in g1.items():
+                before = g0.get(key, (captured, -1))[1]  # a graph captured in the window: its warm-up ran the scan
+                for k in kernels:
+                    expected[k] += captured.get(k, 0) * (replays - before)
+            times = _kernel_times(prof, torch)
+            seen = {k: sum(len(v) for n, v in times.items() if K_PROFILE_NAMES[k][0] in n) // K_PROFILE_NAMES[k][1]
+                    for k in kernels}
+            attempts.append({"profiled": seen, "in_replays": expected})
+            if seen == expected or not times:
+                break
+        # Under this window's launch rate the profiler can lose a few kernel records. A replay
+        # launches all its nodes or none, so a missing replay would take per_row x bucket
+        # launches of each kernel at once: a smaller deficit still shows every replay launched
+        # its kernels (the per-row counts are checked exactly at capture, below).
+        if not (seen == expected or not times):
+            smallest = min(g["bucket"] for g in follower.graph_stats())
+            for k in kernels:
+                _check(0 <= expected[k] - seen[k] < P3_PER_ROW[name][k] * smallest,
+                       f"P3 {name}: profiled launches against captured x replays, each attempt: {attempts}")
+        for g in follower.graph_stats():
+            for k, per_row in P3_PER_ROW[name].items():
+                _check(g["captured_launches"].get(k, 0) == per_row * g["bucket"],
+                       f"P3 {name}: a {g['bucket']}-row graph captured {g['captured_launches']}")
+        rows3 = sum(a[0].shape[0] for _, a in seg)
+        busy_us = sum(sum(v) for v in times.values())
+        rec.update(profile_attempts=attempts, launches_in_replays=expected, launches_profiled=seen,
+                   profiler_lost={k: expected[k] - seen[k] for k in kernels} if times else None,
+                   replayed_rows=rows3, replay_s=replay_s, replay_rows_per_s=rows3 / replay_s,
+                   live_rows_per_s_held_segment=rows3 / live3_s, replay_device_busy_us=busy_us,
+                   replay_idle_share=1.0 - busy_us / (replay_s * 1e6) if times else None,
+                   follower_graphs=len(g1), follower_replays=sum(r for _, r in g1.values()))
+        rec["leaves_equal_at_applied_seq"] = _m_equal(torch, _p_states(follower), _p_states(primary),
+                                                      f"P3 {name} at the applied seq")
+        folds, rows = _k_fold(torch, make(), served, "cuda")
+        rec["primary_leaves_equal_fold"] = _k_check_states(torch, primary, folds, rows, f"P3 {name} primary vs fold")
+        # 4. the crash: the primary is dropped without close(); the follower is promoted
+        zombie, primary = primary, None
+        applied = zombie._wal_seq
+        # the promotion's steps are spans: obs on around it alone (obs.reset() would also
+        # clear every engine's telemetry, so only the tracer is cleared)
+        obs.TRACER.clear()
+        obs.enable()
+        t0 = time.perf_counter()
+        try:
+            follower.promote()
+        finally:
+            obs.disable()
+        rec["promote_ms"] = (time.perf_counter() - t0) * 1e3
+        spans = {s["name"]: s["dur_ns"] / 1e6 for s in obs.TRACER.spans() if s["name"].startswith("repl.")}
+        obs.TRACER.clear()
+        rec.update(drain_ms=spans.get("repl.drain"), fence_ms=spans.get("repl.fence"), pin_ms=spans.get("repl.pin"),
+                   promote_span_ms=spans.get("repl.promote"))
+        _check(not follower._repl_follower and follower._repl_epoch == 2 and applier.applied_seq == applied,
+               f"P3 {name}: promoted {not follower._repl_follower}, epoch {follower._repl_epoch}, "
+               f"applied {applier.applied_seq} of {applied}")
+        _k_check_states(torch, follower, folds, rows, f"P3 {name} promoted vs fold")
+        # 5. the zombie ships after the promotion: the link's fence refuses it
+        promoted = _p_states(follower)
+        zreqs = segments[0][:P3_ZOMBIE]
+        _k_submit(zombie, zreqs, 1)
+        _wait_for(lambda: zombie._shipper.fenced, f"P3 {name}: the zombie's shipper is fenced")
+        _check(zombie.health()["state"] == "DEGRADED", f"P3 {name}: the zombie's health is not DEGRADED")
+        _m_equal(torch, _p_states(follower), promoted, f"P3 {name} promoted states after the zombie's writes")
+        rec["zombie"] = {"requests": len(zreqs), "fenced": True,
+                         "send_rejections": zombie.telemetry_snapshot()["fenced_rejections"]}
+        # 6. the promoted engine serves
+        more = segments[0][:after]
+        _k_submit(follower, more, K_THREADS)
+        folds, rows = _k_fold(torch, make(), served + more, "cuda")
+        rec["promoted_leaves_equal_fold"] = _k_check_states(torch, follower, folds, rows,
+                                                            f"P3 {name} promoted engine vs fold")
+        rec["served_after_promotion"] = len(more)
+        snap = follower.telemetry_snapshot()
+        _check(snap["failed"] == 0 and snap["fused_fallbacks"] == 0, f"P3 {name}: {snap['failed']} failed, "
+               f"{snap['fused_fallbacks']} fallbacks, capture error {follower._fused_error!r}")
+        rec["follower_captures"] = snap["compiles"]
+    finally:
+        watching.set()
+        watcher.join(60)
+        follower.close()
+        for engine in (primary, zombie):
+            if engine is not None:
+                engine.close(checkpoint=False)
+    rec["lag_peak_seqs"], rec["lag_peak_s"] = peak["seqs"], peak["seconds"]
+    print(f"phase P3 {name} {json.dumps(rec)}")
+    return rec
+
+
+def phase_p3(torch, np) -> dict:
+    import tempfile
+
+    from metrics_tpu_torch import QuantileSketch
+
+    rng = np.random.default_rng(43)
+
+    def labels(rows):
+        return rng.integers(0, K2_CLASSES, rows).astype(np.int64), rng.integers(0, K2_CLASSES, rows).astype(np.int64)
+
+    n = P3_SEGMENTS["flagship"]
+    flagship = [[(f"tenant-{int(rng.integers(0, K_TENANTS))}", labels(int(rng.integers(K2_ROWS[0], K2_ROWS[1] + 1))))
+                 for _ in range(n)] for _ in range(3 + P3_PROFILE_ATTEMPTS)]
+    quantile = [_k_quantile_reqs(np, 50 + i, P3_SEGMENTS["quantile"], K_TENANTS) for i in range(3 + P3_PROFILE_ATTEMPTS)]
+    out = {}
+    # each snapshot of the flagship collection is 32 MB: the lineages go to memory where the machine has it
+    with tempfile.TemporaryDirectory(dir="/dev/shm" if os.path.isdir("/dev/shm") else None) as d:
+        for name, make, segments, kernels in (("flagship", _k2_metric, flagship, ("stat_scores", "pair_count")),
+                                              ("quantile", QuantileSketch, quantile, ("hist_add",))):
+            os.makedirs(os.path.join(d, name))
+            out[name] = _p3_run(torch, np, name, make, segments, P3_AFTER_PROMOTION, kernels, os.path.join(d, name))
+    return out
+
+
+def phase_p4(torch, np) -> dict:
+    """Fencing and obs: (a) a zombie primary shipping over TCP, whose sender cannot
+    see the fence, refused at the follower's receive side; (b) a guard quarantine
+    of a primary promoting its follower through failover_hook, with the flight
+    bundle it dumps loaded back; (c) a traced submit's trace id in the follower's
+    engine.replay span, and the heartbeat's node snapshot in the aggregator."""
+    import tempfile
+
+    from metrics_tpu_torch import obs
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.engine import CheckpointConfig, GuardConfig, ReplConfig, StreamingEngine
+    from metrics_tpu_torch.guard.faults import hold_dispatch_lock, wedge_dispatcher
+    from metrics_tpu_torch.obs.fleet import AGGREGATOR
+    from metrics_tpu_torch.obs.flight import FLIGHT, load_bundle
+    from metrics_tpu_torch.repl import LoopbackLink, SocketShipReceiver, SocketShipSender, failover_hook
+
+    reqs = _k6_reqs(np, 2 * P4_REQUESTS, K_TENANTS)
+    kw = dict(buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS)
+    out = {}
+    with tempfile.TemporaryDirectory() as d:
+        # (a) receive-side fencing
+        receiver = SocketShipReceiver()
+        sender = SocketShipSender("127.0.0.1", receiver.port)
+        primary = StreamingEngine(BinaryAccuracy(device="cuda"), checkpoint=CheckpointConfig(
+            directory=os.path.join(d, "a"), interval_s=3600.0, durable=False),
+            replication=ReplConfig(role="primary", transport=sender, ship_interval_s=P_SHIP_INTERVAL_S,
+                                   heartbeat_interval_s=P2_HEARTBEAT_S), **kw)
+        follower = StreamingEngine(BinaryAccuracy(device="cuda"), replication=ReplConfig(
+            role="follower", transport=receiver, poll_interval_s=0.005), **kw)
+        try:
+            _k_submit(primary, reqs[:P4_REQUESTS], K_THREADS)
+            _check(follower._applier.await_seq(primary._wal_seq, 300), "P4a: the follower did not catch up")
+            _m_equal(torch, _p_states(follower), _p_states(primary), "P4a follower vs primary")
+            follower.promote()
+            promoted = _p_states(follower)
+            _k_submit(primary, reqs[P4_REQUESTS:], K_THREADS)  # the zombie writes and ships
+            target = primary._wal_seq
+            _wait_for(lambda: primary._shipper.last_shipped_seq >= target, "P4a: the zombie shipped")
+            delivered = []
+            _wait_for(lambda: delivered.extend(receiver.recv(timeout_s=0.05)) or receiver.fenced_rejected > 0,
+                      "P4a: the receive side refused the zombie's frames")
+            time.sleep(0.2)
+            delivered += receiver.recv(timeout_s=0.1)
+            _check(not delivered, f"P4a: {len(delivered)} zombie frames passed the fence")
+            _m_equal(torch, _p_states(follower), promoted, "P4a promoted states after the zombie's shipments")
+            out["receive_side_fencing"] = {"fenced_rejected": receiver.fenced_rejected, "fence": receiver.fenced_epoch,
+                                           "zombie_sender_fenced": primary._shipper.fenced, "delivered": 0}
+        finally:
+            follower.close()
+            primary.close(checkpoint=False)
+            sender.close()
+            receiver.close()
+
+        # (b) and (c), obs on
+        obs.reset()
+        obs.enable()
+        FLIGHT.configure(directory=os.path.join(d, "flight"))
+        link = LoopbackLink()
+        follower = StreamingEngine(BinaryAccuracy(device="cuda"), replication=ReplConfig(
+            role="follower", transport=link, poll_interval_s=0.005,
+            promote_checkpoint=CheckpointConfig(directory=os.path.join(d, "b-promoted"), interval_s=3600.0,
+                                                durable=False)), **kw)
+        primary = StreamingEngine(BinaryAccuracy(device="cuda"), checkpoint=CheckpointConfig(
+            directory=os.path.join(d, "b"), interval_s=3600.0, durable=False),
+            guard=GuardConfig(shed=False, on_health_transition=failover_hook(follower), **P4_WATCHDOG),
+            replication=ReplConfig(role="primary", transport=link, ship_interval_s=P_SHIP_INTERVAL_S,
+                                   heartbeat_interval_s=P2_HEARTBEAT_S), **kw)
+        try:
+            rng = np.random.default_rng(13)
+            keys = sorted({key for key, _ in reqs})
+            for key in keys:
+                primary._alloc_slot(key)
+            for rows in K_BUCKETS:
+                # one capture at a time: the follower captures its rung while it replays the
+                # primary's, and the primary's 2 s watchdog must outlast the primary's capture
+                primary.submit(keys[0], rng.integers(0, 2, rows), rng.integers(0, 2, rows)).result(timeout=300)
+                primary.flush(timeout=300)
+                _check(follower._applier.await_seq(primary._wal_seq, 300), "P4b: the follower did not warm up")
+            primary.reset()
+            _k_submit(primary, reqs[:P4_REQUESTS], K_THREADS)
+            ctx = obs.mint()
+            with obs.activate(ctx):
+                primary.submit(*reqs[0][:1], *reqs[0][1]).result(timeout=300)
+            _check(follower._applier.await_seq(primary._wal_seq, 300), "P4c: the follower did not catch up")
+            replays = [s for s in obs.TRACER.spans()
+                       if s["name"] == "engine.replay" and s["thread_name"] == "metrics-tpu-repl-apply"]
+            traced = [s for s in replays if ctx.trace_hex in s["attrs"].get("traces", "")]
+            _check(len(traced) == 1, f"P4c: {len(traced)} follower replay spans name the traced submit")
+            node = f"primary:{primary.telemetry.engine_id}"
+            _wait_for(lambda: node in AGGREGATOR.nodes(), "P4c: the primary's node snapshot reached the aggregator")
+            page = AGGREGATOR.render_prometheus()
+            _check(f'node="{node}"' in page and "metrics_tpu_torch_repl_shipped_records_total" in page,
+                   "P4c: the fleet page lacks the primary's series")
+            out["trace"] = {"trace_id": ctx.trace_hex, "follower_replay_spans": len(replays),
+                            "replay_kind": traced[0]["attrs"]["kind"], "fleet_nodes": sorted(AGGREGATOR.nodes())}
+            t0 = time.perf_counter()
+            with wedge_dispatcher(primary), hold_dispatch_lock(primary):
+                pending = primary.submit(*reqs[1][:1], *reqs[1][1])
+                quarantine_s = _wait_for(lambda: primary.quarantined, "P4b: the primary quarantines")
+                _check(pending.exception(timeout=60) is not None, "P4b: the pending request did not fail")
+            failover_s = _wait_for(lambda: follower.telemetry_snapshot()["promotions"] == 1,
+                                   "P4b: the failover hook promoted the follower") + quarantine_s
+            counts = FLIGHT.dump_counts()
+            _check(counts.get("engine_quarantine") == 1, f"P4b: flight dumps {counts}")
+            bundle = next(b for b in FLIGHT.bundles() if b["trigger"] == "engine_quarantine")
+            loaded = load_bundle(bundle["path"])
+            _check(loaded["trigger"] == "engine_quarantine" and f"engine:{primary.telemetry.engine_id}"
+                   in loaded["contexts"], "P4b: the loaded bundle lacks the engine's context")
+            follower.submit(*reqs[2][:1], *reqs[2][1]).result(timeout=300)
+            out["failover"] = {"quarantine_s": quarantine_s, "quarantine_to_promoted_s": failover_s,
+                               "flight_dumps": counts, "bundle_bytes": os.path.getsize(bundle["path"]),
+                               "bundle_spans": len([e for e in loaded["trace"]["traceEvents"] if e["ph"] == "X"]),
+                               "promoted_epoch": follower._repl_epoch, "wall_s": time.perf_counter() - t0}
+        finally:
+            follower.close()
+            primary.close(checkpoint=False)
+            FLIGHT.configure(directory=None)
+            obs.reset()
+    print(f"phase P4 {json.dumps(out)}")
+    return out
+
+
+def phase_p(torch, np) -> dict:
+    """The replication plane on the card (P1 to P4)."""
+    t0 = time.perf_counter()
+    out = {"P1": phase_p1(torch, np)}
+    print(f"phase P1 {json.dumps(out['P1'])}")
+    out["P2"] = phase_p2(torch, np)
+    print(f"phase P2 {json.dumps(out['P2'])}")
+    out["P3"] = phase_p3(torch, np)
+    out["P4"] = phase_p4(torch, np)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase P: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
+    if len(sys.argv) == 4 and sys.argv[1] == "--replica-reader":
+        return _p2_reader(sys.argv[2], float(sys.argv[3]))  # Phase P2's follower process
     import torch
 
     if not torch.cuda.is_available():
@@ -3642,6 +4361,7 @@ def main() -> int:
     durable = phase_m(torch, np, obs, instrument)
     guard = phase_n(torch, np)
     tier = phase_o(torch, np)
+    replication = phase_p(torch, np)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -3675,6 +4395,9 @@ def main() -> int:
                 "phase_n3_replays_after_restart": guard["N3"]["takeover"]["launches_in_replays_after"][route],
                 "phase_n3_governor_counted": guard["N3"]["governor"]["launches_counted"][route],
                 "phase_o4_in_replays": tier["O4"]["flagship"]["launches_in_replays"][route],
+                # a follower's replays of the flagship collection's shipped chunk records (Phase P3)
+                "phase_p3_follower_replays": replication["P3"]["flagship"]["launches_in_replays"][route],
+                "phase_p3_follower_replays_profiled": replication["P3"]["flagship"]["launches_profiled"][route],
             },
         })
     shape_fields = ("shape", *fields)
@@ -3696,7 +4419,11 @@ def main() -> int:
             **({"shapes": [{k: r[k] for k in shape_fields} for r in shapes]} if shapes else {}),
             **({"launches_by_path": {"phase_e_updates": sketch_launches[kernel],
                                      "phase_o4_in_replays": tier["O4"]["quantile"]["launches_in_replays"][kernel],
-                                     "phase_o4_counted": tier["O4"]["quantile"]["launches_counted"][kernel]}}
+                                     "phase_o4_counted": tier["O4"]["quantile"]["launches_counted"][kernel],
+                                     "phase_p3_follower_replays":
+                                         replication["P3"]["quantile"]["launches_in_replays"][kernel],
+                                     "phase_p3_follower_replays_profiled":
+                                         replication["P3"]["quantile"]["launches_profiled"][kernel]}}
                if kernel == "hist_add" else {}),
         })
     walk = sketch_recs[f"cms_walk_{HH_BATCH}"]
@@ -3725,7 +4452,7 @@ def main() -> int:
     })
     print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six,
                       "engine": engine, "binary_multilabel_mse": classification_l, "durable": durable,
-                      "guard": guard, "tier": tier, "card": card}))
+                      "guard": guard, "tier": tier, "replication": replication, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,6 +1,6 @@
 """Streaming metric engine — async micro-batched, multi-tenant metric serving
-(port of ``metrics_tpu/engine`` with its durable state, guard and tier planes;
-without the replication plane).
+(port of ``metrics_tpu/engine`` with its durable state, guard, tier and
+replication planes).
 
 Turns any ``Metric`` / ``MetricCollection`` into a service::
 
@@ -19,7 +19,9 @@ snapshots, the WAL and recovery),
 ``telemetry.py`` (counters, occupancy, p50/p99 latency in the port's obs registry).
 Overload and abuse protection is the guard plane (``guard=GuardConfig(...)``,
 :mod:`metrics_tpu_torch.guard`); million-tenant residency is the tier plane
-(``tier=TierConfig(...)``, :mod:`metrics_tpu_torch.tier`).
+(``tier=TierConfig(...)``, :mod:`metrics_tpu_torch.tier`); read replicas and
+failover are the replication plane (``replication=ReplConfig(...)``,
+:mod:`metrics_tpu_torch.repl`).
 """
 
 from metrics_tpu_torch.engine.bucketing import (
@@ -42,6 +44,8 @@ from metrics_tpu_torch.guard import (
     RequestShed,
     TenantQuarantined,
 )
+from metrics_tpu_torch.repl.config import ReplConfig, ReplicaLag
+from metrics_tpu_torch.repl.errors import NotPrimaryError, NotPromotableError, StalenessExceeded
 from metrics_tpu_torch.tier import TierConfig
 
 __all__ = [
@@ -57,8 +61,13 @@ __all__ = [
     "GuardConfig",
     "GuardRejected",
     "KeyedState",
+    "NotPrimaryError",
+    "NotPromotableError",
     "QuotaExceeded",
+    "ReplConfig",
+    "ReplicaLag",
     "RequestShed",
+    "StalenessExceeded",
     "StreamingEngine",
     "TenantQuarantined",
     "TierConfig",

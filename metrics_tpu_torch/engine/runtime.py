@@ -1,6 +1,6 @@
 """StreamingEngine — async micro-batched, multi-tenant metric serving
-(port of ``metrics_tpu/engine/runtime.py`` with its durable, guard and tier
-planes; replication waits for a later slice).
+(port of ``metrics_tpu/engine/runtime.py`` with its durable, guard, tier and
+replication planes).
 
 The pure functional core (``Metric.update_state`` / ``compute_from`` /
 ``merge_states``) is the substrate: state is an explicit tree of tensors and
@@ -40,10 +40,11 @@ Backpressure at a full queue follows ``policy``: ``"block"`` (wait for space),
 ``"drop"`` (raise :class:`EngineBackpressure` immediately), ``"timeout"`` (wait up to
 ``submit_timeout`` seconds, then raise).
 
-One dispatcher thread owns one CUDA stream for every host-to-device copy, replay and
-synchronise. Every access to the slab happens under the dispatch lock, and every
-holder of that lock synchronises the stream it used before releasing it, so no
-reader ever races a replay.
+One CUDA stream per engine carries every host-to-device copy, replay and slab write,
+whichever thread issues them, and every access to the slab happens under the
+dispatch lock. The dispatcher synchronises that stream before it acknowledges a
+batch; a reader's copies wait for the stream, and the stream waits for them, so
+no reader races a replay, and a read holds the lock for its enqueue only.
 
 Durable state (``checkpoint=CheckpointConfig(...)``): a background writer persists
 every tenant's state as an MTCKPT1 snapshot (:mod:`metrics_tpu_torch.ckpt`), and a
@@ -78,11 +79,24 @@ grows, so past its doubling boundary a sweep over more tenants than the hot
 set captures no new graph. Demotions, promotions and retirements are journaled
 (``D``, ``P``, ``T``) and a snapshot carries the residency map.
 
-Not ported yet: the replication plane (``replication=``, ROADMAP A.7), and with it
-trace contexts and the flight recorder; ``compute(sync=True)`` (A.8); ``rollup``
-(A.9). Each raises ``NotImplementedError`` naming its item. Reads compute eagerly
-from a copy of the tenant's state (the JAX package's jitted read path is not
-captured yet, so ``read_jit_fallbacks`` stays 0).
+Replication plane (``replication=ReplConfig(...)``, :mod:`metrics_tpu_torch.repl`):
+a primary's shipper thread publishes its snapshots and WAL records; a follower
+has no dispatcher, and its applier thread replays the shipped records through
+the follower's own bucket graphs (bit for bit on the device kind that journaled
+them), serves reads within a staleness bound and refuses writes until
+:meth:`StreamingEngine.promote` drains the link, fences it at a new epoch and
+flips it writable. A bootstrap or rebootstrap restores the shipped snapshot into
+the live slab in place, so no captured graph is left reading freed memory.
+
+With obs on (:func:`metrics_tpu_torch.obs.enable`) a submit mints or adopts a
+trace context, ``R`` and ``C`` records carry it in the JAX package's 17-byte
+trailer, and every replayed record runs inside an ``engine.replay`` span naming
+the submitting trace ids; the engine registers a flight-recorder context.
+
+Not ported yet: ``compute(sync=True)`` (ROADMAP A.8) and ``rollup`` (A.9); each
+raises ``NotImplementedError`` naming its item. Reads compute eagerly from a copy
+of the tenant's state (the JAX package's jitted read path is not captured yet,
+so ``read_jit_fallbacks`` stays 0).
 """
 
 from __future__ import annotations
@@ -129,7 +143,14 @@ from metrics_tpu_torch.kernels import launch_counts
 from metrics_tpu_torch.kernels.engine_scan import masked_scan_update
 from metrics_tpu_torch.metric import Metric, _as_state_tensor
 from metrics_tpu_torch.obs import OBS as _OBS
+from metrics_tpu_torch.obs import context as _obs_ctx
 from metrics_tpu_torch.obs import instrument as _obs
+from metrics_tpu_torch.obs.context import TraceContext as _TraceContext
+from metrics_tpu_torch.obs.flight import FLIGHT as _FLIGHT
+from metrics_tpu_torch.repl.config import ReplConfig, ReplicaLag
+from metrics_tpu_torch.repl.errors import NotPrimaryError, NotPromotableError, StalenessExceeded
+from metrics_tpu_torch.repl.replica import ReplicaApplier
+from metrics_tpu_torch.repl.shipper import Shipper
 from metrics_tpu_torch.tier import HOT, TierConfig, TierManager, capture_entry, peek_state, restore_entry
 from metrics_tpu_torch.tier.residency import capture_entries
 from metrics_tpu_torch.utils.checks import traced
@@ -140,9 +161,6 @@ from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 _POLICIES = ("block", "drop", "timeout")
 _WAL_FLUSH = ("none", "flush", "fsync")
 _WAL_FSYNC = ("never", "commit", "interval")
-
-# the planes that wait for a later slice, and their ROADMAP items
-_PLANES = (("replication", "A.7"),)
 
 # WAL record encoding: the JAX package's, byte for byte, so either package replays
 # the other's journal. Hand-rolled rather than pickled, because encoding rides the
@@ -167,9 +185,10 @@ _PLANES = (("replication", "A.7"),)
 #   empty for a cold-registered tenant with no state) — replay installs the slot
 #   and restores the embedded entry, never the spill file the live engine deleted.
 #
-# The JAX package may append a trace-context trailer (17 bytes per traced request)
-# to R and C records; the decoders stop at the positional body and ignore it, as
-# trace contexts come with the replication slice (A.7).
+# With obs on, R and C records end in an optional trace-context trailer: one
+# 17-byte block (``obs.context.TraceContext.to_bytes``) per traced request, after
+# the positional body. Decoders test the remaining length, so records written
+# with obs off replay unchanged; either package reads the other's trailers.
 
 _WAL_U32 = struct.Struct("<I")
 
@@ -197,14 +216,18 @@ def _dec_array(payload: bytes, off: int) -> Tuple[np.ndarray, int]:
     return arr, off + count * dtype.itemsize
 
 
-def _encode_request_record(key_bytes: bytes, args: Tuple[Any, ...]) -> bytes:
+def _encode_request_record(
+    key_bytes: bytes, args: Tuple[Any, ...], ctx: Optional[_TraceContext] = None
+) -> bytes:
     parts = [b"R", _WAL_U32.pack(len(key_bytes)), key_bytes, bytes((len(args),))]
     for a in args:
         _enc_array(parts, _as_numpy(a))
+    if ctx is not None:
+        parts.append(ctx.to_bytes())  # the optional trace trailer
     return b"".join(parts)
 
 
-def _decode_request_record(payload: bytes) -> Tuple[Hashable, Tuple[np.ndarray, ...]]:
+def _decode_request_record(payload: bytes) -> Tuple[Hashable, Tuple[np.ndarray, ...], Optional[_TraceContext]]:
     (klen,) = _WAL_U32.unpack_from(payload, 1)
     off = 1 + _WAL_U32.size + klen
     key = pickle.loads(payload[1 + _WAL_U32.size : off])
@@ -214,7 +237,8 @@ def _decode_request_record(payload: bytes) -> Tuple[Hashable, Tuple[np.ndarray, 
     for _ in range(nargs):
         arr, off = _dec_array(payload, off)
         args.append(arr)
-    return key, tuple(args)  # bytes past ``off``: the JAX package's trace trailer
+    ctx = _TraceContext.from_bytes(payload, off) if off + _obs_ctx.WIRE_SIZE <= len(payload) else None
+    return key, tuple(args), ctx
 
 
 def _encode_chunk_record(
@@ -222,6 +246,7 @@ def _encode_chunk_record(
     key_ids: np.ndarray,
     mask: np.ndarray,
     columns: Sequence[np.ndarray],
+    ctxs: Sequence[_TraceContext] = (),
 ) -> bytes:
     parts = [b"C", struct.pack("<H", len(new_slots))]
     for slot, key_bytes in new_slots:
@@ -233,7 +258,42 @@ def _encode_chunk_record(
     _enc_array(parts, mask)
     for col in columns:
         _enc_array(parts, col)
+    # the optional trailer: one block per traced request the chunk coalesced
+    for ctx in ctxs:
+        parts.append(ctx.to_bytes())
     return b"".join(parts)
+
+
+def _record_trace_hexes(payload: bytes) -> str:
+    """Comma-joined trace ids of a WAL record's optional trace trailer ("" for
+    records without one and for the kinds that never carry one). Walks the
+    positional body with offset arithmetic only to find where the trailer
+    starts."""
+    kind = payload[:1]
+    try:
+        if kind == b"R":
+            (klen,) = _WAL_U32.unpack_from(payload, 1)
+            off = 1 + _WAL_U32.size + klen
+            nargs = payload[off]
+            off += 1
+            for _ in range(nargs):
+                _, off = _dec_array(payload, off)
+        elif kind == b"C":
+            (n_new,) = struct.unpack_from("<H", payload, 1)
+            off = 3
+            for _ in range(n_new):
+                off += _WAL_U32.size
+                (klen,) = _WAL_U32.unpack_from(payload, off)
+                off += _WAL_U32.size + klen
+            ncols = payload[off]
+            off += 1
+            for _ in range(2 + ncols):  # key_ids, mask, columns
+                _, off = _dec_array(payload, off)
+        else:
+            return ""
+        return ",".join(c.trace_hex for c in _obs_ctx.iter_wire_blocks(payload, off))
+    except Exception:  # noqa: BLE001 — attribution is best-effort; replay decides validity
+        return ""
 
 
 def _encode_tier_record(kind: bytes, slot: int, key_bytes: bytes, blob: bytes = b"") -> bytes:
@@ -261,6 +321,19 @@ def _decode_tier_record(payload: bytes) -> Tuple[int, Hashable, Optional[bytes]]
         off += 4
         blob = payload[off : off + blen]
     return slot, key, blob
+
+
+def _to_device_async(arr: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A host array copied to ``device`` without waiting for its stream: on the
+    card through pinned memory (the caching host allocator does not reuse the
+    block before the copy ends), so a replay enqueues without a sync. The host
+    array is copied once, into the tensor handed on."""
+    if device.type != "cuda":
+        return torch.from_numpy(np.array(arr, copy=True)).to(device)
+    dtype = torch.from_numpy(np.empty(0, dtype=arr.dtype)).dtype
+    pinned = torch.empty(arr.shape, dtype=dtype, pin_memory=True)
+    pinned.numpy()[...] = arr
+    return pinned.to(device, non_blocking=True)
 
 
 def _numpy_leaf(x: Any) -> bool:
@@ -361,12 +434,13 @@ class _WorkerSuperseded(BaseException):
 
 class _Request:
     __slots__ = ("key", "slot", "args", "rows", "signature", "future", "t_submit", "rows_done", "seq",
-                 "deadline", "priority", "t_enqueue", "is_probe")
+                 "deadline", "priority", "t_enqueue", "is_probe", "ctx")
 
     def __init__(self, key: Hashable, slot: Optional[int], args: Tuple[Any, ...],
                  rows: int, signature: Signature, future: "Future", t_submit: float,
                  deadline: Optional[float] = None, priority: int = 0,
-                 t_enqueue: float = 0.0, is_probe: bool = False) -> None:
+                 t_enqueue: float = 0.0, is_probe: bool = False,
+                 ctx: Optional[_TraceContext] = None) -> None:
         self.key = key
         self.slot = slot
         self.args = args
@@ -388,6 +462,7 @@ class _Request:
         self.priority = priority
         self.t_enqueue = t_enqueue
         self.is_probe = is_probe
+        self.ctx = ctx  # the request's trace context (obs on), journaled in its trailer
 
 
 def _component_metrics(metric: Any) -> List[Metric]:
@@ -513,8 +588,12 @@ class StreamingEngine:
         tier: a :class:`~metrics_tpu_torch.tier.TierConfig` turns on the tier
             plane: at most ``hot_capacity`` tenants in the device slab, the rest
             in host RAM and on disk.
-        replication: the JAX package's replication plane; not ported yet —
-            anything but ``None`` raises ``NotImplementedError`` (ROADMAP A.7).
+        replication: a :class:`~metrics_tpu_torch.repl.ReplConfig` turns on the
+            replication plane: ``role="primary"`` (needs ``checkpoint=`` with its
+            WAL) ships the durable lineage over ``transport``; ``role="follower"``
+            makes a read replica that replays it, refuses writes
+            (:class:`~metrics_tpu_torch.repl.NotPrimaryError`) and reads beyond
+            its staleness bound, until :meth:`promote`.
         device: where the engine serves; ``None`` serves on the metric's device (a
             metric's default device is the GPU). Otherwise the engine's clone of
             the metric moves there.
@@ -547,7 +626,7 @@ class StreamingEngine:
         telemetry_window: int = 2048,
         checkpoint: Optional[CheckpointConfig] = None,
         guard: Optional[GuardConfig] = None,
-        replication: Optional[Any] = None,
+        replication: Optional[ReplConfig] = None,
         tier: Optional[TierConfig] = None,
         device: Optional[Any] = None,
         telemetry_labels: Optional[Dict[str, str]] = None,
@@ -557,12 +636,6 @@ class StreamingEngine:
             raise MetricsTPUUserError(
                 f"StreamingEngine serves a Metric or MetricCollection, got {type(metric_or_collection)!r}"
             )
-        planes = {"replication": replication}
-        for name, item in _PLANES:
-            if planes[name] is not None:
-                raise NotImplementedError(
-                    f"StreamingEngine({name}=...) needs the {name} plane, which is not ported yet (ROADMAP {item})"
-                )
         if policy not in _POLICIES:
             raise MetricsTPUUserError(f"`policy` must be one of {_POLICIES}, got {policy!r}")
         if max_queue < 1:
@@ -591,6 +664,7 @@ class StreamingEngine:
             not m._host_compute and not any(isinstance(d, list) for d in m._defaults.values())
             for m in _component_metrics(self._metric)
         )
+        self._fused_error: Optional[BaseException] = None  # the last capture failure, if any
         self._keyed: Union[KeyedState, EagerKeyedState] = (
             KeyedState(self._metric, capacity=capacity, window=window)
             if self._fused
@@ -664,16 +738,43 @@ class StreamingEngine:
                 self._watchdog = Watchdog(self._hang_detector.hung, self._on_worker_hang,
                                           poll_s=guard.watchdog_poll_s)
         self._last_health_state = "SERVING"  # the on_health_transition hook's edge detector
-        if checkpoint is not None:
-            try:
+        # replication plane: a primary ships its snapshot + WAL lineage off-thread;
+        # a follower is a read replica whose applier thread replays it
+        self._repl_cfg: Optional[ReplConfig] = None
+        self._shipper: Optional[Shipper] = None
+        self._applier: Optional[ReplicaApplier] = None
+        self._repl_follower = False
+        self._repl_epoch = 0
+        self._promote_lock = threading.Lock()
+        if replication is not None and replication.role == "follower" and checkpoint is not None:
+            raise MetricsTPUUserError(
+                "a follower replica does not own a durable lineage while following — its state "
+                "is the primary's, re-bootstrappable from the ship link. Configure the lineage "
+                "it should open AT PROMOTION via ReplConfig(promote_checkpoint=CheckpointConfig(...))"
+            )
+        try:
+            if checkpoint is not None:
                 self._init_checkpoint(checkpoint)
-            except BaseException:
-                if self._watchdog is not None:
-                    self._watchdog.stop()
-                raise
+            if replication is not None:
+                self._init_replication(replication)
+        except BaseException:
+            if self._watchdog is not None:
+                self._watchdog.stop()
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.close()
+            if self._journal is not None:
+                self._journal.close()
+            raise
+
+        # flight-recorder context provider: a dump may run while a trigger site
+        # holds guard or engine locks, so it reads bare attributes only
+        self._flight_provider_name = f"engine:{self.telemetry.engine_id}"
+        _FLIGHT.register_provider(self._flight_provider_name, self._flight_context)
 
         self._worker: Optional[threading.Thread] = None
-        if start:
+        if start and not self._repl_follower:
+            # a follower has no dispatcher: its applier owns the state until
+            # promote() flips it writable (which starts one)
             self.start()
 
     # ------------------------------------------------------------------ lifecycle
@@ -716,6 +817,10 @@ class StreamingEngine:
             worker = self._worker
         if self._watchdog is not None:
             self._watchdog.stop()
+        if self._shipper is not None:
+            self._shipper.close()  # one final publish of what the final checkpoint left
+        if self._applier is not None:
+            self._applier.stop()
         if worker is not None and worker is not threading.current_thread():
             worker.join(timeout=10.0)
             if worker.is_alive():
@@ -731,10 +836,29 @@ class StreamingEngine:
                     stacklevel=2,
                 )
         self._publish_health()
+        _FLIGHT.unregister_provider(self._flight_provider_name)
         if self._ckpt_writer is not None:
             self._ckpt_writer.close()
         if self._journal is not None:
             self._journal.close()
+
+    def _flight_context(self) -> Dict[str, Any]:
+        """Post-mortem context for flight-recorder bundles. Lock-free by
+        contract (bundles are dumped at trigger sites that may hold guard or
+        engine locks): bare attribute reads only."""
+        return {
+            "engine": self.telemetry.engine_id,
+            "wal_seq": self._wal_seq,
+            "health_state": self._last_health_state,
+            "queue_depth": len(self._queue),
+            "worker_restarts": self._worker_restarts,
+            "zombie_workers": self._zombie_workers,
+            "degraded": self._degraded,
+            "quarantined": self._quarantined,
+            "closed": self._closed,
+            "repl_follower": self._repl_follower,
+            "repl_epoch": self._repl_epoch,
+        }
 
     def __enter__(self) -> "StreamingEngine":
         return self
@@ -771,8 +895,18 @@ class StreamingEngine:
         at entry (:class:`~metrics_tpu_torch.guard.QuotaExceeded`,
         :class:`~metrics_tpu_torch.guard.TenantQuarantined`); a quarantined engine
         refuses everything with :class:`~metrics_tpu_torch.guard.EngineQuarantined`.
+        A follower replica refuses every submit with
+        :class:`~metrics_tpu_torch.repl.NotPrimaryError`.
         """
+        if self._repl_follower:
+            raise NotPrimaryError(
+                "submit() on a follower replica: writes go to the primary; this engine serves "
+                "bounded-staleness reads until promote() flips it writable"
+            )
         t_submit = time.perf_counter()
+        # trace context: adopt the ambient one (a caller's activate()) or mint a
+        # fresh root; an obs-off submit carries None after one attribute test
+        ctx = _obs_ctx.mint_or_current() if _OBS.enabled else None
         rows, signature = inspect_request(args)
         guard = self._guard
         abs_deadline: Optional[float] = None
@@ -798,7 +932,7 @@ class StreamingEngine:
                 if self._degraded or self._worker is None:
                     # synchronous per-call dispatch (dispatcher dead or never started)
                     req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit,
-                                   abs_deadline, priority, t_enqueue, is_probe)
+                                   abs_deadline, priority, t_enqueue, is_probe, ctx)
                     self.telemetry.count("submitted")
                     self._apply_inline(req)
                     return future
@@ -824,14 +958,14 @@ class StreamingEngine:
                         raise EngineQuarantined("StreamingEngine quarantined while waiting for queue space")
                     if self._degraded:
                         req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit,
-                                       abs_deadline, priority, t_enqueue, is_probe)
+                                       abs_deadline, priority, t_enqueue, is_probe, ctx)
                         self.telemetry.count("submitted")
                         self._apply_inline(req)
                         return future
                 # the backpressure wait released the lock: a hold may have landed
                 self._check_admissible(key)
                 req = _Request(key, self._alloc_slot(key), tuple(args), rows, signature, future, t_submit,
-                               abs_deadline, priority, t_enqueue, is_probe)
+                               abs_deadline, priority, t_enqueue, is_probe, ctx)
                 self._queue.append(req)
                 self.telemetry.count("submitted")
                 self.telemetry.gauge_queue_depth(len(self._queue))
@@ -917,6 +1051,7 @@ class StreamingEngine:
         stay valid.
         """
         self._check_quarantined("evict_tenant")
+        self._check_writable("evict_tenant")
         self.drain_tenant(key)
         with self._dispatch_lock, self._on_stream():
             resident = self._is_resident(key)
@@ -985,6 +1120,7 @@ class StreamingEngine:
         is tiered — it lands as a cold registration. A resident entry is written
         into the tenant's slab row in place, journaled as a ``b"P"`` record."""
         self._check_quarantined("import_tenant")
+        self._check_writable("import_tenant")
         with self._dispatch_lock, self._on_stream():
             keyed = self._keyed
             rows: List[Any] = []
@@ -1019,13 +1155,17 @@ class StreamingEngine:
             self._sync()
 
     def _read_states(self, keys: Optional[Sequence[Hashable]], window: bool) -> Dict[Hashable, Any]:
-        """Copies of the tenants' states, taken under the dispatch lock on the
-        caller's stream. That stream first waits for the engine's stream and is
-        synchronised before the lock is released, so no later replay can overwrite
-        the slab under a copy still in flight. A non-resident tenant is read from
-        its warm or cold entry without readmission (a sweep over a million cold
-        tenants must not thrash the hot set); ``keys=None`` reads every tenant,
-        resident ones first."""
+        """Copies of the tenants' states, enqueued under the dispatch lock on the
+        caller's stream, which first waits for the engine's stream. With a fused
+        slab the engine's stream then waits for the copies, so no later replay can
+        overwrite the slab under a copy still in flight, and the caller
+        synchronises its stream after releasing the lock (the lock is held for the
+        enqueue only, as the JAX package holds it for a read's dispatch). Eager
+        states are no copies (``EagerKeyedState.state_of`` returns the live
+        tensors), so their reads synchronise under the lock. A non-resident tenant
+        is read from its warm or cold entry without readmission (a sweep over a
+        million cold tenants must not thrash the hot set); ``keys=None`` reads
+        every tenant, resident ones first."""
         with self._dispatch_lock:
             keyed, tier = self._keyed, self._tier
             if keys is None:
@@ -1047,8 +1187,16 @@ class StreamingEngine:
                 current = torch.cuda.current_stream()
                 current.wait_stream(self._stream)
                 states = {key: read(key) for key in keys}
-                current.synchronize()
-            return states
+                if not isinstance(keyed, KeyedState):
+                    current.synchronize()
+                    return states
+                # later slab writes (on the engine's stream) wait for these copies, and
+                # the slab's memory is not reused before they end
+                self._stream.wait_stream(current)
+                for leaf in self._slab_leaves():
+                    leaf.record_stream(current)
+        current.synchronize()  # outside the lock: a read never holds a replay back while it waits
+        return states
 
     def _check_read(self, op: str, window: bool, sync: bool) -> None:
         if window and self._window is None:
@@ -1070,6 +1218,7 @@ class StreamingEngine:
         """
         self._check_read("compute", window, sync)
         self._check_quarantined("compute")
+        self._check_staleness()
         self.flush()
         state = self._read_states([key], window)[key]
         with self._read_lock:
@@ -1080,6 +1229,7 @@ class StreamingEngine:
         (every state is copied under one dispatch-lock acquisition)."""
         self._check_read("compute_all", window, sync)
         self._check_quarantined("compute_all")
+        self._check_staleness()
         self.flush()
         states = self._read_states(None, window)
         with self._read_lock:
@@ -1090,21 +1240,39 @@ class StreamingEngine:
         raise NotImplementedError("rollup() serves the query plane, which is not ported yet (ROADMAP A.9)")
 
     def wal_watermark(self) -> Tuple[int, int]:
-        """``(epoch, seq)`` — this engine's WAL position: the last journaled seq
-        (``-1`` with no journaled write yet, or no durable plane at all). The epoch
-        is 0: lineage epochs come with replication (ROADMAP A.7)."""
+        """``(epoch, seq)`` — this engine's WAL position in its lineage.
+
+        On a primary: the lineage epoch and the last journaled seq, read under
+        the promote lock so a concurrent role flip cannot tear a (new epoch, old
+        seq) pair. On a follower: the applier's applied position, behind the same
+        staleness gate as every other follower read. ``seq`` is ``-1`` with no
+        journaled write yet (or no durable plane at all)."""
         if self._closed:
             raise EngineClosed("wal_watermark() on a closed StreamingEngine")
-        return 0, int(self._wal_seq)
+        self._check_quarantined("wal_watermark")
+        self._check_staleness()
+        applier = self._applier
+        if self._repl_follower and applier is not None:
+            return applier.watermark()
+        with self._promote_lock:
+            return int(self._repl_epoch), int(self._wal_seq)
 
     def _check_quarantined(self, op: str) -> None:
         """Fail fast instead of deadlocking on a dispatch lock a wedged worker holds."""
         if self._quarantined:
             raise EngineQuarantined(f"{op}() on a quarantined StreamingEngine (dispatcher wedged in a device call)")
 
+    def _check_writable(self, op: str) -> None:
+        if self._repl_follower:
+            raise NotPrimaryError(
+                f"{op}() on a follower replica: its state mirrors the primary's and is "
+                "mutated only by replay (promote() flips this engine writable)"
+            )
+
     def rotate_window(self) -> None:
         """Close the current sliding-window segment for ALL tenants (flushes first)."""
         self._check_quarantined("rotate_window")
+        self._check_writable("rotate_window")
         self.flush()
         with self._dispatch_lock, self._on_stream():
             # journaled INSIDE the lock, before the transition: a recovery replays
@@ -1120,6 +1288,7 @@ class StreamingEngine:
         cold with an initial state). The slab is written in place, so captured
         graphs stay valid."""
         self._check_quarantined("reset")
+        self._check_writable("reset")
         self.flush()
         orphans: List[str] = []
         with self._dispatch_lock, self._on_stream():
@@ -1162,10 +1331,12 @@ class StreamingEngine:
         ``state`` walks ``SERVING → DEGRADED → QUARANTINED``: ``DEGRADED`` once the
         dispatcher died and submits run inline, a circuit breaker is open, the
         overload controller is shedding, the WAL was disabled after an IO
-        failure, or a zombie worker survived ``close()``; ``QUARANTINED`` once a
-        hung dispatcher could not be superseded (the guard's watchdog). A guard
-        plane's ``on_health_transition`` hook is called once per edge, outside
-        the engine's locks.
+        failure, a zombie worker survived ``close()``, the shipper was fenced (a
+        deposed primary) or a ship or apply loop keeps failing; ``QUARANTINED``
+        once a hung dispatcher could not be superseded (the guard's watchdog). A
+        guard plane's ``on_health_transition`` hook is called once per edge,
+        outside the engine's locks. With replication, ``"replication"`` holds
+        the role, epoch, positions and lag.
         """
         with self._lock:
             quarantined = self._quarantined
@@ -1181,9 +1352,19 @@ class StreamingEngine:
         breakers = guard.breaker_snapshots() if guard is not None else {}
         shedding = guard.shedding if guard is not None else False
         wal_disabled = self._wal_error is not None
+        # a fenced shipper is a deposed primary still serving local writes
+        # (split-brain territory): loudly DEGRADED
+        repl_fenced = self._shipper is not None and self._shipper.fenced
+        # a failing ship or apply loop records its error and clears it on the
+        # next clean pass: surface it, or a dead link stays invisible until
+        # staleness bites the readers. The applier's error counts only while
+        # this engine IS a follower (a promotion freezes the last one recorded)
+        repl_link_error = (self._shipper is not None and self._shipper.last_error is not None) or (
+            self._repl_follower and self._applier is not None and self._applier.last_error is not None
+        )
         if quarantined:
             state = "QUARANTINED"
-        elif (degraded or zombies or shedding or wal_disabled
+        elif (degraded or zombies or shedding or wal_disabled or repl_fenced or repl_link_error
               or any(snap["state"] != "closed" for snap in breakers.values())):
             state = "DEGRADED"
         else:
@@ -1200,6 +1381,8 @@ class StreamingEngine:
             "breakers": breakers,
             "quarantined_tenants": dict(guard.quarantine.active()) if guard is not None else {},
         }
+        if self._repl_cfg is not None:
+            out["replication"] = self._replication_health()
         if guard is not None:
             guard.publish_health(state)
         # detected under the lock (once per transition, however many readers
@@ -1209,13 +1392,18 @@ class StreamingEngine:
             if state != self._last_health_state:
                 hook_args = (self._last_health_state, state)
                 self._last_health_state = state
+        if hook_args is not None and _OBS.enabled:
+            # the flight recorder's trail (a bundle on QUARANTINED), on the same
+            # once-per-edge detection the user hook rides
+            _obs.record_health_transition(self.telemetry.engine_id, *hook_args)
         if hook_args is not None and guard is not None and guard.cfg.on_health_transition is not None:
             try:
                 guard.cfg.on_health_transition(*hook_args)
             except Exception as exc:  # noqa: BLE001 — an observer crash must not poison health reads
                 warnings.warn(
                     f"on_health_transition({hook_args[0]!r} -> {hook_args[1]!r}) raised "
-                    f"{type(exc).__name__}: {exc} — the transition will not re-fire",
+                    f"{type(exc).__name__}: {exc} — the transition will not re-fire; if this "
+                    "was the replication failover hook, promote the follower manually",
                     RuntimeWarning,
                     stacklevel=2,
                 )
@@ -1379,8 +1567,8 @@ class StreamingEngine:
             try:
                 self._process_fused(batch, epoch)
                 return
-            except _FusedUnsupported:
-                pass
+            except _FusedUnsupported as exc:
+                self._fused_error = exc  # kept for diagnosis (what the capture raised)
             # A kernel failure is ambiguous: the metric's update may not be capturable
             # (demote permanently), or ONE malformed request may have poisoned its
             # chunk (reject that request, keep the fused path for everyone else). The
@@ -1503,15 +1691,25 @@ class StreamingEngine:
         columns, key_ids, mask, host = pad_micro_batch(
             [(req.slot, chunk_args, rows) for req, chunk_args, rows, _ in units], bucket, self._device
         )
-        kernel(self._keyed, key_ids, mask, columns)
-        # commit before completing futures: surfaces device-side errors here and makes
-        # the receipt mean "your rows are in the state", not "your rows are enqueued"
-        self._sync()
+        with _obs.engine_span("engine.dispatch", bucket=bucket, rows=total_rows):
+            kernel(self._keyed, key_ids, mask, columns)
+            # commit before completing futures: surfaces device-side errors here and
+            # makes the receipt mean "your rows are in the state", not "enqueued"
+            self._sync()
         # WAL after commit, before acks, from the host arrays (no read of the card):
         # an acknowledged chunk is always replayable, and a chunk whose capture
         # failed is never journaled (its eager retry journals per request)
         if self._journal is not None:
-            self._journal_chunk(units, *host)
+            traced: List[_TraceContext] = []
+            if _OBS.enabled:
+                # deduped: a request split into several row-chunks packed into one
+                # micro-batch is linked once
+                seen: set = set()
+                for req, _, _, _ in units:
+                    if req.ctx is not None and req.ctx.span_id not in seen:
+                        seen.add(req.ctx.span_id)
+                        traced.append(req.ctx)
+            self._journal_chunk(units, *host, traced)
         self.telemetry.observe_batch(total_rows, bucket)
         now = time.perf_counter()
         for req, _, rows, is_last in units:
@@ -1536,7 +1734,7 @@ class StreamingEngine:
                 continue  # an earlier chunk of this request already failed it
             try:
                 if self._journal is not None:
-                    self._journal_append([_encode_request_record(self._key_bytes(req.key), chunk_args)])
+                    self._journal_append([_encode_request_record(self._key_bytes(req.key), chunk_args, req.ctx)])
                 self._grow()
                 args = tuple(as_request_tensor(a, self._device) for a in chunk_args)
                 state = self._keyed.state_of(req.key)
@@ -1621,7 +1819,7 @@ class StreamingEngine:
         """
         try:
             args = req.args if req.rows_done == 0 else tuple(a[req.rows_done :] for a in req.args)
-            with self._dispatch_lock, self._on_stream():
+            with _obs.engine_span("engine.inline", rows=req.rows), self._dispatch_lock, self._on_stream():
                 if req.future.done() or (req.rows > 0 and req.rows_done >= req.rows):
                     return
                 if self._tier is not None:
@@ -1816,20 +2014,21 @@ class StreamingEngine:
         the entry, is journaled: a recovery never dereferences a dead file."""
         tier = self._tier
         src = tier.tier_of(key)
-        entry, _ = tier.pop_entry(key)
-        keyed = self._keyed
-        slot = keyed.slot_for(key)
-        self._grow()
-        spill = entry.pop("_spill_file", None) if entry is not None else None
-        if self._journal is not None:
-            blob = b"" if entry is None else ckpt_format.dumps(entry, meta={"kind": "tier-promote"})
-            self._journal_append([_encode_tier_record(b"P", int(slot or 0), self._key_bytes(key), blob)])
-            if slot is not None:
-                self._wal_slots_sent.add(slot)
-        if entry is not None:
-            restore_entry(keyed, key, entry)
-        if spill is not None and tier.store is not None:
-            tier.store.delete(spill)
+        with _obs.engine_span("engine.tier_promote", source=src or HOT):
+            entry, _ = tier.pop_entry(key)
+            keyed = self._keyed
+            slot = keyed.slot_for(key)
+            self._grow()
+            spill = entry.pop("_spill_file", None) if entry is not None else None
+            if self._journal is not None:
+                blob = b"" if entry is None else ckpt_format.dumps(entry, meta={"kind": "tier-promote"})
+                self._journal_append([_encode_tier_record(b"P", int(slot or 0), self._key_bytes(key), blob)])
+                if slot is not None:
+                    self._wal_slots_sent.add(slot)
+            if entry is not None:
+                restore_entry(keyed, key, entry)
+            if spill is not None and tier.store is not None:
+                tier.store.delete(spill)
         self.telemetry.count("tier_promotions")
         _obs.record_tier_promotion(self.telemetry.engine_id, src or "unknown")
         return slot
@@ -1859,20 +2058,21 @@ class StreamingEngine:
 
     def _demote_many(self, keys: List[Hashable], entries: List[Dict[str, Any]]) -> None:
         keyed, tier = self._keyed, self._tier
-        if self._journal is not None:
-            slot_of = keyed._slots if isinstance(keyed, KeyedState) else {}
-            self._journal_append([_encode_tier_record(b"D", int(slot_of.get(key, 0)), self._key_bytes(key))
-                                  for key in keys])
-        if isinstance(keyed, KeyedState):
-            slots = keyed.evict_many(keys)
-            keyed.release_slots(slots)
-        else:
-            slots = [keyed.evict(key) for key in keys]
-        for key, entry, slot in zip(keys, entries, slots):
-            if slot is not None:
-                self._wal_slots_sent.discard(slot)
-            tier.warm[key] = entry
-            tier.forget_heat(key)
+        with _obs.engine_span("engine.tier_demote", tenants=len(keys)):
+            if self._journal is not None:
+                slot_of = keyed._slots if isinstance(keyed, KeyedState) else {}
+                self._journal_append([_encode_tier_record(b"D", int(slot_of.get(key, 0)), self._key_bytes(key))
+                                      for key in keys])
+            if isinstance(keyed, KeyedState):
+                slots = keyed.evict_many(keys)
+                keyed.release_slots(slots)
+            else:
+                slots = [keyed.evict(key) for key in keys]
+            for key, entry, slot in zip(keys, entries, slots):
+                if slot is not None:
+                    self._wal_slots_sent.discard(slot)
+                tier.warm[key] = entry
+                tier.forget_heat(key)
         self.telemetry.count("tier_demotions", len(keys))
         for _ in keys:
             _obs.record_tier_demotion(self.telemetry.engine_id)
@@ -1946,6 +2146,7 @@ class StreamingEngine:
         the device until its first submit promotes it. Returns how many keys
         were newly registered (known keys, hot or tiered, are left alone)."""
         tier = self._require_tier("register_tenants")
+        self._check_writable("register_tenants")
         keyed = self._keyed
         table = keyed._slots if isinstance(keyed, KeyedState) else keyed._states
         added = 0
@@ -1961,6 +2162,7 @@ class StreamingEngine:
         """Exempt ``key`` from tier eviction; a non-resident pinned tenant is
         promoted at once (pinning promises slab residency)."""
         tier = self._require_tier("pin_tenant")
+        self._check_writable("pin_tenant")
         with self._dispatch_lock, self._on_stream():
             tier.pinned.add(key)
             if not self._is_resident(key) and tier.has(key):
@@ -1978,6 +2180,7 @@ class StreamingEngine:
         non-resident."""
         tier = self._require_tier("demote_tenant")
         self._check_quarantined("demote_tenant")
+        self._check_writable("demote_tenant")
         self.flush()
         with self._dispatch_lock, self._on_stream():
             if key in tier.pinned:
@@ -2107,6 +2310,10 @@ class StreamingEngine:
             except Exception:  # noqa: BLE001 — already in the failure path
                 pass
             self.telemetry.count("checkpoint_failures")
+            if self._shipper is not None:
+                # shipping from a dead journal would heartbeat a frozen seq: the
+                # follower would read fresh while the primary diverges
+                self._shipper.mark_journal_lost()
             return None
         self._wal_seq = max(self._wal_seq, seqs[-1])
         self.telemetry.count("wal_records", len(payloads))
@@ -2127,9 +2334,11 @@ class StreamingEngine:
         columns: Sequence[np.ndarray],
         key_ids: np.ndarray,
         mask: np.ndarray,
+        ctxs: Sequence[_TraceContext] = (),
     ) -> None:
         """Journal one committed fused micro-batch as a single chunk record, from
-        the host arrays ``pad_micro_batch`` built it from.
+        the host arrays ``pad_micro_batch`` built it from, with the trace contexts
+        of the requests it coalesced in its trailer.
 
         Called AFTER the replay was synchronised and BEFORE the chunk's futures
         resolve: an acknowledged request is always either in a snapshot or
@@ -2141,7 +2350,7 @@ class StreamingEngine:
             if req.slot not in self._wal_slots_sent:
                 self._wal_slots_sent.add(req.slot)
                 new_slots.append((req.slot, self._key_bytes(req.key)))
-        self._journal_append([_encode_chunk_record(new_slots, key_ids, mask, columns)])
+        self._journal_append([_encode_chunk_record(new_slots, key_ids, mask, columns, ctxs)])
 
     def _journal_requests(self, reqs: List[_Request], args_override: Optional[Tuple[Any, ...]] = None) -> None:
         """Per-request WAL records for the non-fused paths (eager metrics,
@@ -2154,7 +2363,9 @@ class StreamingEngine:
         if not todo:
             return
         payloads = [
-            _encode_request_record(self._key_bytes(req.key), req.args if args_override is None else args_override)
+            _encode_request_record(
+                self._key_bytes(req.key), req.args if args_override is None else args_override, req.ctx
+            )
             for req in todo
         ]
         seqs = self._journal_append(payloads)
@@ -2166,9 +2377,9 @@ class StreamingEngine:
         """Consistent host-side snapshot tree of ALL tenant state + WAL position.
 
         The slab is overwritten in place by every replay, so the copy to the host
-        is taken under the dispatch lock, whose every holder synchronises the
-        engine's stream before releasing it, and the writer thread gets numpy
-        arrays only, never tensors. The tree is the JAX package's.
+        is taken under the dispatch lock on the engine's stream (after every replay
+        enqueued before it), and the writer thread gets numpy arrays only, never
+        tensors. The tree is the JAX package's.
         """
         with self._dispatch_lock, self._on_stream():
             keyed = self._keyed
@@ -2198,6 +2409,10 @@ class StreamingEngine:
         if self._tier is not None:
             tenants += len(self._tier.warm) + len(self._tier.cold)
         meta = {"tenants": tenants, "seq": tree["seq"]}
+        if self._repl_cfg is not None:
+            # the lineage's fencing token: a recovered promoted node knows which
+            # epoch it owns without re-walking the promotion
+            meta["epoch"] = self._repl_epoch
         return tree, meta
 
     def _maybe_checkpoint(self) -> None:
@@ -2331,9 +2546,11 @@ class StreamingEngine:
         them, so one replay reproduces the committed result bit for bit at full
         speed. Slot intros install the JOURNALING engine's ids (key_ids index by
         them; intros may arrive gapped because chunk commit order is not slot
-        assignment order). A demoted/eager engine — or a chunk whose update cannot
-        be captured here — falls back to the per-row walk, which is the same scan
-        semantics, only slower.
+        assignment order). The record's arrays reach the card through pinned,
+        non-blocking copies, so a replay holds the dispatch lock for its enqueue
+        only. A demoted/eager engine — or a chunk whose update cannot be captured
+        here — falls back to the per-row walk, which is the same scan semantics,
+        only slower.
         """
         off = 1
         (n_new,) = struct.unpack_from("<H", payload, off)
@@ -2361,8 +2578,8 @@ class StreamingEngine:
             self._grow(min_slots=int(key_ids.max()) + 1 if len(key_ids) else 0)
             try:
                 kernel = self._get_kernel(self._chunk_signature(columns), int(len(key_ids)), keyed.capacity)
-                kernel(keyed, _as_state_tensor(key_ids, dev), _as_state_tensor(mask, dev),
-                       [_as_state_tensor(c, dev) for c in columns])
+                kernel(keyed, _to_device_async(key_ids, dev), _to_device_async(mask, dev),
+                       [_to_device_async(c, dev) for c in columns])
                 return
             except _FusedUnsupported:
                 pass  # not capturable on this engine: per-row walk below
@@ -2377,7 +2594,8 @@ class StreamingEngine:
                 keyed.slot_for(key)
                 keyed.update(key, *rows)
 
-    def _replay_request(self, key: Hashable, args: Tuple[np.ndarray, ...]) -> None:
+    def _replay_request(self, key: Hashable, args: Tuple[np.ndarray, ...],
+                        ctx: Optional[_TraceContext] = None) -> None:
         """Re-apply one 'R' record as ONE whole-request update — exactly how the
         eager/inline paths that produce these records applied it, so float
         accumulation rounds as it did in the lost process."""
@@ -2451,7 +2669,23 @@ class StreamingEngine:
 
     def _apply_wal_payload(self, payload: bytes) -> None:
         """Dispatch one WAL record to its replayer (caller holds the dispatch lock,
-        on the engine's stream)."""
+        on the engine's stream).
+
+        With obs on, each replayed record runs inside an ``engine.replay`` span
+        carrying the trace ids the submitting engine stamped into the record: a
+        follower's apply and a crash recovery's replay both land here, so their
+        spans name the original trace ids."""
+        if _OBS.enabled:
+            attrs: Dict[str, Any] = {"kind": payload[:1].decode("latin1")}
+            traces = _record_trace_hexes(payload)
+            if traces:
+                attrs["traces"] = traces
+            with _obs.engine_span("engine.replay", **attrs):
+                self._apply_wal_payload_inner(payload)
+            return
+        self._apply_wal_payload_inner(payload)
+
+    def _apply_wal_payload_inner(self, payload: bytes) -> None:
         kind = payload[:1]
         if kind == b"C":
             self._replay_chunk(payload)
@@ -2512,3 +2746,339 @@ class StreamingEngine:
                     self.telemetry.count("replayed", replayed)
             self._drop_stale_graphs()
             self._sync()
+
+    # ---------------------------------------------------- replication plane
+
+    def _init_replication(self, cfg: ReplConfig) -> None:
+        self._repl_cfg = cfg
+        self._repl_epoch = int(cfg.epoch)
+        if cfg.role == "primary":
+            if self._journal is None:
+                raise MetricsTPUUserError(
+                    "replication role 'primary' requires checkpoint=CheckpointConfig(..., wal=True): "
+                    "the shipper publishes the durable plane's snapshot + WAL lineage"
+                )
+            # recover the lineage's fencing token: a restarted promoted node must
+            # resume at the epoch it owns (snapshot meta), or its own fence would
+            # reject its shipments
+            resumed = bool(self._ckpt_store.generations())
+            for gen in reversed(self._ckpt_store.generations()):
+                try:
+                    self._repl_epoch = max(self._repl_epoch, int(self._ckpt_store.read_meta(gen).get("epoch", 0)))
+                    break
+                except Exception:  # noqa: BLE001 — corrupt meta: fall back a generation
+                    continue
+            if resumed or self._wal_seq > -1:
+                # every resume starts a NEW lineage epoch: a restarted primary may
+                # re-use seqs its dead incarnation already shipped (a WAL tail lost
+                # before it reached the disk), and within one epoch a follower's
+                # seq chain would drop them as duplicates. The bump makes followers
+                # re-bootstrap from the restart snapshot; the pin snapshot persists
+                # it, so two incarnations never share an epoch.
+                self._repl_epoch += 1
+                if self._ckpt_writer is not None:
+                    self._ckpt_writer.checkpoint_sync(self._checkpoint_view)
+            self._shipper = Shipper(
+                cfg, store=self._ckpt_store, journal=self._journal, telemetry=self.telemetry,
+                engine_label=self.telemetry.engine_id, epoch=self._repl_epoch,
+            )
+        else:
+            self._repl_follower = True
+            self._applier = ReplicaApplier(self, cfg, telemetry=self.telemetry, engine_label=self.telemetry.engine_id)
+
+    def _repl_reset_state(self) -> None:
+        """Applier callback: drop ALL replica state (a wiped or replaced primary
+        restarted its seq numbering, so the old mirror is meaningless). The slab
+        is scrubbed in place, keeping its capacity, so the captured graphs stay
+        bound to live memory."""
+        with self._dispatch_lock, self._on_stream():
+            keyed = self._keyed
+            if isinstance(keyed, KeyedState):
+                keyed.restore(keyed.capacity, keyed._tiled(keyed.capacity), {})
+            else:
+                self._keyed = EagerKeyedState(self._metric, window=self._window)
+            self._replay_slot_keys = {}
+            if self._tier is not None:
+                self._tier.restore_view({})
+            self._sync()
+
+    def _repl_restore_snapshot(self, data: bytes) -> int:
+        """Applier callback: bootstrap or rebootstrap from one shipped snapshot
+        through the restore path recovery uses (copied into the live slab in
+        place); returns the WAL seq it covers."""
+        snap = ckpt_format.loads(data)
+        self._validate_engine_snapshot(snap)
+        with self._dispatch_lock, self._on_stream():
+            self._restore_keyed(snap.tree)
+            if snap.tree["mode"] == "fused":
+                # chunk records reference slot ids; mappings introduced before the
+                # snapshot live in rotated-away segments
+                self._replay_slot_keys = {slot: key for key, slot in snap.tree["slots"].items()}
+            self._sync()
+        return int(snap.tree.get("seq", -1))
+
+    def _repl_apply_record(self, payload: bytes) -> None:
+        """Applier callback: replay ONE shipped WAL record through the machinery
+        recovery uses (the follower's own bucket graphs, on the engine's stream,
+        whichever thread calls), so the follower equals the primary at every
+        applied seq. A record that failed on the primary fails here too (counted,
+        absorbed) and still advances the seq chain, as it did there."""
+        try:
+            with self._dispatch_lock, self._on_stream():
+                self._apply_wal_payload(payload)
+        except Exception:  # noqa: BLE001 — it failed when the primary first accepted it too
+            self.telemetry.count("failed")
+
+    def _repl_quiesce(self) -> None:
+        """Applier callback, once per received frame batch and outside the
+        dispatch lock: wait for the engine's stream, so a reader never inherits
+        more than one batch of pending replays."""
+        self._sync()
+
+    def replica_lag(self) -> Optional[ReplicaLag]:
+        """This follower's staleness (``None`` unless it is a follower):
+        ``compute``/``compute_all``/``wal_watermark`` refuse beyond the configured
+        ``max_staleness``, and ``health()["replication"]`` embeds it."""
+        applier = self._applier
+        if applier is None or not self._repl_follower:
+            return None
+        lag = applier.lag()
+        _obs.set_repl_lag(self.telemetry.engine_id, lag.seqs_behind, lag.seconds_behind)
+        return lag
+
+    def _check_staleness(self) -> None:
+        """Refuse a follower read beyond the configured staleness bound."""
+        applier = self._applier
+        if applier is None or not self._repl_follower:
+            return
+        cfg = self._repl_cfg
+        if cfg.max_staleness_seqs is None and cfg.max_staleness_s is None:
+            return
+        if not applier.bootstrapped:
+            self.telemetry.count("stale_read_refusals")
+            raise StalenessExceeded(
+                "read refused: replica has not bootstrapped from the primary yet (its staleness is unbounded)"
+            )
+        lag = applier.lag()
+        if lag.exceeds(cfg.max_staleness_seqs, cfg.max_staleness_s):
+            self.telemetry.count("stale_read_refusals")
+            raise StalenessExceeded(
+                f"read refused: replica lag ({lag.seqs_behind} seqs, {lag.seconds_behind:.3f}s) "
+                f"exceeds max_staleness (seqs={cfg.max_staleness_seqs}, s={cfg.max_staleness_s})"
+            )
+
+    def promote(self, *, epoch: Optional[int] = None, ship: Optional[ReplConfig] = None) -> None:
+        """Follower → primary hot failover.
+
+        Drains the shipped tail (the promoted node serves exactly the acked
+        prefix: the seq chain drops duplicates and parks on gaps), fences the
+        transport at ``deposed epoch + 1`` (a zombie primary's late shipments are
+        rejected at the transport boundary from that instant), re-opens this
+        node's OWN durable lineage (``promote_checkpoint``) with a synchronous pin
+        snapshot, and starts a dispatcher: the engine is writable when this
+        returns. Idempotent; called explicitly or by
+        :func:`~metrics_tpu_torch.repl.failover_hook` from a guard's
+        ``on_health_transition``. With obs on, the steps are the spans
+        ``repl.drain``, ``repl.fence`` and ``repl.pin`` inside ``repl.promote``.
+
+        ``epoch`` overrides the fencing epoch (it must exceed the applied lineage
+        epoch); ``ship`` is a ``role="primary"`` ReplConfig installed after the
+        promotion, so the new primary ships its lineage at once.
+        """
+        cfg = self._repl_cfg
+        if cfg is None or cfg.role != "follower":
+            raise MetricsTPUUserError("promote() requires replication=ReplConfig(role='follower')")
+        if ship is not None and ship.role != "primary":
+            raise MetricsTPUUserError(f"promote(ship=...) must be a role='primary' ReplConfig, got role={ship.role!r}")
+        with self._promote_lock, _obs.repl_span("repl.promote"):
+            if not self._repl_follower:
+                return  # already promoted (an explicit call raced the failover hook)
+            applier = self._applier
+            if applier is None:
+                raise NotPromotableError(
+                    "promote(): this node is a demoted, unattached follower — it has no "
+                    "ship link to drain a lineage from; re-attach it (demote(follower_cfg)) "
+                    "and retry once it bootstraps"
+                )
+            if not applier.bootstrapped:
+                # fresh-init state pinned as the new lineage would replace every
+                # tenant's history by zeros; retryable once a snapshot lands. An
+                # EMPTY-bootstrap replica is promotable: its primary had no state.
+                raise NotPromotableError(
+                    "promote(): this follower never bootstrapped — promoting would pin "
+                    "fresh-init state as the new durable lineage, losing all tenant "
+                    "history; retry once a snapshot has been applied"
+                )
+            if epoch is not None and epoch <= applier.epoch:
+                raise MetricsTPUUserError(
+                    f"promote(epoch={epoch}): the fencing epoch must exceed the applied "
+                    f"lineage epoch ({applier.epoch}) — a stale lease cannot depose its successor"
+                )
+            # 1. stop the poll thread, drain what was already shipped; park() is
+            # the hard cutoff (a poll thread that outlived its join, inside a
+            # capture, must never replay old-primary records into the new lineage)
+            with _obs.repl_span("repl.drain"):
+                applier.stop()
+                applier.drain(cfg.drain_timeout_s)
+                applier.park()
+            # 2. fence: from this instant the old epoch is dead at the boundary
+            with _obs.repl_span("repl.fence"):
+                new_epoch = applier.epoch + 1 if epoch is None else int(epoch)
+                cfg.transport.fence(new_epoch)
+                with self._lock:
+                    self._repl_epoch = new_epoch
+                    self._repl_follower = False
+            # 3. own lineage: fresh WAL numbering + a synchronous pin snapshot
+            self._wal_seq = -1
+            with _obs.repl_span("repl.pin"):
+                try:
+                    self._open_promoted_lineage(cfg)
+                except Exception as exc:  # noqa: BLE001 — the role already flipped:
+                    # serve WITHOUT durability rather than half-promoted (no
+                    # dispatcher, every retry blocked by the idempotency guard)
+                    self._ckpt_writer = None
+                    self._journal = None
+                    self._wal_seq = -1
+                    warnings.warn(
+                        f"promote(): opening the promote_checkpoint lineage failed "
+                        f"({type(exc).__name__}: {exc}) — the promoted primary is serving "
+                        "WITHOUT durability",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
+            # 3b. re-ship the new lineage over the transport the caller wired
+            if ship is not None:
+                self._repl_cfg = ship
+                if self._journal is not None:
+                    self._shipper = Shipper(
+                        ship, store=self._ckpt_store, journal=self._journal, telemetry=self.telemetry,
+                        engine_label=self.telemetry.engine_id, epoch=self._repl_epoch,
+                    )
+                else:
+                    warnings.warn(
+                        "promote(ship=...): no WAL journal after promotion (missing or failed "
+                        "promote_checkpoint lineage) — the promoted primary cannot ship to its followers",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
+            # 4. writable
+            self.start()
+        self.telemetry.count("promotions")
+        _obs.record_repl_promotion(self.telemetry.engine_id)
+        self._publish_health()
+
+    def _open_promoted_lineage(self, cfg: ReplConfig) -> None:
+        """Promotion step 3: the node's OWN durable plane + pin snapshot."""
+        if cfg.promote_checkpoint is None:
+            warnings.warn(
+                "promote(): no ReplConfig.promote_checkpoint lineage configured — the "
+                "promoted primary is serving WITHOUT durability",
+                RuntimeWarning,
+                stacklevel=3,
+            )
+            return
+        from dataclasses import replace as _dc_replace
+
+        self._init_checkpoint(_dc_replace(cfg.promote_checkpoint, resume=False))
+        if self._journal is not None:
+            # a directory re-used by a node promoted before: its journal numbers on
+            # past the leftover segments. Anchor at that tail, so the pin covers
+            # every stale record and a recovery replays only this incarnation's
+            self._wal_seq = int(self._journal.last_seq)
+        self._ckpt_writer.checkpoint_sync(self._checkpoint_view)
+
+    def demote(self, replication: Optional[ReplConfig] = None) -> None:
+        """Primary → follower step-down, the mirror of :meth:`promote`.
+
+        Refuses new writes first (:class:`~metrics_tpu_torch.repl.NotPrimaryError`
+        from the instant the flag flips), drains accepted work into the old
+        lineage, stops the dispatcher and the shipper (whose close makes one
+        final publish), releases the durable plane (a follower owns no lineage),
+        then attaches the new follow link (``replication``, a ``role="follower"``
+        ReplConfig) or parks read-only and unattached (``None``). On a follower
+        only the link swap runs. The old transport is not fenced here: fencing
+        belongs to the successor's promotion.
+        """
+        if replication is not None and replication.role != "follower":
+            raise MetricsTPUUserError(
+                f"demote() takes replication=None or a role='follower' ReplConfig, got role={replication.role!r}"
+            )
+        with self._promote_lock:
+            with self._lock:
+                self._repl_follower = True
+                self._not_empty.notify_all()
+            drain_s = (
+                replication.drain_timeout_s
+                if replication is not None
+                else (self._repl_cfg.drain_timeout_s if self._repl_cfg is not None else 5.0)
+            )
+            worker = self._worker
+            if worker is not None and not self._quarantined:
+                try:
+                    self.flush(timeout=drain_s)
+                except TimeoutError:
+                    warnings.warn(
+                        f"demote(): drain did not complete within {drain_s}s — "
+                        "unfinished accepted work is abandoned with the old lineage",
+                        RuntimeWarning,
+                        stacklevel=2,
+                    )
+            if worker is not None:
+                with self._lock:
+                    self._worker_epoch += 1
+                    self._worker = None
+                    self._not_empty.notify_all()
+                if worker is not threading.current_thread():
+                    worker.join(timeout=5.0)
+            if self._shipper is not None:
+                self._shipper.close()
+                self._shipper = None
+            if self._applier is not None:
+                self._applier.stop()
+                self._applier = None
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.close()
+                self._ckpt_writer = None
+            if self._journal is not None:
+                self._journal.close()
+                self._journal = None
+            self._ckpt_store = None
+            self._ckpt_cfg = None
+            self._wal_seq = -1
+            self._wal_error = None
+            self._wal_slots_sent = set()
+            self._snapshot_seqs = {}
+            if replication is not None:
+                self._repl_cfg = replication
+                self._applier = ReplicaApplier(
+                    self, replication, telemetry=self.telemetry, engine_label=self.telemetry.engine_id
+                )
+        self.telemetry.count("demotions")
+        self._publish_health()
+
+    def _replication_health(self) -> Dict[str, Any]:
+        info: Dict[str, Any] = {"role": "follower" if self._repl_follower else "primary", "epoch": self._repl_epoch}
+        shipper, applier = self._shipper, self._applier
+        if shipper is not None:
+            info["shipped_seq"] = shipper.last_shipped_seq
+            info["shipped_generation"] = shipper.shipped_generation
+            info["fenced"] = shipper.fenced
+            info["ship_failures"] = shipper.ship_failures
+            # a spooling transport that hit its cap dropped frames a follower
+            # must re-bootstrap past
+            spool_dropped = getattr(shipper.transport, "spool_dropped", None)
+            if spool_dropped is not None:
+                info["spool_dropped"] = spool_dropped
+            err = shipper.last_error
+            info["ship_error"] = None if err is None else f"{type(err).__name__}: {err}"
+        if applier is not None:
+            info["applied_seq"] = applier.applied_seq
+            info["known_seq"] = applier.known_seq
+            info["bootstrapped"] = applier.bootstrapped
+            err = applier.last_error
+            info["apply_error"] = None if err is None else f"{type(err).__name__}: {err}"
+            if self._repl_follower:
+                lag = applier.lag()
+                info["lag_seqs"] = lag.seqs_behind
+                info["lag_seconds"] = lag.seconds_behind
+        return info

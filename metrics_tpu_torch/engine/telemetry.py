@@ -9,9 +9,8 @@ not ride the ``obs.enable()`` master switch.
 
 :meth:`EngineTelemetry.snapshot` returns the JAX package's keys: the counters,
 ``queue_depth``, ``resize_seconds``, ``batch_occupancy_hist``, ``latency_s`` and
-``mean_batch_occupancy``. The counters of the replication plane, which is not
-ported yet, are declared and read 0, so a dashboard built on the JAX engine
-reads the port's unchanged.
+``mean_batch_occupancy``, so a dashboard built on the JAX engine reads the
+port's unchanged.
 
 Counter names are a closed set: :meth:`count` on a name that was never declared
 raises instead of silently minting a new series; extend the set explicitly with
@@ -71,7 +70,7 @@ _COUNTERS = (
     # zombie surfacing is guard-independent: close() counts a worker that
     # outlived its join timeout whether or not a guard plane is configured
     "zombie_workers",
-    # replication plane (ROADMAP A.7: not ported yet, these read 0)
+    # replication plane
     "shipped_records",      # WAL records published over the repl transport (primary)
     "shipped_snapshots",    # snapshot frames published (bootstrap + re-ship)
     "ship_failures",        # transient transport send failures absorbed + retried

@@ -1,13 +1,14 @@
-"""Instrumentation hooks of the metric core, the kernel plane, the durable
-state plane and the engine's guard and tier planes (port of the metric,
-kernel, ckpt, guard and tier sections of ``metrics_tpu/obs/instrument.py``).
+"""Instrumentation hooks of the metric core, the kernel plane, the engine and
+its durable, guard, tier and replication planes (port of the metric, kernel,
+engine, ckpt, guard, tier and repl sections of ``metrics_tpu/obs/instrument.py``).
 
 Every hook returns at once, or hands back a shared no-op, while ``OBS.enabled``
 is false. Unlike the JAX package, whose callers are jitted and so count
 compiled lowerings, PyTorch runs eagerly: the kernel hooks count calls. The
-JAX package's op timer also opens a trace span; the port has no tracer yet,
-so its timer records the wall-time histogram only, and :func:`ckpt_span` is a
-no-op (the ckpt series themselves are recorded).
+spans land in the process tracer (:data:`~metrics_tpu_torch.obs.trace.TRACER`),
+and the guard's quarantines, watchdog restarts, breaker openings and an
+engine's quarantine dump flight-recorder bundles
+(:data:`~metrics_tpu_torch.obs.flight.FLIGHT`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,7 +17,9 @@ import itertools
 import time
 from typing import Any, Optional
 
+from metrics_tpu_torch.obs.flight import FLIGHT
 from metrics_tpu_torch.obs.registry import OBS, REGISTRY
+from metrics_tpu_torch.obs.trace import _NULL_SPAN, TRACER
 
 OP_SECONDS = REGISTRY.histogram(
     "metrics_tpu_torch_op_seconds",
@@ -55,25 +58,10 @@ def instance_label(obj: Any) -> str:
     return label
 
 
-class _NullOp:
-    """Shared do-nothing context manager for the disabled path."""
-
-    __slots__ = ()
-
-    def __enter__(self) -> "_NullOp":
-        return self
-
-    def __exit__(self, *exc_info: Any) -> bool:
-        return False
-
-
-_NULL_OP = _NullOp()
-
-
 class _OpTimer:
-    """Wall-time histogram around one metric operation."""
+    """Span + wall-time histogram around one metric operation."""
 
-    __slots__ = ("_op", "_metric", "_instance", "_t0")
+    __slots__ = ("_op", "_metric", "_instance", "_span", "_t0")
 
     def __init__(self, op: str, metric: str, instance: str) -> None:
         self._op = op
@@ -81,12 +69,19 @@ class _OpTimer:
         self._instance = instance
 
     def __enter__(self) -> "_OpTimer":
+        self._span = TRACER.span(f"metric.{self._op}", metric=self._metric)
+        self._span.__enter__()
         self._t0 = time.perf_counter()
         return self
 
     def __exit__(self, exc_type: Any, exc: Any, tb: Any) -> bool:
-        OP_SECONDS.observe(time.perf_counter() - self._t0, op=self._op, metric=self._metric, instance=self._instance)
+        dur = time.perf_counter() - self._t0
+        self._span.__exit__(exc_type, exc, tb)
+        OP_SECONDS.observe(dur, op=self._op, metric=self._metric, instance=self._instance)
         return False
+
+    def set_attr(self, **attrs: Any) -> None:
+        self._span.set_attr(**attrs)
 
 
 def metric_op(op: str, owner: Any) -> Any:
@@ -97,7 +92,7 @@ def metric_op(op: str, owner: Any) -> Any:
     time to enqueue the work unless the operation waits for the card.
     """
     if not OBS.enabled:
-        return _NULL_OP
+        return _NULL_SPAN
     return _OpTimer(op, type(owner).__name__, instance_label(owner))
 
 
@@ -166,9 +161,10 @@ def record_ckpt_skipped(reason: str, n: int = 1) -> None:
 
 
 def ckpt_span(name: str, **attrs: Any) -> Any:
-    """The trace span of a durable-state-plane step (serialize, commit, restore):
-    a shared no-op until the port has a tracer (ROADMAP A.7)."""
-    return _NULL_OP
+    """Trace span for durable-state-plane internals (serialize, commit, restore)."""
+    if not OBS.enabled:
+        return _NULL_SPAN
+    return TRACER.span(name, **attrs)
 
 
 # ---------------------------------------------------------------------- guard plane
@@ -215,18 +211,29 @@ _HEALTH_CODES = {"SERVING": 0, "DEGRADED": 1, "QUARANTINED": 2}
 
 def record_guard_event(engine: str, kind: str, n: int = 1) -> None:
     """Count one guard decision (kind in shed|quota_rejections|deadline_expired|
-    watchdog_restarts|quarantines) against its engine label. (The JAX package
-    also dumps a flight-recorder bundle on quarantines and restarts; the
-    recorder comes with the replication slice, ROADMAP A.7.)"""
+    watchdog_restarts|quarantines) against its engine label.
+
+    Tenant quarantines and watchdog restarts are flight-recorder triggering
+    edges (the guard fires this exactly once per edge): each dumps one
+    post-mortem bundle on top of the counter."""
     if not OBS.enabled:
         return
     _GUARD_EVENT_COUNTERS[kind].inc(n, engine=engine)
+    if kind == "quarantines":
+        FLIGHT.record("guard_quarantine", engine=engine)
+        FLIGHT.dump("guard_quarantine", engine=engine)
+    elif kind == "watchdog_restarts":
+        FLIGHT.record("watchdog_restart", engine=engine)
+        FLIGHT.dump("watchdog_restart", engine=engine)
 
 
 def set_guard_breaker_state(engine: str, breaker: str, state_code: int) -> None:
     if not OBS.enabled:
         return
     GUARD_BREAKER_STATE.set(state_code, engine=engine, breaker=breaker)
+    # the flight recorder dedups gauge refreshes into edges and dumps one
+    # bundle on the transition INTO open (2)
+    FLIGHT.record_breaker_state(engine, breaker, state_code)
 
 
 def set_guard_health(engine: str, state: str) -> None:
@@ -235,10 +242,22 @@ def set_guard_health(engine: str, state: str) -> None:
     GUARD_HEALTH_STATE.set(_HEALTH_CODES[state], engine=engine)
 
 
+def record_health_transition(engine: str, old: str, new: str) -> None:
+    """One engine health-state edge (fired beside the user's
+    ``on_health_transition`` observer, exactly once per transition, outside
+    the engine's locks). Entering QUARANTINED dumps a flight bundle."""
+    if not OBS.enabled:
+        return
+    FLIGHT.record("health_transition", engine=engine, old=old, new=new)
+    if new == "QUARANTINED":
+        FLIGHT.dump("engine_quarantine", engine=engine, old=old)
+
+
 def guard_span(name: str, **attrs: Any) -> Any:
-    """The trace span of guard-plane internals (drain forming, hang handling):
-    a shared no-op until the port has a tracer (ROADMAP A.7)."""
-    return _NULL_OP
+    """Trace span for guard-plane internals (drain forming, hang handling)."""
+    if not OBS.enabled:
+        return _NULL_SPAN
+    return TRACER.span(name, **attrs)
 
 
 # ---------------------------------------------------------------------- tier plane
@@ -298,3 +317,71 @@ def set_engine_slab_bytes(engine: str, dtype: str, nbytes: int, shard: str = "")
     if not OBS.enabled:
         return
     ENGINE_SLAB_BYTES.set(nbytes, engine=engine, dtype=dtype, shard=shard)
+
+
+# ---------------------------------------------------------------------- repl plane
+
+REPL_SHIPPED = REGISTRY.counter(
+    "metrics_tpu_torch_repl_shipped_records_total",
+    "WAL records the primary's shipper published over the replication transport, per engine.",
+)
+REPL_APPLIED = REGISTRY.counter(
+    "metrics_tpu_torch_repl_applied_records_total",
+    "Shipped WAL records a follower replayed into its local state, per engine.",
+)
+REPL_LAG_SEQS = REGISTRY.gauge(
+    "metrics_tpu_torch_repl_lag_seqs",
+    "Follower staleness in WAL records: known primary position minus applied position, per engine.",
+)
+REPL_LAG_SECONDS = REGISTRY.gauge(
+    "metrics_tpu_torch_repl_lag_seconds",
+    "Follower staleness in wall-clock seconds (now minus the primary instant the replica is "
+    "known current through); -1 before bootstrap (unbounded).",
+)
+REPL_PROMOTIONS = REGISTRY.counter(
+    "metrics_tpu_torch_repl_promotions_total",
+    "Follower→primary promotions (explicit promote() or guard-quarantine failover), per engine.",
+)
+
+
+def record_repl_shipped(engine: str, n: int = 1) -> None:
+    if not OBS.enabled:
+        return
+    REPL_SHIPPED.inc(n, engine=engine)
+
+
+def record_repl_applied(engine: str, n: int = 1) -> None:
+    if not OBS.enabled:
+        return
+    REPL_APPLIED.inc(n, engine=engine)
+
+
+def set_repl_lag(engine: str, seqs_behind: int, seconds_behind: float) -> None:
+    if not OBS.enabled:
+        return
+    REPL_LAG_SEQS.set(seqs_behind, engine=engine)
+    REPL_LAG_SECONDS.set(-1.0 if seconds_behind == float("inf") else seconds_behind, engine=engine)
+
+
+def record_repl_promotion(engine: str) -> None:
+    if not OBS.enabled:
+        return
+    REPL_PROMOTIONS.inc(1, engine=engine)
+    FLIGHT.record("repl_promotion", engine=engine)
+
+
+def repl_span(name: str, **attrs: Any) -> Any:
+    """Trace span for replication internals (ship tick, bootstrap, promotion)."""
+    if not OBS.enabled:
+        return _NULL_SPAN
+    return TRACER.span(name, **attrs)
+
+
+# ---------------------------------------------------------------------- engine
+
+
+def engine_span(name: str, **attrs: Any) -> Any:
+    """Trace span for engine internals (dispatch, inline apply, replay, tier moves)."""
+    if not OBS.enabled:
+        return _NULL_SPAN
+    return TRACER.span(name, **attrs)

@@ -2,10 +2,42 @@
 
 from __future__ import annotations
 
+import contextlib
+import gc
+import threading
 import warnings
-from typing import Any, Callable, Optional, Tuple
+from typing import Any, Callable, Iterator, Optional, Tuple
 
 import torch
+
+# captures in flight on any thread, and whether the collector was on before the first
+_collector_lock = threading.Lock()
+_collector_pauses = 0
+_collector_was_enabled = False
+
+
+@contextlib.contextmanager
+def collector_paused() -> Iterator[None]:
+    """Python's cyclic garbage collector off for the block, process-wide.
+
+    Nested and concurrent blocks (two engines capturing on two threads) share
+    one pause: the first to enter turns the collector off, the last to leave
+    turns it back on if it was on before the first, so one capture's end never
+    turns it on under another capture.
+    """
+    global _collector_pauses, _collector_was_enabled
+    with _collector_lock:
+        if _collector_pauses == 0:
+            _collector_was_enabled = gc.isenabled()
+            gc.disable()
+        _collector_pauses += 1
+    try:
+        yield
+    finally:
+        with _collector_lock:
+            _collector_pauses -= 1
+            if _collector_pauses == 0 and _collector_was_enabled:
+                gc.enable()
 
 
 def capture(fn: Callable[[], Any], stream: torch.cuda.Stream, pool: Optional[Any] = None) -> Tuple[torch.cuda.CUDAGraph, Any]:
@@ -19,15 +51,22 @@ def capture(fn: Callable[[], Any], stream: torch.cuda.Stream, pool: Optional[Any
     PyTorch then leaves its default CUDA generator marked as capturing (the end
     of the capture raised before the generator's epilogue ran), and every later
     random operation would fail; one empty capture runs that epilogue again.
+
+    Python's cyclic garbage collector is off while ``fn`` is captured
+    (:func:`collector_paused`; the capture's own start collects once): a
+    collection inside the capture could free an unreachable engine's graph on
+    this thread, and destroying a graph is not permitted while the thread
+    captures.
     """
     graph = torch.cuda.CUDAGraph(keep_graph=True)
-    try:
-        with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
-            out = fn()
-    except Exception:
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")  # "the CUDA graph is empty"
-            with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream, capture_error_mode="thread_local"):
-                pass
-        raise
+    with collector_paused():
+        try:
+            with torch.cuda.graph(graph, pool=pool, stream=stream, capture_error_mode="thread_local"):
+                out = fn()
+        except Exception:
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore")  # "the CUDA graph is empty"
+                with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=stream, capture_error_mode="thread_local"):
+                    pass
+            raise
     return graph, out

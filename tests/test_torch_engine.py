@@ -21,6 +21,7 @@ Every engine is closed in a ``finally``, and every wait has a timeout, so a hang
 fails one test instead of the suite's time limit.
 """
 
+import gc
 import threading
 import time
 from concurrent.futures import wait
@@ -420,6 +421,66 @@ def test_host_read_metric_fuses_on_the_cpu():
         ref.close()
 
 
+@pytest.mark.skipif(not torch.cuda.is_available(), reason="a capture that fails and demotes happens on the card only")
+def test_a_demoted_engine_serves_reads_on_the_card():
+    """On the card the host read fails the capture, the engine demotes to eager
+    states, and ``compute``/``compute_all`` read those states (no fused slab)."""
+    rng = np.random.default_rng(4)
+    stream = [(f"k{i % 2}", (rng.integers(-1, 3, 3).astype(np.int32),)) for i in range(8)]
+    engine = StreamingEngine(_PortBranchy(device="cuda"), buckets=(8,))
+    try:
+        run_stream(engine, stream)
+        assert engine.telemetry_snapshot()["fused_fallbacks"] == 1 and not engine.fused
+        metric, folds = _PortBranchy(device="cuda"), {}
+        for key, (x,) in stream:
+            folds[key] = metric.update_state(folds.get(key) or metric.init_state(), torch.from_numpy(x).cuda())
+        everything = engine.compute_all()
+        for key, fold in folds.items():
+            assert torch.equal(engine.compute(key), metric.compute_from(fold))
+            assert torch.equal(everything[key], metric.compute_from(fold))
+    finally:
+        engine.close()
+
+
+def test_the_collector_pause_is_shared_by_concurrent_captures():
+    """Two captures on two threads: the first to end leaves the collector off
+    while the other still captures; the last turns it back on, and only if it
+    was on before the first."""
+    from metrics_tpu_torch.utils.graphs import collector_paused
+
+    def overlapped(first_ends_first: bool) -> list:
+        seen, entered, release = [], threading.Event(), threading.Event()
+
+        def other():
+            with collector_paused():
+                entered.set()
+                release.wait(timeout=10)
+            seen.append(("other ended", gc.isenabled()))
+
+        thread = threading.Thread(target=other)
+        with collector_paused():
+            thread.start()
+            assert entered.wait(timeout=10)
+            if not first_ends_first:
+                release.set()
+                thread.join(timeout=10)
+        seen.append(("first ended", gc.isenabled()))
+        release.set()
+        thread.join(timeout=10)
+        return seen
+
+    was = gc.isenabled()
+    try:
+        gc.enable()
+        assert overlapped(True) == [("first ended", False), ("other ended", True)]
+        assert overlapped(False) == [("other ended", False), ("first ended", True)]
+        gc.disable()
+        assert overlapped(True) == [("first ended", False), ("other ended", False)]
+        assert not gc.isenabled()
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 def test_uncapturable_update_demotes_with_state_preserved(monkeypatch):
     """The ladder's second step: a kernel failure that the eager retry does not
     reproduce demotes the engine once, keeps every row committed before it, and
@@ -799,12 +860,6 @@ def test_evict_tenant_on_an_untiered_engine_matches_jax():
 # --------------------------------------------------------------------------- what waits, devices, hooks
 
 
-@pytest.mark.parametrize("plane,item", [("replication", "A.7")])
-def test_planes_not_ported_raise_naming_their_item(plane, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        StreamingEngine(FAMILIES["accuracy"][1](), **{plane: object()})
-
-
 def _plane(plane):
     from metrics_tpu_torch.engine import GuardConfig, TierConfig
 
@@ -863,15 +918,19 @@ def test_export_and_import_tenant_move_a_tenant():
 
 @pytest.mark.parametrize("plane", ["guard", "replication", "tier"])
 def test_checkpoint_is_accepted_and_the_other_planes_still_raise(plane, tmp_path):
-    """``checkpoint=`` (the durable state plane) is ported, and so are the guard
-    and tier planes: the engine takes checkpointing beside either, serves and
-    journals; beside ``replication=`` it still raises naming A.7."""
-    from metrics_tpu_torch.engine import CheckpointConfig
+    """``checkpoint=`` (the durable state plane) is ported, and so are the guard,
+    tier and replication planes: the engine takes checkpointing beside the guard
+    or the tier, serves and journals; a follower replica beside ``checkpoint=``
+    raises as the JAX package's does (it owns no lineage while following)."""
+    from metrics_tpu_torch.engine import CheckpointConfig, ReplConfig
+    from metrics_tpu_torch.repl import LoopbackLink
+    from metrics_tpu_torch.utils.exceptions import MetricsTPUUserError
 
     cfg = CheckpointConfig(directory=str(tmp_path), interval_s=3600.0, durable=False)
     if plane == "replication":
-        with pytest.raises(NotImplementedError, match="ROADMAP A.7"):
-            StreamingEngine(FAMILIES["accuracy"][1](), checkpoint=cfg, replication=object())
+        with pytest.raises(MetricsTPUUserError, match="promote_checkpoint"):
+            StreamingEngine(FAMILIES["accuracy"][1](), checkpoint=cfg,
+                            replication=ReplConfig(role="follower", transport=LoopbackLink()))
         planes = {}
     else:
         planes = {plane: _plane(plane)}

@@ -120,6 +120,18 @@ def test_guard_and_tier_plane_modules_are_scanned(relpath):
     assert relpath in SOURCES
 
 
+REPL_OBS_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("repl/__init__", "repl/config", "repl/errors", "repl/transport", "repl/shipper", "repl/replica",
+                 "obs/__init__", "obs/context", "obs/trace", "obs/flight", "obs/fleet")
+]
+
+
+@pytest.mark.parametrize("relpath", REPL_OBS_MODULES)
+def test_replication_plane_and_obs_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
 def _series(reg):
     """One registry's worth of every kind of series: labelled and unlabelled
     counters (integral and fractional), a gauge, histograms with explicit and
