@@ -264,6 +264,41 @@ checkout, and then:
   follower's ``engine.replay`` span and the primary's node snapshot in the
   fleet aggregator.
 
+- Phase Q drives the comm plane (``metrics_tpu_torch/comm/``,
+  ``parallel/sync.py``). Q1: the flagship metrics' ``update_state`` ->
+  ``sync_state(s, group)`` -> ``compute_from`` at the step's shape over NCCL
+  at world 1 on ``cuda:0`` (one eager all-reduce first, so the communicator
+  exists), 20 eager steps counted (2 stat-score + 1 table launches a step)
+  and the same step captured in one CUDA graph and replayed 20 times:
+  states, synced states and values ``torch.equal`` to the eager fold, the
+  profiler's launches 2 + 1 a replay, NCCL's operations in an eager step's
+  profile. Q2: ``entry.make_dp_step`` at bench.py's full width in two
+  processes on ``cuda:0`` over gloo (this script started with ``--q-rank q2
+  RANK PORT DIR``), each on its own seeded batch for 20 steps, the loss and
+  gradients averaged and the metrics synced over a ``DeviceMesh``'s ``dp``
+  every step: the synced counts and values equal one process's fold of both
+  ranks' predictions, step ms with and without the metrics' sync, sync ms
+  and bytes a step, 2 + 1 launches a rank-step; then each metric's
+  ``Metric.sync()`` on the same states (the default ``dist_sync_fn``,
+  ``gather_all_tensors``: staged through numpy, gathered over gloo), timed
+  and equal to the in-step sync. Q3: two serving processes
+  (``--q-rank q3``) each serve half of 8000 K2-style requests (the flagship
+  collection at C = 1000, 8 tenants, buckets (64, 256), capacity 8) and call
+  ``compute_all(sync=True)`` and ``compute(key, sync=True)``: every value
+  equal to a one-process engine's over all the requests, every report
+  ``degraded_step == "none"``, raw and wire bytes and sync ms; then
+  ``benchmarks/comm_bench.py``'s gates at its configuration with the states
+  on the card (int8 wire reduction at least 4x within absmax/254; the
+  lossless overhead a record). Q4: ``LoopbackWorld(3)`` threads holding
+  flagship collection states on ``cuda:0``: a dead rank (its
+  ``DeadPeerTransport`` serves it stale local state) leaves the survivors a
+  ``live_subset`` sync equal to their union and ``live_set_shrink`` bundles;
+  a stalled transport under a deadline walks retry -> lossless_only ->
+  local_state; an engine with ``GuardConfig()`` pins its syncs once its comm
+  breaker opens. Depth cut for the time limit: M1, N1, O1 and P1 take 4 pairs
+  (the JAX benchmarks' 6), N2 3 guarded and 1 unguarded pair (5 and 2), P3
+  segments of 192 and 512 requests (384 and 1024).
+
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
 last is ``{"ok": true, "device": {...}}``. Any failure raises, and the script
@@ -2677,7 +2712,7 @@ def phase_l(torch, np) -> dict:
 
 # --------------------------------------------------------------------------- Phase M: the durable state plane
 
-M_PAIRS = 6  # plain/checkpointing pairs of benchmarks/engine_throughput.py's overhead gate (:442-476)
+M_PAIRS = 4  # plain/checkpointing pairs of benchmarks/engine_throughput.py's overhead gate (:442-476; 6 there)
 M_INTERVAL_S = 0.25  # that gate's CheckpointConfig(interval_s=0.25, retain=3)
 M_RETAIN = 3
 M_GATE_PCT = 5.0  # its ckpt_overhead_lt_5pct: a record here (the engine's rate moves between calls)
@@ -3017,10 +3052,10 @@ def phase_m(torch, np, obs, instrument) -> dict:
 
 # --------------------------------------------------------------------------- Phase N: the guard plane
 
-N_PAIRS = 6  # benchmarks/engine_throughput.py --guard's overhead pairs (:1284-1297)
+N_PAIRS = 4  # benchmarks/engine_throughput.py --guard's overhead pairs (:1284-1297; 6 there)
 N_GATE_PCT = 5.0  # its guard_overhead_lt_5pct: a record here, as M1's
 N2_BURST, N2_HEAVY_ROWS, N2_LIGHT_TENANTS, N2_LIGHT_REQUESTS = 400, 64, 9, 100  # (:1309-1362)
-N2_GUARDED_PAIRS, N2_UNGUARDED_PAIRS = 5, 2
+N2_GUARDED_PAIRS, N2_UNGUARDED_PAIRS = 3, 1  # 5 and 2 there
 N2_QUEUE, N2_CAPACITY, N2_QUANTUM = 16384, 16, 128
 N2_GATES = {"guarded_le_x_solo": 2.0, "unguarded_gt_x_solo": 10.0}
 N3_REQUESTS = 48  # flagship requests a fault window
@@ -3632,14 +3667,14 @@ def phase_o(torch, np) -> dict:
 
 # --------------------------------------------------------------------------- Phase P: the replication plane
 
-P_PAIRS = 6  # benchmarks/engine_throughput.py --replica's shipping pairs (:532-585)
+P_PAIRS = 4  # benchmarks/engine_throughput.py --replica's shipping pairs (:532-585; 6 there)
 P_GATE_PCT = 5.0  # its shipping_overhead_lt_5pct: a record here, as M1's
 P_SHIP_INTERVAL_S = 0.02  # that gate's ReplConfig(ship_interval_s=0.02)
 P2_READ_S = 2.0  # the read windows of its scale-out gate (:595-666)
 P2_HEARTBEAT_S = 0.1
 P2_WRITERS, P2_WRITER_ROWS, P2_WRITER_PACE_S = 4, 64, 0.001
 P2_GATE_RATIO, P2_FLOOR_PER_S = 5.0, 500.0  # follower_ge_5x_primary_reads, follower_reads_ge_floor
-P3_SEGMENTS = {"flagship": 384, "quantile": 1024}  # requests a segment: live, after the restart, profiled
+P3_SEGMENTS = {"flagship": 192, "quantile": 512}  # requests a segment: live, after the restart, profiled
 P3_AFTER_PROMOTION = 128  # requests the promoted engine serves
 P3_PROFILE_ATTEMPTS = 5
 P3_ZOMBIE = 32  # requests the deposed primary journals and ships after the promotion
@@ -4290,9 +4325,726 @@ def phase_p(torch, np) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------- Phase Q: the comm plane
+
+Q_STEPS = 20  # Q1's graph replays and eager steps, Q2's training steps
+Q2_NO_SYNC_STEPS = 3  # Q2 steps timed without the metrics' sync
+Q_SYNC_REPS = 3  # Q2's timed sync_state calls, and its timed Metric.sync() calls
+Q3_REQUESTS = 8000  # K2's request generator, split between the two serving processes
+Q_BENCH_ELEMENTS = 262144  # benchmarks/comm_bench.py's base cat-state size (fp32 elements)
+Q_BENCH_SKEWS = (1.0, 0.5, 0.55, 0.6)  # its rank skews, world 4
+Q_BENCH_REPEATS, Q_BENCH_SYNCS = 5, 30  # its overhead gate's rounds and syncs a round
+Q_GATES = {"wire_reduction_ge_x": 4.0, "lossless_overhead_lt_pct": 5.0}  # its two gates
+Q4_WORLD = 3
+Q4_BATCHES = 4  # updates of each rank's flagship collection state
+Q4_CAT = 4096  # float32 scores of the cat state the stall ladder quantizes
+Q_CHILD_TIMEOUT_S = 300
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def _q_labels(torch, gen, n: int, classes: int):
+    return (torch.randint(0, classes, (n,), device="cuda", generator=gen),
+            torch.randint(0, classes, (n,), device="cuda", generator=gen))
+
+
+def _q_equal_trees(torch, got, want, what: str, skip_count: bool = False) -> int:
+    """Every leaf ``torch.equal`` with its dtype (on the CPU); the number compared."""
+    a, b = _k_leaves(got), _k_leaves(want)
+    _check(set(a) == set(b), f"{what}: leaves {sorted(a)} vs {sorted(b)}")
+    n = 0
+    for path, x in a.items():
+        if skip_count and path.endswith("_update_count"):
+            continue
+        y = b[path]
+        x = torch.as_tensor(x).cpu()
+        y = torch.as_tensor(y).cpu()
+        _check(x.dtype == y.dtype and torch.equal(x, y), f"{what}: {path} differs")
+        n += 1
+    return n
+
+
+def _q_to_cpu(torch, tree):
+    if isinstance(tree, dict):
+        return {k: _q_to_cpu(torch, v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_q_to_cpu(torch, v) for v in tree]
+    return tree.detach().cpu() if isinstance(tree, torch.Tensor) else tree
+
+
+def phase_q1(torch, entry_mod, confmat, card: str) -> dict:
+    """The device path at world 1 over NCCL on cuda:0: the flagship metrics'
+    update_state -> sync_state(s, group) -> compute_from at bench.py's shape,
+    eager and captured in one CUDA graph, replayed Q_STEPS times."""
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from metrics_tpu_torch.utils.checks import traced
+    from metrics_tpu_torch.utils.graphs import capture
+
+    cfg = entry_mod.FULL_CONFIG
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}", world_size=1, rank=0,
+                            device_id=torch.device("cuda", 0))
+    try:
+        group = dist.group.WORLD
+        metrics = entry_mod.make_metrics(cfg["classes"], "cuda")
+        gen = torch.Generator(device="cuda").manual_seed(11)
+        batches = [_q_labels(torch, gen, cfg["batch"], cfg["classes"]) for _ in range(Q_STEPS)]
+
+        def step(states, preds, target):
+            new, synced, values = {}, {}, {}
+            for name, m in metrics.items():
+                new[name] = m.update_state(states[name], preds, target)
+                synced[name] = m.sync_state(new[name], group)
+                values[name] = m.compute_from(synced[name])
+            return new, synced, values
+
+        # one eager collective first: the communicator exists before anything is timed or captured
+        t0 = time.perf_counter()
+        dist.all_reduce(torch.zeros(1, device="cuda"), group=group)
+        torch.cuda.synchronize()
+        communicator_s = time.perf_counter() - t0
+        # eager, counted
+        states = {n: m.init_state() for n, m in metrics.items()}
+        confmat.launches = confmat.stat_score_launches = 0  # the eager path's run starts here
+        t0 = time.perf_counter()
+        for preds, target in batches:
+            states, synced, values = step(states, preds, target)
+        torch.cuda.synchronize()
+        eager_ms = (time.perf_counter() - t0) * 1e3 / Q_STEPS
+        eager_launches = {"stat_scores": confmat.stat_score_launches, "pair_count": confmat.launches}  # ... ends here
+        _check(eager_launches == {"stat_scores": 2 * Q_STEPS, "pair_count": Q_STEPS},
+               f"Q1 eager: launches {eager_launches}")
+        _q_equal_trees(torch, synced, states, "Q1 eager: the world-of-one sync")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as eager_prof:
+            step(states, *batches[0])
+            torch.cuda.synchronize()
+        eager_nccl = {}  # NCCL's operations in one eager step (its kernels too, where it launches any)
+        for ev in eager_prof.events():
+            if "nccl" in ev.name.lower():
+                eager_nccl[ev.name[:60]] = eager_nccl.get(ev.name[:60], 0) + 1
+
+        # the same step captured once: static states and labels, chained by copies between replays
+        static_states = {n: m.init_state() for n, m in metrics.items()}
+        static_p, static_t = (b.clone() for b in batches[0])
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream), traced():
+            step(static_states, static_p, static_t)  # warm-up off the capture
+        torch.cuda.current_stream().wait_stream(stream)
+        before = {"stat_scores": confmat.stat_score_launches, "pair_count": confmat.launches}
+        with traced():
+            t0 = time.perf_counter()
+            graph, (g_new, g_synced, g_values) = capture(lambda: step(static_states, static_p, static_t), stream)
+            capture_ms = (time.perf_counter() - t0) * 1e3
+        captured = {"stat_scores": confmat.stat_score_launches - before["stat_scores"],
+                    "pair_count": confmat.launches - before["pair_count"]}  # a wrapper counts once, at capture
+        _check(captured == {"stat_scores": 2, "pair_count": 1}, f"Q1: the graph captured {captured}")
+
+        def replay_all():
+            for n in static_states:
+                for k, v in metrics[n].init_state().items():
+                    static_states[n][k].copy_(v)
+            for preds, target in batches:
+                static_p.copy_(preds)
+                static_t.copy_(target)
+                graph.replay()
+                for n in static_states:
+                    for k in static_states[n]:
+                        static_states[n][k].copy_(g_new[n][k])
+
+        replay_all()
+        torch.cuda.synchronize()
+        compared = _q_equal_trees(torch, g_new, states, "Q1 graph: states against the eager fold")
+        compared += _q_equal_trees(torch, g_synced, synced, "Q1 graph: synced states")
+        compared += _q_equal_trees(torch, g_values, values, "Q1 graph: compute_from values")
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        replay_all()
+        end.record()
+        torch.cuda.synchronize()
+        replay_ms = start.elapsed_time(end) / Q_STEPS
+        want = {k: captured[k] * Q_STEPS for k in ROUTES}
+        attempts = []
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                replay_all()
+                torch.cuda.synchronize()
+            times = _kernel_times(prof, torch)
+            seen = {k: sum(len(v) for n, v in times.items() if K_PROFILE_NAMES[k][0] in n) for k in ROUTES}
+            attempts.append(seen)
+            if seen == want or not times:
+                break
+        # The profiler can lose a kernel record now and then (as in P3). A replay launches all its
+        # nodes or none, so a deficit under one replay's launches of a kernel still shows every
+        # replay launched it.
+        for k in ROUTES:
+            _check(seen == want or not times or 0 <= want[k] - seen[k] < captured[k],
+                   f"Q1: profiled launches against captured x replays, each attempt: {attempts}")
+        # NCCL's own kernels in the replays (a world of one may need none for an in-place all-reduce)
+        nccl = {n[:60]: len(v) for n, v in times.items() if "nccl" in n.lower()}
+        _check(bool(eager_nccl), "Q1: no NCCL operation in the eager steps' profile")
+    finally:
+        dist.destroy_process_group()
+    return {"card": card, "steps": Q_STEPS, "communicator_s": communicator_s, "eager_step_ms": eager_ms,
+            "replay_step_ms": replay_ms,
+            "capture_ms": capture_ms, "graph_nodes": _graph_nodes(graph), "leaves_equal": compared,
+            "launches_eager": eager_launches, "launches_captured": captured, "launches_in_replays": want,
+            "launches_profiled": seen, "profile_attempts": len(attempts), "nccl_in_replays": nccl,
+            "nccl_in_eager_profile": eager_nccl,
+            "all_reduces_per_step": sum(len(m._reductions) for m in metrics.values()),
+            "accuracy": float(values["accuracy"])}
+
+
+def _q_child(mode: str, rank: int, port: int, out_dir: str) -> int:
+    """A rank of Phase Q2 or Q3 (this script started with ``--q-rank``)."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+    try:
+        out = _q2_rank(torch, rank) if mode == "q2" else _q3_rank(torch, rank)
+        torch.save(out, os.path.join(out_dir, f"{mode}_rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+    print("DONE", flush=True)
+    return 0
+
+
+def _q_spawn(mode: str, out_dir: str) -> list:
+    """Both ranks of ``mode`` as processes of their own on cuda:0; their results."""
+    port = _free_port()
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--q-rank", mode, str(r), str(port), out_dir],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True) for r in range(2)]
+    outs = []
+    try:
+        for r, proc in enumerate(procs):
+            out, err = proc.communicate(timeout=Q_CHILD_TIMEOUT_S)
+            outs.append((proc.returncode, out, err))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(60)
+    for r, (rc, out, err) in enumerate(outs):
+        _check(rc == 0 and "DONE" in out, f"{mode} rank {r}: rc {rc}, stdout {out[-400:]!r}, stderr {err[-1500:]!r}")
+    import torch
+
+    return [torch.load(os.path.join(out_dir, f"{mode}_rank{r}.pt")) for r in range(2)]
+
+
+def _q2_rank(torch, rank: int) -> dict:
+    """One data-parallel rank: bench.py's step at full width on this rank's
+    seeded batch, the metrics synced over dp every step."""
+    import numpy as np
+    from torch.distributed.device_mesh import init_device_mesh
+
+    import metrics_tpu_torch.entry as entry_mod
+    from metrics_tpu_torch.kernels import confmat
+    from metrics_tpu_torch.obs.instrument import tree_nbytes
+    from metrics_tpu_torch.parallel.sync import reduce_in_trace, use_mesh
+
+    cfg = entry_mod.FULL_CONFIG
+    mesh = init_device_mesh("cuda", (2,), mesh_dim_names=("dp",))
+    params, _, _ = entry_mod.make_inputs(0, 1, cfg["hidden"], cfg["classes"], cfg["layers"], "cuda")
+    rng = np.random.default_rng(100 + rank)  # this rank's own batch
+    x = torch.from_numpy(rng.standard_normal((cfg["batch"], cfg["hidden"])).astype(np.float32)).to("cuda")
+    y = torch.from_numpy(rng.integers(0, cfg["classes"], cfg["batch"])).to("cuda")
+    metrics = entry_mod.make_metrics(cfg["classes"], "cuda")
+    step = entry_mod.make_dp_step(metrics)
+    seen = []
+    update_state = metrics["accuracy"].update_state
+
+    def recording_update_state(state, preds, target):
+        seen.append(preds.clone())
+        return update_state(state, preds, target)
+
+    with use_mesh(mesh):
+        init = {n: m.init_state() for n, m in metrics.items()}
+        step(params, init, x, y)  # warm-up: gloo's buffers, the kernels loaded
+        metrics["accuracy"].update_state = recording_update_state
+        states = {n: m.init_state() for n, m in metrics.items()}
+        confmat.launches = confmat.stat_score_launches = 0  # the main path's run starts here
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = []
+        for _ in range(Q_STEPS):
+            loss, params, states, values = step(params, states, x, y)
+            losses.append(loss)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3 / Q_STEPS
+        launches = {"stat_scores": confmat.stat_score_launches, "pair_count": confmat.launches}  # ... ends here
+        # what the metrics' all-reduces move per participant a step: every registered state once
+        sync_bytes = sum(tree_nbytes({k: states[n][k] for k in m._reductions}) for n, m in metrics.items())
+        del metrics["accuracy"].update_state
+
+        # the same step with each metric's compute_from on its local state (no metric sync)
+        local = dict(states)
+        p2 = params
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Q2_NO_SYNC_STEPS):
+            p2, _, logits = entry_mod.dp_sgd_step(p2, x, y, "dp")
+            preds = torch.argmax(logits, dim=-1)
+            for n, m in metrics.items():
+                local[n] = m.update_state(local[n], preds, y)
+                m.compute_from(local[n])
+        torch.cuda.synchronize()
+        no_sync_step_ms = (time.perf_counter() - t0) * 1e3 / Q2_NO_SYNC_STEPS
+
+        synced = {n: m.sync_state(states[n], "dp") for n, m in metrics.items()}
+        # the gathers on the card over gloo: the labels as a cat state, a row of the batch through int8
+        gathers = {"cat": reduce_in_trace(y, "cat", "dp"), "int8": reduce_in_trace(x[0], None, "dp", codec="int8")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Q_SYNC_REPS):
+            for n, m in metrics.items():
+                m.sync_state(states[n], "dp")
+        torch.cuda.synchronize()
+        sync_ms = (time.perf_counter() - t0) * 1e3 / Q_SYNC_REPS
+
+    # the host path on the same states: each metric's Metric.sync() with the default dist_sync_fn
+    # (gather_all_tensors: every state staged through numpy and all-gathered over gloo), then unsync
+    stateful = entry_mod.make_metrics(cfg["classes"], "cuda")
+    for n, m in stateful.items():
+        for k in m._reductions:
+            setattr(m, k, states[n][k])
+    for m in stateful.values():  # warm-up
+        m.sync()
+        m.unsync()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(Q_SYNC_REPS):
+        for m in stateful.values():
+            m.sync()
+            m.unsync()
+    torch.cuda.synchronize()
+    host_sync_ms = (time.perf_counter() - t0) * 1e3 / Q_SYNC_REPS
+    for m in stateful.values():
+        m.sync()
+    host_synced = {n: {k: getattr(m, k) for k in m._reductions} for n, m in stateful.items()}
+    return {"step_ms": step_ms, "no_sync_step_ms": no_sync_step_ms, "metric_sync_ms_per_step": sync_ms,
+            "host_sync_ms": host_sync_ms, "host_synced": _q_to_cpu(torch, host_synced),
+            "sync_bytes_per_step": sync_bytes, "launches": launches, "losses": torch.stack(losses).cpu(),
+            "preds": torch.stack(seen).cpu(), "target": y.cpu(), "synced": _q_to_cpu(torch, synced),
+            "values": _q_to_cpu(torch, values), "head_sum": float(params["head"].double().sum()),
+            "gathers": _q_to_cpu(torch, gathers), "row": x[0].cpu(),
+            "device": torch.cuda.get_device_name(0)}
+
+
+def phase_q2(torch, entry_mod, out_dir: str, card: str) -> dict:
+    """Data-parallel training at full width, two processes on cuda:0 over gloo."""
+    t0 = time.perf_counter()
+    ranks = _q_spawn("q2", out_dir)
+    wall = time.perf_counter() - t0
+    cfg = entry_mod.FULL_CONFIG
+    for r, got in enumerate(ranks):
+        _check(got["launches"] == {"stat_scores": 2 * Q_STEPS, "pair_count": Q_STEPS},
+               f"Q2 rank {r}: launches {got['launches']} in {Q_STEPS} steps")
+        _check(bool(torch.isfinite(got["losses"]).all()), f"Q2 rank {r}: non-finite loss")
+    _check(ranks[0]["head_sum"] == ranks[1]["head_sum"], "Q2: the ranks' weights differ after the averaged updates")
+    _check(torch.equal(ranks[0]["losses"], ranks[1]["losses"]), "Q2: the ranks' averaged losses differ")
+    # one process over both ranks' batches: the same predictions, folded on the card
+    metrics = entry_mod.make_metrics(cfg["classes"], "cuda")
+    fold = {n: m.init_state() for n, m in metrics.items()}
+    for got in ranks:
+        target = got["target"].to("cuda")
+        for preds in got["preds"]:
+            preds = preds.to("cuda")
+            fold = {n: m.update_state(fold[n], preds, target) for n, m in metrics.items()}
+    compared = 0
+    for r, got in enumerate(ranks):
+        compared += _q_equal_trees(torch, got["synced"], fold, f"Q2 rank {r}: synced counts", skip_count=True)
+        want = {n: m.compute_from(fold[n]) for n, m in metrics.items()}
+        compared += _q_equal_trees(torch, got["values"], want, f"Q2 rank {r}: values")
+        in_step = {n: {k: got["synced"][n][k] for k in leaves} for n, leaves in got["host_synced"].items()}
+        compared += _q_equal_trees(torch, got["host_synced"], in_step, f"Q2 rank {r}: Metric.sync() against sync_state")
+    # the all-gathers of CUDA tensors over gloo: the labels concatenated, the rows through int8
+    from metrics_tpu_torch.comm.codec import Int8BlockCodec
+
+    codec = Int8BlockCodec()
+    want_int8 = torch.stack([torch.from_numpy(codec.decode(codec.encode(g["row"].numpy()))) for g in ranks])
+    for r, got in enumerate(ranks):
+        _check(torch.equal(got["gathers"]["cat"], torch.cat([g["target"] for g in ranks])), f"Q2 rank {r}: cat gather")
+        _check(torch.equal(got["gathers"]["int8"], want_int8), f"Q2 rank {r}: int8 gather against the host codec")
+    mean = lambda key: sum(g[key] for g in ranks) / len(ranks)  # noqa: E731
+    return {"card": card, "ranks": 2, "steps": Q_STEPS, "config": cfg, "wall_s": wall,
+            "step_ms": mean("step_ms"), "no_sync_step_ms": mean("no_sync_step_ms"),
+            "metric_sync_ms_per_step": mean("metric_sync_ms_per_step"),
+            # the metrics' sync timed alone, as a share of the step (the two step loops differ by
+            # more than the sync between runs: the gradients' gloo all-reduce dominates both)
+            "sync_share_pct": mean("metric_sync_ms_per_step") / mean("step_ms") * 100.0,
+            "sync_bytes_per_step": mean("sync_bytes_per_step"),
+            # Metric.sync() of the three metrics, the host path (gather_all_tensors over gloo)
+            "host_sync_ms": mean("host_sync_ms"), "host_sync_share_pct": mean("host_sync_ms") / mean("step_ms") * 100.0,
+            "launches_per_rank_step": {k: ranks[0]["launches"][k] / Q_STEPS for k in ROUTES},
+            "leaves_equal": compared, "loss_first_last": [float(ranks[0]["losses"][0]), float(ranks[0]["losses"][-1])],
+            "by_rank": [{k: g[k] for k in ("step_ms", "no_sync_step_ms", "metric_sync_ms_per_step",
+                                             "host_sync_ms", "sync_bytes_per_step")} for g in ranks]}
+
+
+def _q3_reqs(np):
+    """K2's request generator (its seed, 1-16 int64 label pairs, 8 tenants) for Q3_REQUESTS requests."""
+    rng = np.random.default_rng(5)
+
+    def labels(rows):
+        return rng.integers(0, K2_CLASSES, rows).astype(np.int64), rng.integers(0, K2_CLASSES, rows).astype(np.int64)
+
+    return [(f"tenant-{int(rng.integers(0, K_TENANTS))}", labels(int(rng.integers(K2_ROWS[0], K2_ROWS[1] + 1))))
+            for _ in range(Q3_REQUESTS)]
+
+
+def _q3_engine(torch, np, reqs):
+    from metrics_tpu_torch.engine import StreamingEngine
+
+    rng = np.random.default_rng(6)
+    engine = StreamingEngine(_k2_metric(), buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS)
+    _k_warm(engine, lambda rows: (rng.integers(0, K2_CLASSES, rows), rng.integers(0, K2_CLASSES, rows)),
+            K_BUCKETS, [f"tenant-{t}" for t in range(K_TENANTS)])
+    _k_submit(engine, reqs, K_THREADS)
+    return engine
+
+
+def _q3_rank(torch, rank: int) -> dict:
+    """One serving rank: a K2 engine over its half of the requests, then the
+    cross-process reads through the comm plane's host path."""
+    import numpy as np
+
+    from metrics_tpu_torch import comm, obs
+    from metrics_tpu_torch.obs import instrument
+
+    engine = _q3_engine(torch, np, _q3_reqs(np)[rank::2])
+    try:
+        torch.cuda.synchronize()
+        obs.enable()  # the comm counters: raw and wire bytes of every member's sync
+        t0 = time.perf_counter()
+        synced_all = engine.compute_all(sync=True)
+        sync_all_s = time.perf_counter() - t0
+        obs.disable()
+        all_bytes = {k: int(c.value(site="engine.compute")) for k, c in (("raw", instrument.COMM_RAW_BYTES),
+                                                                           ("wire", instrument.COMM_WIRE_BYTES))}
+        report = comm.last_report()
+        t0 = time.perf_counter()
+        one = engine.compute("tenant-3", sync=True)
+        sync_one_s = time.perf_counter() - t0
+        one_report = comm.last_report()
+        local = engine.compute_all()
+    finally:
+        engine.close()
+    return {"all": _q_to_cpu(torch, synced_all), "one": _q_to_cpu(torch, one), "local": _q_to_cpu(torch, local),
+            "sync_all_s": sync_all_s, "sync_one_s": sync_one_s, "compute_all_bytes": all_bytes,
+            "reports": [{k: getattr(rep, k) for k in ("site", "world", "raw_bytes", "wire_bytes", "retries",
+                                                      "timeouts", "degraded_step", "stale")}
+                        for rep in (report, one_report)]}
+
+
+class _QMeter:
+    """Counts the bytes one rank sends (benchmarks/comm_bench.py's meter)."""
+
+    def __init__(self, inner) -> None:
+        self._inner = inner
+        self.sent = 0
+        self.rank = getattr(inner, "rank", None)
+        self.supports_broadcast = inner.supports_broadcast
+
+    def world_size(self) -> int:
+        return self._inner.world_size()
+
+    def allgather(self, x):
+        self.sent += int(x.nbytes)
+        return self._inner.allgather(x)
+
+    def broadcast_from(self, x, root, shape, dtype):
+        if x is not None:
+            self.sent += int(x.nbytes)
+        return self._inner.broadcast_from(x, root, shape, dtype)
+
+
+def _q_legacy_gather(np, transport, x):
+    """The pre-comm gather protocol (comm_bench.py's ``_legacy_gather``):
+    shapes, then pad-to-max + trim, fp32 on the wire, no exact broadcast."""
+    world = transport.world_size()
+    all_shapes = [tuple(int(d) for d in s) for s in transport.allgather(np.asarray(x.shape, np.int64))]
+    if all(s == all_shapes[0] for s in all_shapes):
+        return transport.allgather(x)
+    max_shape = tuple(max(s[d] for s in all_shapes) for d in range(len(all_shapes[0])))
+    gathered = transport.allgather(np.pad(x, [(0, m - s) for m, s in zip(max_shape, x.shape)]))
+    return [np.asarray(gathered[i])[tuple(slice(0, d) for d in all_shapes[i])] for i in range(world)]
+
+
+def _q_legacy_sync(torch, state, reductions, gather):
+    """The pre-comm ``sync_state_host`` body (comm_bench.py's baseline) in torch:
+    every leaf gathered and reduced where it lives."""
+    ops = {"sum": lambda g: g.sum(0, dtype=g.dtype), "mean": lambda g: g.mean(0), "max": lambda g: g.amax(0),
+           "min": lambda g: g.amin(0)}
+    synced = dict(state)
+    for name, reduction in reductions.items():
+        val = state[name]
+        if isinstance(val, list):
+            synced[name] = [torch.cat(gather(torch.cat(val)))]
+            continue
+        gathered = torch.stack(gather(val))
+        synced[name] = ops[reduction](gathered) if reduction in ops else torch.cat(list(gathered))
+    synced["_update_count"] = torch.stack(gather(state["_update_count"])).sum(0, dtype=torch.int32)
+    return synced
+
+
+def _q_bench_gates(torch, np) -> dict:
+    """benchmarks/comm_bench.py's two gates at its configuration, the states on the card."""
+    from metrics_tpu_torch import comm
+
+    rng = np.random.default_rng(0)
+    shards = [rng.standard_normal(int(Q_BENCH_ELEMENTS * s)).astype(np.float32) for s in Q_BENCH_SKEWS]
+    states = [{"preds": torch.from_numpy(sh).to("cuda"), "_update_count": torch.ones((), dtype=torch.int32,
+                                                                                      device="cuda")} for sh in shards]
+    world = len(shards)
+    legacy_meters, comm_meters = [], []
+
+    def legacy_rank(t):
+        m = _QMeter(t)
+        legacy_meters.append(m)
+        _q_legacy_gather(np, m, states[t.rank]["preds"].cpu().numpy())
+        return _q_legacy_gather(np, m, states[t.rank]["_update_count"].cpu().numpy())
+
+    comm.LoopbackWorld(world).run([legacy_rank] * world)
+    cfg = comm.CommConfig(policy=comm.CodecPolicy(lossy="int8"))
+
+    def comm_rank(t):
+        m = _QMeter(t)
+        comm_meters.append(m)
+        return comm.sync_pytree(states[t.rank], {"preds": "cat"}, transport=m, config=cfg, site="comm_bench")
+
+    outs = comm.LoopbackWorld(world).run([comm_rank] * world)
+    union = np.concatenate(shards)
+    got = outs[0]["preds"]
+    _check(got.is_cuda and tuple(got.shape) == union.shape and int(outs[0]["_update_count"]) == world,
+           f"Q3 gates: the int8 union {got.device} {tuple(got.shape)}")
+    err = float(np.max(np.abs(got.cpu().numpy() - union)))
+    bound = float(max(np.abs(sh).max() for sh in shards)) / 254.0 + 1e-7
+    _check(err <= bound, f"Q3 gates: int8 error {err} above absmax/254 = {bound}")
+    ratio = sum(m.sent for m in legacy_meters) / sum(m.sent for m in comm_meters)
+    _check(ratio >= Q_GATES["wire_reduction_ge_x"], f"Q3 gates: wire reduction {ratio}x under 4x")
+
+    # the lossless planned path against the pre-comm sync, a zero-cost world of 2
+    srng = np.random.default_rng(1)
+    state = {f"leaf{i}": torch.from_numpy(srng.standard_normal(1024 * (1 + i % 4)).astype(np.float32)).to("cuda")
+             for i in range(10)}
+    state["counts"] = torch.from_numpy(srng.integers(0, 100, 64).astype(np.int32)).to("cuda")
+    state["preds"] = torch.from_numpy(srng.standard_normal(16384).astype(np.float32)).to("cuda")
+    state["_update_count"] = torch.full((), 3, dtype=torch.int32, device="cuda")
+    reds = {f"leaf{i}": "sum" for i in range(10)} | {"counts": "sum", "preds": "cat"}
+
+    class _NoCopyReplica(comm.Transport):
+        def world_size(self):
+            return 2
+
+        def allgather(self, x):
+            return [x, x]
+
+    tr, lossless = _NoCopyReplica(), comm.CommConfig()
+    legacy_gather = lambda x: [x, x]  # noqa: E731 — comm_bench.py's cheapest possible fake world
+    a, b = _q_legacy_sync(torch, state, reds, legacy_gather), comm.sync_pytree(state, reds, transport=tr, config=lossless)
+    for k in a:
+        _check(torch.equal(torch.as_tensor(a[k]).cpu(), torch.as_tensor(b[k]).cpu()), f"Q3 gates: {k} differs")
+    best_legacy = best_comm = float("inf")
+    for _ in range(Q_BENCH_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(Q_BENCH_SYNCS):
+            _q_legacy_sync(torch, state, reds, legacy_gather)
+        torch.cuda.synchronize()
+        best_legacy = min(best_legacy, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        for _ in range(Q_BENCH_SYNCS):
+            comm.sync_pytree(state, reds, transport=tr, config=lossless)
+        torch.cuda.synchronize()
+        best_comm = min(best_comm, time.perf_counter() - t0)
+    overhead = (best_comm - best_legacy) / best_legacy * 100.0
+    return {"wire_reduction_x": ratio, "legacy_wire_bytes": sum(m.sent for m in legacy_meters),
+            "comm_wire_bytes": sum(m.sent for m in comm_meters), "int8_max_abs_err": err, "int8_bound": bound,
+            "lossless_overhead_pct": overhead, "legacy_ms_per_sync": best_legacy * 1e3 / Q_BENCH_SYNCS,
+            "comm_ms_per_sync": best_comm * 1e3 / Q_BENCH_SYNCS, "jax_gates": Q_GATES,
+            "overhead_within_gate": overhead < Q_GATES["lossless_overhead_lt_pct"]}
+
+
+def phase_q3(torch, np, out_dir: str, card: str) -> dict:
+    """The engine's host sync, two serving processes on cuda:0, then comm_bench.py's gates."""
+    t0 = time.perf_counter()
+    ranks = _q_spawn("q3", out_dir)
+    wall = time.perf_counter() - t0
+    engine = _q3_engine(torch, np, _q3_reqs(np))  # one process over all the requests
+    try:
+        want = {k: _q_to_cpu(torch, v) for k, v in engine.compute_all().items()}
+    finally:
+        engine.close()
+    _check(len(want) == K_TENANTS, f"Q3: {len(want)} tenants in the one-process engine")
+    compared = 0
+    for r, got in enumerate(ranks):
+        _check(list(got["all"]) == list(want), f"Q3 rank {r}: tenants {list(got['all'])}")
+        for key in want:
+            compared += _q_equal_trees(torch, got["all"][key], want[key], f"Q3 rank {r} {key}")
+        compared += _q_equal_trees(torch, got["one"], want["tenant-3"], f"Q3 rank {r} compute(sync=True)")
+        _check(not all(torch.equal(got["local"]["tenant-3"][n], want["tenant-3"][n]) for n in want["tenant-3"]),
+               f"Q3 rank {r}: the local read already equals the union")
+        for rep in got["reports"]:
+            _check(rep["site"] == "engine.compute" and rep["degraded_step"] == "none" and not rep["stale"]
+                   and rep["world"] == 2, f"Q3 rank {r}: report {rep}")
+    rep = ranks[0]["reports"][0]  # the last member's sync of the last tenant
+    gates = _q_bench_gates(torch, np)
+    return {"card": card, "ranks": 2, "requests": Q3_REQUESTS, "tenants": K_TENANTS, "wall_s": wall,
+            "leaves_equal": compared, "compute_all_sync_ms": [g["sync_all_s"] * 1e3 for g in ranks],
+            "compute_sync_ms": [g["sync_one_s"] * 1e3 for g in ranks],
+            "compute_all_raw_wire_bytes": [g["compute_all_bytes"] for g in ranks],
+            "state_bytes_per_tenant": sum(int(v.numel()) * v.element_size() for v in _k_leaves(
+                _k2_metric().init_state()).values()),
+            "last_report": rep, "comm_bench": gates}
+
+
+def phase_q4(torch, np, confmat, obs, card: str) -> dict:
+    """The ladder on the card: LoopbackWorld(3) threads holding flagship
+    collection states on cuda:0 (updated by pair_count), a dead rank, a
+    stalled transport, and an engine's comm breaker."""
+    import threading
+    from dataclasses import replace
+
+    from metrics_tpu_torch import comm
+    from metrics_tpu_torch.engine import GuardConfig
+    from metrics_tpu_torch.obs import instrument
+    from metrics_tpu_torch.obs.flight import FLIGHT
+
+    col = _k2_metric()
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    confmat.launches = confmat.stat_score_launches = 0
+    states = []
+    for _ in range(Q4_WORLD):
+        s = {n: m.init_state() for n, m in col._modules.items()}
+        for _ in range(Q4_BATCHES):
+            preds, target = _q_labels(torch, gen, 4096, K2_CLASSES)
+            s = {n: m.update_state(s[n], preds, target) for n, m in col._modules.items()}
+        states.append(s)
+    launches = {"stat_scores": confmat.stat_score_launches, "pair_count": confmat.launches}
+    _check(launches == {"stat_scores": 2 * Q4_WORLD * Q4_BATCHES, "pair_count": Q4_WORLD * Q4_BATCHES},
+           f"Q4: launches {launches}")
+
+    # one rank dead: the survivors agree on {0, 1} and sync over it
+    obs.enable()
+    bundles_before = len(FLIGHT.bundles())
+    lw = comm.LoopbackWorld(Q4_WORLD, timeout=2.0)
+    cfg = comm.CommConfig(timeout_s=10.0, max_retries=0, backoff_base_s=0.01)
+    reports = {r: [] for r in range(Q4_WORLD)}
+    results = {}
+
+    def rank_fn(r):
+        tr = lw.transport(r) if r < 2 else comm.DeadPeerTransport(Q4_WORLD)
+        c = replace(cfg, on_report=reports[r].append)
+        results[r] = {n: comm.sync_pytree(states[r][n], col._modules[n]._reductions, transport=tr, config=c,
+                                          site="q4.dead_peer") for n in states[r]}
+
+    threads = [threading.Thread(target=rank_fn, args=(r,)) for r in range(Q4_WORLD)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+        _check(not th.is_alive(), "Q4: a rank did not finish its sync")
+    dead_s = time.perf_counter() - t0
+    for r in (0, 1):
+        _check(len(results.get(r, {})) == 3, f"Q4: rank {r} did not sync")
+        for rep in reports[r]:
+            _check(rep.degraded_step == "live_subset" and rep.peers_lost == (2,) and rep.world_live == 2
+                   and not rep.stale, f"Q4 rank {r}: {rep}")
+        for n in states[r]:
+            union = {k: states[0][n][k] + states[1][n][k] for k in states[0][n]}
+            _q_equal_trees(torch, results[r][n], union, f"Q4 rank {r} {n}: live_subset against the survivors' union")
+            _check(all(v.is_cuda for v in results[r][n].values()), f"Q4 rank {r} {n}: a synced leaf left the card")
+    _check(all(rep.degraded_step == "local_state" and rep.stale for rep in reports[2]), "Q4: the dead rank's reports")
+    shrink = [b for b in FLIGHT.bundles()[bundles_before:] if b["trigger"] == "live_set_shrink"]
+    _check(len(shrink) >= 2 and all(b["trigger_attrs"]["lost"] == [2] for b in shrink),
+           f"Q4: live_set_shrink bundles {[b['trigger'] for b in FLIGHT.bundles()[bundles_before:]]}")
+
+    # a stalled transport under a deadline: retries, then lossless_only, then local state, stale
+    ladder_state = dict(states[0]["confmat"])
+    ladder_state["scores"] = [torch.randn(Q4_CAT, device="cuda", generator=gen)]
+    ladder_reds = {"confmat": "sum", "scores": "cat"}
+    ladder = []
+    stall = comm.StallTransport(comm.ReplicaFakeTransport(2), stall_s=0.3, stalls=100)
+    ladder_cfg = comm.CommConfig(policy=comm.CodecPolicy(lossy="int8"), timeout_s=0.05, max_retries=1,
+                                 backoff_base_s=0.001, on_report=ladder.append)
+    out = comm.sync_pytree(ladder_state, ladder_reds, transport=stall, config=ladder_cfg, site="q4.stall")
+    rep = ladder[-1]
+    steps = {step: int(instrument.COMM_DEGRADATIONS.value(site="q4.stall", step=step))
+             for step in ("lossless_only", "local_state")}
+    _check(rep.degraded_step == "local_state" and rep.stale and rep.retries == 2 and rep.timeouts == 4
+           and steps == {"lossless_only": 1, "local_state": 1}, f"Q4 stall: {rep} {steps}")
+    _check(out["confmat"] is ladder_state["confmat"], "Q4 stall: local state not served")
+
+    # an engine whose syncs keep going stale: its comm breaker opens and pins sync
+    engine = _q4_engine(torch, np, GuardConfig())
+    try:
+        with comm.use_config(transport=comm.DeadPeerTransport(2), max_retries=0):
+            for _ in range(5):
+                engine.compute("tenant-0", sync=True)
+        snap, health = engine.telemetry_snapshot(), engine.health()
+    finally:
+        engine.close()
+    obs.disable()
+    _check(snap["sync_pinned"] > 0 and health["breakers"]["comm"]["state"] == "open" and health["state"] == "DEGRADED",
+           f"Q4 breaker: pinned {snap['sync_pinned']}, health {health['state']} {health['breakers']['comm']}")
+    return {"card": card, "world": Q4_WORLD, "launches": launches, "dead_peer_s": dead_s,
+            "dead_peer_reports": [{k: getattr(x, k) for k in ("degraded_step", "peers_lost", "world_live",
+                                                              "raw_bytes", "wire_bytes")} for x in reports[0]],
+            "live_set_shrink_bundles": len(shrink),
+            "stall": {"degraded_step": rep.degraded_step, "stale": rep.stale, "retries": rep.retries,
+                      "timeouts": rep.timeouts, "rungs": steps},
+            "breaker": {"sync_pinned": snap["sync_pinned"], "comm": health["breakers"]["comm"],
+                        "health": health["state"]}}
+
+
+def _q4_engine(torch, np, guard):
+    from metrics_tpu_torch.engine import StreamingEngine
+
+    rng = np.random.default_rng(8)
+    engine = StreamingEngine(_k2_metric(), buckets=(64,), capacity=K_TENANTS, guard=guard)
+    for _ in range(4):
+        engine.submit("tenant-0", rng.integers(0, K2_CLASSES, 16), rng.integers(0, K2_CLASSES, 16))
+    engine.flush(timeout=300)
+    return engine
+
+
+def phase_q(torch, np, entry_mod, confmat, obs, card: str) -> dict:
+    """The comm plane on the card (Q1 to Q4)."""
+    import tempfile
+
+    from metrics_tpu_torch import comm
+
+    t0 = time.perf_counter()
+    out = {"Q1": phase_q1(torch, entry_mod, confmat, card)}
+    print(f"phase Q1 {json.dumps(out['Q1'])}")
+    with tempfile.TemporaryDirectory() as d:
+        out["Q2"] = phase_q2(torch, entry_mod, d, card)
+        print(f"phase Q2 {json.dumps(out['Q2'])}")
+        out["Q3"] = phase_q3(torch, np, d, card)
+        print(f"phase Q3 {json.dumps(out['Q3'])}")
+    _check(comm.last_report().degraded_step == "none", f"Q: a degraded sync before Q4: {comm.last_report()}")
+    out["Q4"] = phase_q4(torch, np, confmat, obs, card)
+    print(f"phase Q4 {json.dumps(out['Q4'])}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase Q: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--replica-reader":
         return _p2_reader(sys.argv[2], float(sys.argv[3]))  # Phase P2's follower process
+    if len(sys.argv) == 6 and sys.argv[1] == "--q-rank":
+        return _q_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])  # a rank of Phase Q2 or Q3
     import torch
 
     if not torch.cuda.is_available():
@@ -4362,6 +5114,7 @@ def main() -> int:
     guard = phase_n(torch, np)
     tier = phase_o(torch, np)
     replication = phase_p(torch, np)
+    comm_plane = phase_q(torch, np, entry_mod, confmat, obs, card)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -4398,6 +5151,13 @@ def main() -> int:
                 # a follower's replays of the flagship collection's shipped chunk records (Phase P3)
                 "phase_p3_follower_replays": replication["P3"]["flagship"]["launches_in_replays"][route],
                 "phase_p3_follower_replays_profiled": replication["P3"]["flagship"]["launches_profiled"][route],
+                # the comm plane (Phase Q): the world-of-one step eager and in its graph's replays, a
+                # data-parallel rank's step, the ladder's rank states
+                "phase_q1_eager": comm_plane["Q1"]["launches_eager"][route],
+                "phase_q1_replays": comm_plane["Q1"]["launches_in_replays"][route],
+                "phase_q1_replays_profiled": comm_plane["Q1"]["launches_profiled"][route],
+                "phase_q2_per_rank_step": comm_plane["Q2"]["launches_per_rank_step"][route],
+                "phase_q4_rank_updates": comm_plane["Q4"]["launches"][route],
             },
         })
     shape_fields = ("shape", *fields)
@@ -4452,7 +5212,7 @@ def main() -> int:
     })
     print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six,
                       "engine": engine, "binary_multilabel_mse": classification_l, "durable": durable,
-                      "guard": guard, "tier": tier, "replication": replication, "card": card}))
+                      "guard": guard, "tier": tier, "replication": replication, "comm": comm_plane, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

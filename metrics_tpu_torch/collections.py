@@ -579,9 +579,15 @@ class MetricCollection:
         graph launch. Donation as in :meth:`Metric.jitted_update_state`."""
         return _cached_graphed_updater(self, donate)
 
+    def sync_state(self, state: Dict[str, Any], axis_name: Any) -> Dict[str, Any]:
+        """Pure: every member's (or group leader's) state synced over
+        ``axis_name`` by its own :meth:`Metric.sync_state`, keyed as ``state`` is."""
+        return {name: self._modules[name].sync_state(sub, axis_name) for name, sub in state.items()}
+
     def compute_from(self, state: Dict[str, Any], axis_name: Optional[Any] = None) -> Dict[str, Any]:
         """Pure compute for all metrics from the (group-deduped) state dict;
-        a non-None ``axis_name`` raises, as in :meth:`Metric.compute_from`."""
+        ``axis_name`` syncs each member's state first, as
+        :meth:`Metric.compute_from` does."""
         leader_of = {}
         for cg in self._groups.values():
             for name in cg:

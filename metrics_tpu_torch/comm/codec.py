@@ -1,5 +1,5 @@
 """Codec layer: how a state leaf is represented on the wire
-(port of ``metrics_tpu/comm/codec.py``, its host half).
+(port of ``metrics_tpu/comm/codec.py``).
 
 A codec turns one array leaf into one or more *payload* arrays (the bytes a
 snapshot or a collective actually moves) plus enough static metadata to invert
@@ -20,11 +20,14 @@ reduction-aware: integer/bool leaves and ``_update_count`` are always lossless
 reducible fp32 states (``sum``/``mean``/...) stay lossless unless explicitly
 opted in — only large float ``cat``/gather states quantize by default.
 
-Everything here is numpy on the host, as the snapshot format is: float32
-division and round-half-even (``np.rint``), so the int8 codes and scales are
-the JAX package's bit for bit on the same input. The JAX package's in-trace
-twins of the int8 codec (quantized collectives) come with the comm plane
-(ROADMAP A.8).
+Host-path ``encode``/``decode`` are numpy on the host, as the snapshot format
+and the transports are: float32 division and round-half-even (``np.rint``), so
+the int8 codes and scales are the JAX package's bit for bit on the same input.
+:meth:`Int8BlockCodec.encode_in_trace` / ``decode_in_trace`` are their torch
+twins on a tensor of any device, for quantized collectives
+(:func:`metrics_tpu_torch.comm.plane.reduce_in_trace` with a codec): the same
+float32 division, ``torch.round`` (half to even, as ``jnp.round``) and the
+clamp to ±127.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 __all__ = [
     "Codec",
@@ -166,6 +170,37 @@ class Int8BlockCodec(Codec):
         n = int(np.prod(shape, dtype=np.int64))
         padded = self._padded_len(n)
         return [((padded,), np.dtype(np.int8)), ((padded // self.block,), np.dtype(np.float32))]
+
+    # ------------------------------------------------------------ in-trace twins
+
+    def encode_in_trace(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Torch version of :meth:`encode` on ``x``'s own device.
+
+        Returns ``(codes, scales)`` with codes flat-per-block (int8, block-padded)
+        and one float32 scale a block — the caller gathers both and calls
+        :meth:`decode_in_trace`. Shapes depend only on ``x.shape``, so the call
+        can be captured in a CUDA graph.
+        """
+        flat = x.reshape(-1).to(torch.float32)
+        n = flat.numel()
+        padded = self._padded_len(n)
+        if padded != n:
+            flat = torch.cat([flat, flat.new_zeros(padded - n)])
+        blocks = flat.reshape(-1, self.block)
+        absmax = blocks.abs().amax(dim=1)
+        scales = torch.where(absmax > 0, absmax / 127.0, 1.0)
+        codes = torch.clamp(torch.round(blocks / scales[:, None]), -127, 127).to(torch.int8)
+        return codes.reshape(-1), scales
+
+    def decode_in_trace(self, codes: torch.Tensor, scales: torch.Tensor, n: int, target_dtype: torch.dtype) -> torch.Tensor:
+        """Invert :meth:`encode_in_trace` back to a flat length-``n`` trailing axis.
+
+        Batch-aware: leading axes (the world axis of an all-gather) pass through
+        — ``(..., padded)`` codes and ``(..., blocks)`` scales decode to ``(..., n)``.
+        """
+        lead = codes.shape[:-1]
+        blocks = codes.to(torch.float32).reshape(*lead, -1, self.block) * scales[..., None]
+        return blocks.reshape(*lead, -1)[..., :n].to(target_dtype)
 
 
 _CODECS: Dict[str, Codec] = {}

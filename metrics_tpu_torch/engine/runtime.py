@@ -93,10 +93,15 @@ trace context, ``R`` and ``C`` records carry it in the JAX package's 17-byte
 trailer, and every replayed record runs inside an ``engine.replay`` span naming
 the submitting trace ids; the engine registers a flight-recorder context.
 
-Not ported yet: ``compute(sync=True)`` (ROADMAP A.8) and ``rollup`` (A.9); each
-raises ``NotImplementedError`` naming its item. Reads compute eagerly from a copy
-of the tenant's state (the JAX package's jitted read path is not captured yet,
-so ``read_jit_fallbacks`` stays 0).
+``compute(key, sync=True)`` and ``compute_all(sync=True)`` all-reduce each
+tenant's state across processes through the comm plane
+(:func:`metrics_tpu_torch.parallel.sync.sync_state_host`, site
+``"engine.compute"``; a collection syncs per member), one sync at a time per
+engine and outside the dispatch lock, behind the guard's comm breaker as in the
+JAX package. Not ported yet: ``rollup`` (ROADMAP A.9), which raises
+``NotImplementedError`` naming its item. Reads compute eagerly from a copy of
+the tenant's state (the JAX package's jitted read path is not captured yet, so
+``read_jit_fallbacks`` stays 0).
 """
 
 from __future__ import annotations
@@ -147,6 +152,7 @@ from metrics_tpu_torch.obs import context as _obs_ctx
 from metrics_tpu_torch.obs import instrument as _obs
 from metrics_tpu_torch.obs.context import TraceContext as _TraceContext
 from metrics_tpu_torch.obs.flight import FLIGHT as _FLIGHT
+from metrics_tpu_torch.parallel.sync import sync_state_host
 from metrics_tpu_torch.repl.config import ReplConfig, ReplicaLag
 from metrics_tpu_torch.repl.errors import NotPrimaryError, NotPromotableError, StalenessExceeded
 from metrics_tpu_torch.repl.replica import ReplicaApplier
@@ -649,6 +655,11 @@ class StreamingEngine:
         # its instance, so computing on the dispatch metric would race dispatch
         self._read_metric = self._metric.clone()
         self._read_lock = threading.Lock()
+        # serializes sync=True collective syncs: two readers syncing different
+        # tenants concurrently would issue cross-process collectives in
+        # whatever order their threads race to — ranks disagreeing on that
+        # order deadlocks (or cross-wires) the job
+        self._sync_state_lock = threading.Lock()
         self._buckets = normalize_buckets(buckets)
         self._max_rows = self._buckets[-1]
         self._max_queue = int(max_queue)
@@ -1198,42 +1209,118 @@ class StreamingEngine:
         current.synchronize()  # outside the lock: a read never holds a replay back while it waits
         return states
 
-    def _check_read(self, op: str, window: bool, sync: bool) -> None:
+    def _check_read(self, op: str, window: bool) -> None:
         if window and self._window is None:
             # a silent fall-through would return unbounded lifetime accumulation
             # mislabeled as a sliding-window value
             raise MetricsTPUUserError(f"{op}(window=True) requires the engine to be built with `window=`")
-        if sync:
-            raise NotImplementedError(
-                f"{op}(sync=True) all-reduces the state across processes through the comm plane, "
-                "which is not ported yet (ROADMAP A.8)"
-            )
 
     def compute(self, key: Hashable, *, window: bool = False, sync: bool = False) -> Any:
         """Final metric value for tenant ``key`` (flushes first).
 
         ``window=True`` computes over the sliding window (requires ``window=`` at
-        construction). ``sync=True`` (the cross-process all-reduce) waits for the
-        comm plane (ROADMAP A.8) and raises.
+        construction); ``sync=True`` all-reduces the state across processes first
+        (multi-process serving), via :func:`metrics_tpu_torch.parallel.sync.sync_state_host`,
+        after the read's copy and outside the dispatch lock.
         """
-        self._check_read("compute", window, sync)
+        self._check_read("compute", window)
         self._check_quarantined("compute")
         self._check_staleness()
         self.flush()
         state = self._read_states([key], window)[key]
+        if sync:
+            state = self._sync_state(state)
         with self._read_lock:
             return self._read_metric.compute_from(state)
 
     def compute_all(self, *, window: bool = False, sync: bool = False) -> Dict[Hashable, Any]:
         """``compute`` for every known tenant key — one flush, one consistent snapshot
-        (every state is copied under one dispatch-lock acquisition)."""
-        self._check_read("compute_all", window, sync)
+        (every state is copied under one dispatch-lock acquisition); with
+        ``sync=True`` each tenant's state is synced in the engine's key order,
+        which must be the same on every rank (every rank issues its collectives
+        in that order)."""
+        self._check_read("compute_all", window)
         self._check_quarantined("compute_all")
         self._check_staleness()
         self.flush()
         states = self._read_states(None, window)
-        with self._read_lock:
-            return {key: self._read_metric.compute_from(state) for key, state in states.items()}
+        out: Dict[Hashable, Any] = {}
+        for key, state in states.items():
+            if sync:
+                state = self._sync_state(state)
+            with self._read_lock:
+                out[key] = self._read_metric.compute_from(state)
+        return out
+
+    def _sync_state(self, state: Any) -> Any:
+        # one collective sync at a time per process (_sync_state_lock): every
+        # rank must issue collectives in the same order, and the breaker's
+        # last_report() judging below must not see another call's report. It
+        # runs outside the dispatch lock: a rank that waits for a peer must
+        # not hold back its own dispatcher
+        with self._sync_state_lock:
+            return self._sync_state_inner(state)
+
+    def _sync_state_inner(self, state: Any) -> Any:
+        # multi-process serving rides the comm plane (codecs, coalesced
+        # transfers, retry/degradation ladder) with its own site label so engine
+        # syncs are attributable separately from bare sync_state_host callers
+        guard = self._guard
+        breaker = guard.comm_breaker if guard is not None else None
+        if breaker is not None and not breaker.permit():
+            # repeated degraded/stale syncs: pin sync=False for the probation —
+            # local state NOW beats a retry ladder walk that ends stale anyway
+            self.telemetry.count("sync_pinned")
+            return state
+        from metrics_tpu_torch.comm import plane as _comm_plane
+
+        # only reports THIS call produced may judge the breaker: the
+        # single-process identity path publishes nothing, and a stale report
+        # from an earlier sync must not re-trip a healthy probe. For a
+        # collection, EVERY member's sync is judged — one member walking the
+        # ladder to stale local state makes the whole result partially stale.
+        prev = _comm_plane.last_report() if breaker is not None else None
+        degraded = False
+        conclusive = False
+
+        def _judge() -> None:
+            nonlocal prev, degraded, conclusive
+            report = _comm_plane.last_report()
+            if report is not None and report is not prev and report.site == "engine.compute":
+                conclusive = True
+                # live_subset is a SUCCESSFUL sync over the agreed surviving
+                # ranks — exact for cumulative state, not stale. Tripping the
+                # breaker on it would pin sync=False and turn one dead peer
+                # into N disjoint local aggregates, which is strictly worse.
+                if report.stale or report.degraded_step not in ("none", "live_subset"):
+                    degraded = True
+            prev = report
+
+        try:
+            if isinstance(self._metric, MetricCollection):
+                synced = {}
+                for name, sub in state.items():
+                    synced[name] = sync_state_host(
+                        sub, self._metric._modules[name]._reductions, site="engine.compute"
+                    )
+                    if breaker is not None:
+                        _judge()
+            else:
+                synced = sync_state_host(state, self._metric._reductions, site="engine.compute")
+                if breaker is not None:
+                    _judge()
+        except Exception:
+            if breaker is not None:
+                breaker.record_failure()
+            raise
+        if breaker is not None:
+            if degraded:
+                breaker.record_failure()
+            elif conclusive:
+                breaker.record_success()
+            else:
+                breaker.abandon_probe()
+        return synced
 
     def rollup(self, *, window: bool = False) -> Any:
         """The global-query fold of every tenant; waits for the query plane."""

@@ -27,9 +27,14 @@ there ``jax.jit`` compiles the pure updater; here the updater is captured as a
 CUDA graph per operand shape and dtype (on the CPU it is ``update_state``).
 
 ``save``/``restore`` write and read an MTCKPT1 snapshot of every state
-(:mod:`metrics_tpu_torch.ckpt`), which the JAX package reads too. Not ported
-yet: in-trace ``sync_state`` and ``compute_from`` with an ``axis_name`` (they
-wait for the comm plane).
+(:mod:`metrics_tpu_torch.ckpt`), which the JAX package reads too.
+
+``sync_state(state, axis_name)`` and ``compute_from(state, axis_name=...)``
+sync a state with one ``torch.distributed`` collective per state on the
+state's own device (:func:`metrics_tpu_torch.comm.plane.reduce_in_trace`):
+``axis_name`` is a process group or names dimensions of the ``DeviceMesh``
+in use (:func:`metrics_tpu_torch.parallel.sync.use_mesh`). The host-level
+``sync()`` gathers through the comm plane (``gather_metric_leaves``).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch
 from torch import Tensor
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
+from metrics_tpu_torch.comm import plane as _comm_plane
 from metrics_tpu_torch.obs import instrument as _obs
 from metrics_tpu_torch.obs.registry import OBS as _OBS
 from metrics_tpu_torch.utils.checks import traced
@@ -179,7 +185,9 @@ class Metric(ABC):
 
     Kwargs: ``device`` (default: the GPU), ``compute_on_cpu``,
     ``dist_sync_on_step``, ``process_group``, ``dist_sync_fn``,
-    ``distributed_available_fn``, ``sync_on_compute``.
+    ``distributed_available_fn``, ``sync_on_compute``, and ``axis_name``:
+    the default process group or mesh dimension(s) of ``compute_from``'s
+    sync, as the JAX package's default mesh axis.
     """
 
     is_differentiable: Optional[bool] = None
@@ -215,6 +223,8 @@ class Metric(ABC):
         self.sync_on_compute = kwargs.pop("sync_on_compute", True)
         if not isinstance(self.sync_on_compute, bool):
             raise ValueError(f"Expected keyword argument `sync_on_compute` to be a `bool` but got {self.sync_on_compute}")
+
+        self.axis_name = kwargs.pop("axis_name", None)
 
         if kwargs:
             kwargs_ = [f"`{a}`" for a in sorted(kwargs)]
@@ -457,7 +467,15 @@ class Metric(ABC):
             if isinstance(input_dict[attr], list) and len(input_dict[attr]) >= 1:
                 input_dict[attr] = [dim_zero_cat(input_dict[attr])]
 
-        output_dict = apply_to_collection(input_dict, Tensor, dist_sync_fn, group=process_group or self.process_group)
+        if _OBS.enabled:
+            # the byte volume the all-gather moves per participant
+            _obs.record_sync_bytes("Metric._sync_dist", type(self).__name__, _obs.tree_nbytes(input_dict))
+        # the gather step rides the comm plane (spans + raw/wire accounting);
+        # dist_sync_fn keeps the reference leaf protocol, and the default
+        # gather_all_tensors runs on the configured comm transport underneath
+        output_dict = _comm_plane.gather_metric_leaves(
+            input_dict, dist_sync_fn, group=process_group or self.process_group
+        )
 
         for attr, reduction_fn in self._reductions.items():
             if isinstance(output_dict[attr], list) and len(output_dict[attr]) == 0:
@@ -574,22 +592,23 @@ class Metric(ABC):
         return new_state
 
     def compute_from(self, state: Dict[str, Any], axis_name: Optional[Any] = None) -> Any:
-        """Pure: the final value from a state dict.
-
-        ``axis_name`` (the JAX package's in-trace sync over mesh axes) is not
-        ported yet: it waits for the comm plane (ROADMAP A.8), and a non-None
-        value raises.
-        """
+        """Pure: the final value from a state dict; ``axis_name`` (default: the
+        metric's own) first syncs it with :meth:`sync_state`."""
+        axis_name = axis_name if axis_name is not None else self.axis_name
         if axis_name is not None:
-            raise NotImplementedError(
-                "compute_from(state, axis_name=...) syncs through the comm plane, which is not ported yet "
-                "(ROADMAP A.8); sync host-side with sync()/compute() instead"
-            )
+            state = self.sync_state(state, axis_name)
         snapshot = self._swap_in(state)
         try:
             return _squeeze_if_scalar(self._raw_compute()())
         finally:
             self._swap_out(snapshot)
+
+    def sync_state(self, state: Dict[str, Any], axis_name: Any) -> Dict[str, Any]:
+        """Pure: ``state`` reduced across the ranks of ``axis_name``, one
+        collective per registered state on the state's own device (``sum``
+        states all-reduce, ``cat`` states all-gather); ``_update_count`` stays
+        this rank's, as in the JAX package. ``state`` itself is left as it was."""
+        return _comm_plane.sync_pytree_in_trace(state, self._reductions, axis_name)
 
     def jitted_update_state(self, donate: bool = True) -> Callable:
         """The pure updater captured as a CUDA graph per operand shape and dtype

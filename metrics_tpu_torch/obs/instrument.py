@@ -1,19 +1,21 @@
-"""Instrumentation hooks of the metric core, the kernel plane, the engine and
-its durable, guard, tier and replication planes (port of the metric, kernel,
-engine, ckpt, guard, tier and repl sections of ``metrics_tpu/obs/instrument.py``).
+"""Instrumentation hooks of the metric core, the kernel plane, the comm plane,
+the engine and its durable, guard, tier and replication planes (port of the
+metric, kernel, sync, comm, engine, ckpt, guard, tier and repl sections of
+``metrics_tpu/obs/instrument.py``).
 
 Every hook returns at once, or hands back a shared no-op, while ``OBS.enabled``
 is false. Unlike the JAX package, whose callers are jitted and so count
 compiled lowerings, PyTorch runs eagerly: the kernel hooks count calls. The
 spans land in the process tracer (:data:`~metrics_tpu_torch.obs.trace.TRACER`),
 and the guard's quarantines, watchdog restarts, breaker openings and an
-engine's quarantine dump flight-recorder bundles
+engine's quarantine and a live set that shrank dump flight-recorder bundles
 (:data:`~metrics_tpu_torch.obs.flight.FLIGHT`), as in the JAX package.
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 import time
 from typing import Any, Optional
 
@@ -33,6 +35,24 @@ KERNEL_DISPATCHES = REGISTRY.counter(
 KERNEL_LAUNCHES = REGISTRY.counter(
     "metrics_tpu_torch_kernel_launches_total",
     "CUDA kernel launches per kernel, counted by the wrapper where it launches.",
+)
+
+_BYTE_BUCKETS = (64.0, 1024.0, 16384.0, 262144.0, 4194304.0, 67108864.0)
+
+SYNC_BYTES = REGISTRY.counter(
+    "metrics_tpu_torch_sync_bytes_total",
+    "Cumulative state-tree payload bytes moved through HOST-level distributed sync (counted per call).",
+)
+SYNC_TRACED_BYTES = REGISTRY.counter(
+    "metrics_tpu_torch_sync_traced_bytes_total",
+    "Payload accounting for in-trace collectives (reduce_in_trace): bytes each call of the "
+    "collective moves per participant, counted per call — eager PyTorch has no compile to "
+    "count once; a captured CUDA graph counts once, at capture.",
+)
+SYNC_PAYLOAD = REGISTRY.histogram(
+    "metrics_tpu_torch_sync_payload_bytes",
+    "State-tree byte size per host-level sync/all-gather.",
+    buckets=_BYTE_BUCKETS,
 )
 
 
@@ -108,6 +128,158 @@ def record_kernel_launch(name: str) -> None:
     if not OBS.enabled:
         return
     KERNEL_LAUNCHES.inc(1, kernel=name)
+
+
+# ---------------------------------------------------------------------- sync payload
+
+
+def tree_nbytes(tree: Any) -> int:
+    """Total byte size of every array-like leaf in a state pytree (tensors,
+    numpy arrays; dicts, lists and tuples walked)."""
+    total = 0
+    stack = [tree]
+    while stack:
+        x = stack.pop()
+        if isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple)):
+            stack.extend(x)
+        else:
+            shape = getattr(x, "shape", None)
+            dtype = getattr(x, "dtype", None)
+            if shape is not None and dtype is not None:
+                total += int(math.prod(shape)) * int(getattr(dtype, "itemsize", 0))
+    return total
+
+
+def record_sync_bytes(site: str, metric: str, nbytes: int) -> None:
+    """Account one HOST-level sync's state-tree payload (per-call counter + distribution)."""
+    if not OBS.enabled:
+        return
+    SYNC_BYTES.inc(nbytes, site=site, metric=metric)
+    SYNC_PAYLOAD.observe(nbytes, site=site)
+
+
+def record_traced_sync_bytes(site: str, metric: str, nbytes: int) -> None:
+    """Account one in-trace collective's payload, in its own counter: kept apart
+    from :func:`record_sync_bytes` so the device collectives and the host
+    syncs stay separate series."""
+    if not OBS.enabled:
+        return
+    SYNC_TRACED_BYTES.inc(nbytes, site=site, metric=metric)
+
+
+# ---------------------------------------------------------------------- comm plane
+
+COMM_RAW_BYTES = REGISTRY.counter(
+    "metrics_tpu_torch_comm_raw_bytes_total",
+    "Cumulative pre-codec state bytes handed to the comm plane per sync site.",
+)
+COMM_WIRE_BYTES = REGISTRY.counter(
+    "metrics_tpu_torch_comm_wire_bytes_total",
+    "Cumulative post-codec bytes this process actually put on the wire per sync site.",
+)
+COMM_RATIO = REGISTRY.gauge(
+    "metrics_tpu_torch_comm_compression_ratio",
+    "raw/wire byte ratio of the most recent comm sync per site (1.0 = lossless passthrough).",
+)
+COMM_RETRIES = REGISTRY.counter(
+    "metrics_tpu_torch_comm_retries_total",
+    "Comm-plane sync attempts re-issued after a transient transport failure, per site.",
+)
+COMM_TIMEOUTS = REGISTRY.counter(
+    "metrics_tpu_torch_comm_timeouts_total",
+    "Comm-plane collectives that blew the configured deadline, per site.",
+)
+COMM_DEGRADATIONS = REGISTRY.counter(
+    "metrics_tpu_torch_comm_degradations_total",
+    "Degradation-ladder rungs taken (step=lossless_only|live_subset|local_state), per site.",
+)
+COMM_STALE = REGISTRY.gauge(
+    "metrics_tpu_torch_comm_stale_state",
+    "1 while the most recent sync at this site served LOCAL state (ladder bottom), else 0.",
+)
+COMM_PEER_LIVE = REGISTRY.gauge(
+    "metrics_tpu_torch_comm_peer_live",
+    "1 while this process's WorldView believes the labeled peer rank is live, else 0.",
+)
+COMM_PARTIAL_SYNCS = REGISTRY.counter(
+    "metrics_tpu_torch_comm_partial_syncs_total",
+    "Syncs completed over an agreed live subset of the world (the live_subset rung), per site.",
+)
+
+
+def record_comm_payload(site: str, raw_bytes: int, wire_bytes: int) -> None:
+    """Account one comm sync's pre-codec vs on-the-wire bytes (+ ratio gauge)."""
+    if not OBS.enabled:
+        return
+    COMM_RAW_BYTES.inc(raw_bytes, site=site)
+    COMM_WIRE_BYTES.inc(wire_bytes, site=site)
+    COMM_RATIO.set(raw_bytes / wire_bytes if wire_bytes else 1.0, site=site)
+
+
+def record_comm_retry(site: str) -> None:
+    if not OBS.enabled:
+        return
+    COMM_RETRIES.inc(1, site=site)
+
+
+def record_comm_timeout(site: str) -> None:
+    if not OBS.enabled:
+        return
+    COMM_TIMEOUTS.inc(1, site=site)
+
+
+def record_comm_degradation(site: str, step: str) -> None:
+    if not OBS.enabled:
+        return
+    COMM_DEGRADATIONS.inc(1, site=site, step=step)
+
+
+def set_comm_stale(site: str, stale: bool) -> None:
+    if not OBS.enabled:
+        return
+    COMM_STALE.set(1.0 if stale else 0.0, site=site)
+
+
+def record_comm_peer_live(peer: int, live: bool) -> None:
+    if not OBS.enabled:
+        return
+    COMM_PEER_LIVE.set(1.0 if live else 0.0, peer=str(peer))
+
+
+def record_comm_partial_sync(site: str) -> None:
+    if not OBS.enabled:
+        return
+    COMM_PARTIAL_SYNCS.inc(1, site=site)
+
+
+def record_comm_live_set(site: str, previous: Any, agreed: Any) -> None:
+    """One committed ``agree_live_set`` outcome: the membership edge lands in
+    the flight ring, and an agreed set that LOST ranks relative to the
+    previous commit (a real partition/death, not a rejoin) dumps a bundle."""
+    if not OBS.enabled:
+        return
+    prev = set(previous) if previous is not None else None
+    now_set = set(agreed)
+    FLIGHT.record(
+        "comm_live_set",
+        site=site,
+        previous=sorted(prev) if prev is not None else None,
+        agreed=sorted(now_set),
+    )
+    if prev is not None and (prev - now_set):
+        FLIGHT.dump(
+            "live_set_shrink", site=site, lost=sorted(prev - now_set),
+            agreed=sorted(now_set),
+        )
+
+
+def comm_span(name: str, **attrs: Any) -> Any:
+    """Trace span for comm-plane internals (sync, gather, encode/decode)."""
+    if not OBS.enabled:
+        return _NULL_SPAN
+    return TRACER.span(name, **attrs)
 
 
 # ---------------------------------------------------------------------- ckpt plane

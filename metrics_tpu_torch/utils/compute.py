@@ -24,7 +24,9 @@ def _safe_divide(num: Union[Tensor, float], denom: Union[Tensor, float], zero_di
     denom = _as_float(denom)
     zero = denom == 0
     res = num / torch.where(zero, torch.ones((), dtype=denom.dtype, device=denom.device), denom)
-    return torch.where(zero, torch.tensor(zero_division, dtype=res.dtype, device=res.device), res)
+    # a Python scalar, not a tensor made from one: no host-to-device copy, so
+    # a compute can be captured in a CUDA graph
+    return torch.where(zero, zero_division, res)
 
 
 def _adjust_weights_safe_divide(score: Tensor, average: Optional[str], tp: Tensor, fn: Tensor) -> Tensor:

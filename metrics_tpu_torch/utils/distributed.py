@@ -1,11 +1,13 @@
 """Cross-process gather (port of ``metrics_tpu/utils/distributed.py:60-93``).
 
-On one process ``gather_all_tensors`` is the identity wrap. Once
-``torch.distributed`` is initialised it all-gathers with the pad-to-max-then-trim
-protocol: shapes are gathered first; equal shapes take one plain all-gather,
-ragged shapes are zero-padded to the elementwise max, gathered, and each
-rank's slice is trimmed back to its own shape. The comm plane of the JAX
-package (``metrics_tpu/comm``) is not ported yet.
+``gather_all_tensors`` rides the comm plane's transport layer
+(:func:`metrics_tpu_torch.comm.transport.gather_ragged`): shapes are gathered
+first; equal shapes take one all-gather, ragged shapes are zero-padded to the
+elementwise max, gathered and trimmed back to each rank's shape — or, when the
+transport can broadcast and padding would ship more than 1.25x the payload,
+each rank broadcasts its exact buffer instead. Ranks that pass tensors of
+different ``ndim`` raise, as in the reference protocol. On one process it is
+the identity wrap.
 """
 
 from __future__ import annotations
@@ -25,31 +27,29 @@ def distributed_available() -> bool:
     )
 
 
-def gather_all_tensors(result: Tensor, group: Optional[Any] = None) -> List[Tensor]:
+def gather_all_tensors(result: Tensor, group: Optional[Any] = None, *, transport: Optional[Any] = None) -> List[Tensor]:
     """Gather ``result`` from every rank into a list ordered by rank.
 
     Every rank must pass a tensor of the same number of dimensions; the sizes
-    of those dimensions may differ.
+    of those dimensions may differ. The rows come back on ``result``'s device.
+    ``transport`` is injectable for tests and custom fabrics; the default is
+    the process-wide comm transport, or a :class:`~metrics_tpu_torch.comm.MultihostTransport`
+    over ``group`` (default: the whole world).
     """
-    if not distributed_available():
-        return [result]
-    dist = torch.distributed
-    world_size = dist.get_world_size(group)
-    result = result.contiguous()
+    from metrics_tpu_torch.comm import plane as _plane
+    from metrics_tpu_torch.comm.plan import device_tensor, host_array
+    from metrics_tpu_torch.comm.transport import MultihostTransport, gather_ragged
 
-    local_size = torch.tensor(result.shape, dtype=torch.int64, device=result.device)
-    sizes = [torch.zeros_like(local_size) for _ in range(world_size)]
-    dist.all_gather(sizes, local_size, group=group)
-    if all(torch.equal(s, local_size) for s in sizes):
-        out = [torch.zeros_like(result) for _ in range(world_size)]
-        dist.all_gather(out, result, group=group)
-        return out
+    if transport is None:
+        if not distributed_available():
+            return [result]
+        transport = _plane.get_config().transport
+        if transport is None:
+            transport = MultihostTransport(group) if group is not None else _plane.default_transport()
+    rows = gather_ragged(transport, host_array(result), rank=getattr(transport, "rank", None))
+    return [device_tensor(r, result.device) for r in rows]
 
-    max_size = torch.stack(sizes).amax(dim=0)
-    pad = []
-    for dim in reversed(range(result.ndim)):  # F.pad takes the last dim first
-        pad.extend([0, int(max_size[dim] - local_size[dim])])
-    padded = torch.nn.functional.pad(result, pad)
-    out = [torch.zeros_like(padded) for _ in range(world_size)]
-    dist.all_gather(out, padded, group=group)
-    return [t[tuple(slice(0, int(n)) for n in size)] for t, size in zip(out, sizes)]
+
+def default_dist_sync_fn(result: Tensor, group: Optional[Any] = None) -> List[Tensor]:
+    """The default ``dist_sync_fn`` used by :class:`metrics_tpu_torch.Metric`."""
+    return gather_all_tensors(result, group)

@@ -19,6 +19,7 @@ from metrics_tpu.collections import MetricCollection as JaxCollection
 import metrics_tpu_torch.aggregation as torch_agg
 import metrics_tpu_torch.classification as torch_cls
 from metrics_tpu_torch.collections import MetricCollection
+from tests.test_torch_metric import jax_in_one_device_mesh, world_of_one
 
 C = 7
 
@@ -299,8 +300,13 @@ def test_functional_api_matches_jax():
     jb = jcol.update_state(jcol.init_state(), *_to("jax", batches[0]))
     tb = tcol.update_state(tcol.init_state(), *_to("torch", batches[0]))
     _assert_values_equal(tcol.compute_from(tcol.merge_states(ts, tb)), jcol.compute_from(jcol.merge_states(js, jb)))
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tcol.compute_from(ts, axis_name="dp")
+    # compute_from(axis_name=...) syncs each member's state first: in a world of
+    # one, the JAX package's compute_from inside shard_map on one device
+    want = jax_in_one_device_mesh(lambda s: jcol.compute_from(s, axis_name="dp"), js)
+    with world_of_one() as group:
+        _assert_values_equal(tcol.compute_from(ts, axis_name=group), want)
+        synced = tcol.sync_state(ts, group)
+    assert sorted(synced) == ["acc", "cm"] and all(torch.equal(synced[n][k], ts[n][k]) for n in ts for k in ts[n])
 
 
 def test_reset_forms_the_groups_anew():

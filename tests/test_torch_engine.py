@@ -944,18 +944,70 @@ def test_checkpoint_is_accepted_and_the_other_planes_still_raise(plane, tmp_path
 
 
 def test_reads_that_wait_raise_naming_their_item():
-    engine = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,))
+    """``compute(sync=True)`` and ``compute_all(sync=True)`` ride the comm
+    plane (here a two-rank fake world whose peer mirrors this rank, in both
+    packages: every sum state doubles) and equal the JAX engine's; on one
+    process without a transport they are the local read. ``rollup`` still
+    waits for the query plane (ROADMAP A.9)."""
+    from metrics_tpu import comm as jcomm
+    from metrics_tpu_torch import comm
+
+    stream = [(f"k{i % 2}", (np.array([i % C, 1], np.int32), np.array([1, i % C], np.int32))) for i in range(6)]
+    ref = JaxEngine(_flagship(jm), buckets=(8,))
+    engine = StreamingEngine(_flagship(tm, **CPU), buckets=(8,))
     try:
-        engine.submit("k", np.array([1], np.int32), np.array([1], np.int32))
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            engine.compute("k", sync=True)
-        with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-            engine.compute_all(sync=True)
+        run_stream(ref, stream)
+        run_stream(engine, stream)
+        for key in ("k0", "k1"):
+            assert_trees_match(engine.compute(key, sync=True), ref.compute(key, sync=True), key)
+            assert_trees_match(engine.compute(key, sync=True), engine.compute(key), key)
+        with comm.use_config(transport=comm.ReplicaFakeTransport(2)), \
+                jcomm.use_config(transport=jcomm.ReplicaFakeTransport(2)):
+            got, want = engine.compute_all(sync=True), ref.compute_all(sync=True)
+            assert comm.last_report().site == jcomm.last_report().site == "engine.compute"
+            assert_trees_match(engine.compute("k1", sync=True), ref.compute("k1", sync=True), "k1")
+        assert list(got) == list(want) == ["k0", "k1"]
+        for key in want:
+            assert_trees_match(got[key], want[key], key)
+        local = engine.compute("k0")
+        assert np.array_equal(got["k0"]["confmat"].numpy(), 2 * local["confmat"].numpy())
         with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
             engine.rollup()
         assert engine.telemetry_snapshot()["read_jit_fallbacks"] == 0
     finally:
         engine.close()
+        ref.close()
+
+
+def test_stale_syncs_open_the_comm_breaker_and_pin_local_reads_as_the_jax_engine_does():
+    """A dead peer walks every sync to stale local state: after the breaker's
+    threshold of such syncs, ``compute(sync=True)`` serves local state without
+    a sync (``sync_pinned``) and ``health()`` shows the comm breaker open, in
+    both packages alike."""
+    from metrics_tpu import comm as jcomm
+    from metrics_tpu.guard import GuardConfig as JaxGuard
+    from metrics_tpu_torch import comm
+    from metrics_tpu_torch.guard import GuardConfig
+
+    stream = [("k", (np.array([1, 2], np.int32), np.array([1, 0], np.int32)))]
+    ref = JaxEngine(FAMILIES["accuracy"][0](), buckets=(8,), guard=JaxGuard(shed=False))
+    engine = StreamingEngine(FAMILIES["accuracy"][1](), buckets=(8,), guard=GuardConfig(shed=False))
+    try:
+        run_stream(ref, stream)
+        run_stream(engine, stream)
+        seen = {}
+        for name, eng, pkg in (("port", engine, comm), ("jax", ref, jcomm)):
+            with pkg.use_config(transport=pkg.DeadPeerTransport(2), max_retries=0):
+                values = [eng.compute("k", sync=True) for _ in range(5)]
+                report = pkg.last_report()
+            health = eng.health()
+            seen[name] = (eng.telemetry_snapshot()["sync_pinned"], health["breakers"]["comm"]["state"],
+                          health["state"], report.degraded_step, report.stale, [float(v) for v in values])
+        assert seen["port"] == seen["jax"]
+        assert seen["port"][:5] == (2, "open", "DEGRADED", "local_state", True)
+    finally:
+        engine.close()
+        ref.close()
 
 
 def test_engine_serves_on_the_metric_device_and_cuda_needs_a_gpu():

@@ -132,6 +132,32 @@ def test_replication_plane_and_obs_modules_are_scanned(relpath):
     assert relpath in SOURCES
 
 
+COMM_PARALLEL_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("comm/transport", "comm/membership", "comm/plan", "comm/plane", "comm/axis", "parallel/__init__",
+                 "parallel/sync", "utils/distributed")
+]
+
+
+@pytest.mark.parametrize("relpath", COMM_PARALLEL_MODULES)
+def test_comm_plane_and_parallel_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
+def test_the_comm_plane_exports_every_name_of_the_jax_package():
+    import metrics_tpu.comm as jax_comm
+
+    import metrics_tpu_torch.comm as comm
+    import metrics_tpu_torch.parallel.sync as sync
+
+    assert set(jax_comm.__all__) <= set(comm.__all__) and len(comm.__all__) == 41
+    assert all(callable(getattr(comm, name)) for name in comm.__all__)
+    assert all(callable(getattr(sync, name)) for name in ("reduce_in_trace", "in_trace", "sync_state_host"))
+    from metrics_tpu_torch.comm import axis
+
+    assert sync.use_mesh is axis.use_mesh and sync.resolve_axis is axis.resolve_axis
+
+
 def _series(reg):
     """One registry's worth of every kind of series: labelled and unlabelled
     counters (integral and fractional), a gauge, histograms with explicit and

@@ -8,6 +8,9 @@ float32 ``mean`` is not used: the two frameworks reduce it differently and
 can differ in the last bit.)
 """
 
+import contextlib
+import socket
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -322,10 +325,51 @@ def test_compute_batch_value_leaves_the_global_state_as_it_was():
     assert all(getattr(tm, k) is v for k, v in before.items()) and tm.update_count == 4
 
 
+@contextlib.contextmanager
+def world_of_one():
+    """A gloo process group of one rank in this process (torn down after)."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=1, rank=0)
+    try:
+        yield torch.distributed.group.WORLD
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def jax_in_one_device_mesh(fn, *args):
+    """``fn(*args)`` inside ``shard_map`` over a one-device mesh axis ``dp``."""
+    import jax
+    from jax.experimental.shard_map import shard_map
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    mesh = Mesh(np.asarray(jax.devices()[:1]), ("dp",))
+    specs = jax.tree.map(lambda _: P(), args)
+    return jax.jit(shard_map(fn, mesh=mesh, in_specs=specs, out_specs=P(), check_rep=False))(*args)
+
+
 def test_compute_from_with_an_axis_name_waits_for_the_comm_plane():
-    tm = TorchProbe(device="cpu")
-    with pytest.raises(NotImplementedError, match="A.8"):
-        tm.compute_from(tm.init_state(), axis_name="dp")
+    """``compute_from(state, axis_name=...)`` syncs through the comm plane
+    (``sync_state``: one collective a state over the group) before computing:
+    in a world of one it equals the JAX package's ``compute_from(state,
+    axis_name="dp")`` inside ``shard_map`` on one device, the synced state
+    equals the JAX one, and a metric's own ``axis_name`` is the default."""
+    tm, jm = TorchProbe(device="cpu"), JaxProbe()
+    ts, js = tm.init_state(), jm.init_state()
+    for x in _batches(seed=9):
+        ts = tm.update_state(ts, torch.from_numpy(x))
+        js = jm.update_state(js, jnp.asarray(x))
+    want = jax_in_one_device_mesh(lambda s: jm.compute_from(s, axis_name="dp"), js)
+    want_state = jax_in_one_device_mesh(lambda s: jm.sync_state(s, "dp"), js)
+    with world_of_one() as group:
+        got = tm.compute_from(ts, axis_name=group)
+        got_state = tm.sync_state(ts, group)
+        own = TorchProbe(device="cpu", axis_name=group).compute_from(ts)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(own.numpy(), np.asarray(want))
+    _assert_state_equal(want_state, got_state)
+    assert ts["seen"] is not got_state["seen"] and len(got_state["seen"]) == 1
 
 
 def test_hash_and_clone_keep_instances_apart():
