@@ -144,7 +144,7 @@ from metrics_tpu_torch.engine.stream import EagerKeyedState, KeyedState, _clone_
 from metrics_tpu_torch.engine.telemetry import EngineTelemetry
 from metrics_tpu_torch.guard import EngineQuarantined, GuardConfig, GuardPlane, HangDetector, TenantQuarantined
 from metrics_tpu_torch.guard.watchdog import Watchdog
-from metrics_tpu_torch.kernels import launch_counts
+from metrics_tpu_torch.kernels import _tally
 from metrics_tpu_torch.kernels.engine_scan import masked_scan_update
 from metrics_tpu_torch.metric import Metric, _as_state_tensor
 from metrics_tpu_torch.obs import OBS as _OBS
@@ -497,6 +497,34 @@ class _LoopKernel:
         keyed.commit(work)
 
 
+class _FirstCalls:
+    """The graph kernels' first calls (warm-up and capture) in flight in this
+    process. Their wall time grows with how many run at once (a sharded engine's
+    shards capture together on one card and share one interpreter), so each
+    call's watchdog deadline is stretched by the most that ran beside it."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._peaks: Dict[object, int] = {}  # a call in flight -> the most in flight during it
+
+    @contextmanager
+    def joined(self) -> Iterator[Callable[[], int]]:
+        token = object()
+        with self._lock:
+            self._peaks[token] = 0
+            n = len(self._peaks)
+            for t in self._peaks:
+                self._peaks[t] = max(self._peaks[t], n)
+        try:
+            yield lambda: self._peaks.get(token, 1)
+        finally:
+            with self._lock:
+                del self._peaks[token]
+
+
+_FIRST_CALLS = _FirstCalls()
+
+
 class _GraphKernel:
     """One micro-batch kernel on the card: the masked scan over ``bucket`` rows
     captured as one CUDA graph that reads static input buffers and writes the
@@ -516,12 +544,19 @@ class _GraphKernel:
     The wrappers' launch counters advance once while the graph is captured and
     never at a replay: ``captured`` holds that advance by kernel name, and
     ``captured × replays`` is what the graph launched.
+
+    With the guard's watchdog on (``detector``), the first call counts against
+    its deadline stretched by the most first calls in flight beside it
+    (:class:`_FirstCalls`): a capture is host work whose time grows with the
+    captures around it, and a wedged warm-up or capture is still caught.
     """
 
-    def __init__(self, update_state: Callable, stream: torch.cuda.Stream, pool: Any) -> None:
+    def __init__(self, update_state: Callable, stream: torch.cuda.Stream, pool: Any,
+                 detector: Optional[HangDetector] = None) -> None:
         self._update_state = update_state
         self._stream = stream
         self._pool = pool
+        self._detector = detector
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._static: List[torch.Tensor] = []
         self.warmup_ms = 0.0
@@ -542,6 +577,15 @@ class _GraphKernel:
 
     def _capture(self, keyed: KeyedState, key_ids: torch.Tensor, mask: torch.Tensor,
                  columns: Sequence[torch.Tensor]) -> None:
+        with _FIRST_CALLS.joined() as crowd:
+            if self._detector is None:
+                self._build(keyed, key_ids, mask, columns)
+            else:
+                with self._detector.stretched(crowd):
+                    self._build(keyed, key_ids, mask, columns)
+
+    def _build(self, keyed: KeyedState, key_ids: torch.Tensor, mask: torch.Tensor,
+               columns: Sequence[torch.Tensor]) -> None:
         self._static = [t.clone() for t in (key_ids, mask, *columns)]
         kids, msk, *cols = self._static
         device = kids.device
@@ -553,15 +597,15 @@ class _GraphKernel:
                 t1 = time.perf_counter()
                 torch.cuda.empty_cache()  # as the capture's own start does, so the baseline is the capture's
                 reserved = torch.cuda.memory_reserved(device)
-                before = launch_counts()
-                graph, _ = capture(
-                    lambda: masked_scan_update(self._update_state, keyed.stacked, kids, msk, cols), self._stream,
-                    self._pool,
-                )
+                with _tally.counting() as captured:  # this thread's launches: other engines capture at once
+                    graph, _ = capture(
+                        lambda: masked_scan_update(self._update_state, keyed.stacked, kids, msk, cols), self._stream,
+                        self._pool,
+                    )
                 t2 = time.perf_counter()
         except Exception as exc:  # noqa: BLE001 — a host read, an illegal op in capture, a bad request
             raise _FusedUnsupported(repr(exc)) from exc
-        self.captured = {k: n - before[k] for k, n in launch_counts().items() if n != before[k]}
+        self.captured = {k: n for k, n in captured.items() if n}
         self.warmup_ms = (t1 - t0) * 1e3
         self.capture_ms = (t2 - t1) * 1e3
         self.pool_bytes = torch.cuda.memory_reserved(device) - reserved
@@ -1323,8 +1367,104 @@ class StreamingEngine:
         return synced
 
     def rollup(self, *, window: bool = False) -> Any:
-        """The global-query fold of every tenant; waits for the query plane."""
-        raise NotImplementedError("rollup() serves the query plane, which is not ported yet (ROADMAP A.9)")
+        """Fold EVERY local tenant into one mergeable state, stamped for the cache.
+
+        The global-query read primitive (:mod:`metrics_tpu_torch.query`): one
+        watermark-stamped :class:`~metrics_tpu_torch.query.rollup.PartitionRollup`
+        per partition replaces a per-tenant scatter. Served by followers too
+        (under the staleness gate) — the fold never mutates state, never changes
+        tier residency, and never touches the write path beyond the same flush
+        ``compute`` pays.
+
+        The slab is written in place here (graphs are bound to its addresses), so
+        unlike the JAX package, which folds an immutable slab off-lock, the fold is
+        enqueued on the engine's stream under the dispatch lock, the ordering
+        :meth:`_read_states` uses: it reads the slab after every replay before it
+        and before every replay after it. The watermark is read first through
+        :meth:`wal_watermark` (its gates and its lock order) and, on a primary,
+        read again in the fold's lock window: journaling happens under that lock,
+        so within one epoch the second read is exactly the seq the fold covers. On
+        a follower (whose applier advances its seq outside the dispatch lock) and
+        across an epoch change the first read stands, which can only under-claim
+        the fold's coverage: revalidation then invalidates early, never serves a
+        stamp the state does not back. Only live ring slots are gathered (a
+        demoted tenant's ring rows survive until ``release_slot`` scrubs them, and
+        its history already lives in its tier entry); non-resident tenants are
+        peeked from their entries, and a registered tenant with no entry counts
+        toward ``tenants`` but is not folded (its state is the fold identity).
+        """
+        from metrics_tpu_torch.query.rollup import PartitionRollup, fold_slab, fold_states, merge_folds
+
+        if window and self._window is None:
+            raise MetricsTPUUserError("rollup(window=True) requires the engine to be built with `window=`")
+        self._check_quarantined("rollup")
+        self._check_staleness()
+        if self._closed:
+            raise EngineClosed("rollup() on a closed StreamingEngine")
+        self.flush()
+        t0 = time.monotonic()
+        watermark = self.wal_watermark()
+        folds: List[Any] = []
+        current = torch.cuda.current_stream(self._device) if self._stream is not None else None
+        with self._dispatch_lock, self._on_stream():
+            if not self._repl_follower and int(self._repl_epoch) == watermark[0]:
+                watermark = (watermark[0], int(self._wal_seq))
+            keyed = self._keyed
+            tenants = len(keyed.keys)
+            if isinstance(keyed, KeyedState):
+                if window and keyed._ring:
+                    slots = sorted(s for s in keyed._slots.values() if s < keyed.capacity)
+                    for cap, snap in keyed._ring:  # oldest segment first, matching merged_state
+                        idx = [s for s in slots if s < cap]
+                        if idx:
+                            rows = torch.tensor(idx, dtype=torch.int64).to(keyed.leaves()[0].device)
+                            folds.append(fold_slab(self._metric, tree_map(lambda x: x.index_select(0, rows), snap)))
+                # free + never-dispatched rows hold init values — the reduction
+                # identities — so the whole-slab fold needs no residency mask
+                folds.append(fold_slab(self._metric, keyed.stacked))
+            else:
+                eager = [keyed.merged_state(key) if window else keyed.state_of(key) for key in keyed.keys]
+                if eager:
+                    folds.append(fold_states(self._metric, eager))
+            tier = self._tier
+            if tier is not None:
+                resident = set(keyed.keys)
+                peeked = []
+                for key in tier.keys():
+                    if key in resident:
+                        continue
+                    tenants += 1
+                    entry = tier.peek_entry(key)
+                    # a registered-but-silent cold tenant has no entry at all: it
+                    # counts toward coverage and contributes nothing, which keeps a
+                    # million-registered-tenant rollup O(tenants with state)
+                    if entry:
+                        peeked.append(peek_state(self._metric, keyed, entry, window=window))
+                if peeked:
+                    folds.append(fold_states(self._metric, peeked))
+            state = merge_folds(self._metric, folds)
+            if self._stream is not None:
+                done = torch.cuda.Event()
+                done.record(self._stream)
+        if self._stream is not None:
+            # outside the lock, like a read: the caller's stream takes the fold
+            # once the engine's stream has produced it
+            done.synchronize()
+            for leaf in tree_flatten(state)[0]:
+                if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                    leaf.record_stream(current)
+        lag = self.replica_lag()
+        _obs.record_query_rollup_seconds(self.telemetry.engine_id, time.monotonic() - t0)
+        return PartitionRollup(
+            partition=self.telemetry.label("partition"),
+            state=state,
+            watermark=watermark,
+            tenants=tenants,
+            follower=self._repl_follower,
+            node=self.telemetry.engine_id,
+            staleness_seqs=None if lag is None else lag.seqs_behind,
+            staleness_s=None if lag is None else lag.seconds_behind,
+        )
 
     def wal_watermark(self) -> Tuple[int, int]:
         """``(epoch, seq)`` — this engine's WAL position in its lineage.
@@ -1863,7 +2003,7 @@ class StreamingEngine:
         the card and run as a loop on the CPU."""
         if self._stream is None:
             return _LoopKernel(self._metric.update_state)
-        return _GraphKernel(self._metric.update_state, self._stream, self._graph_pool)
+        return _GraphKernel(self._metric.update_state, self._stream, self._graph_pool, self._hang_detector)
 
     def _demote_to_eager(self) -> None:
         """Permanent fused→eager fallback: migrate accumulated stacked state."""

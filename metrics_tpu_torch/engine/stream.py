@@ -154,8 +154,10 @@ class KeyedState:
         self.stacked = tree_unflatten(grown, self._treedef)
         if grown and grown[0].is_cuda:
             # an honest wall-time figure for the resize counter; growth happens
-            # log₂(K) times per tenant population
-            torch.cuda.synchronize(grown[0].device)
+            # log₂(K) times per tenant population. The stream that grew the slab
+            # is synchronized, not the device: a device-wide sync would break
+            # another engine's capture in progress on the same card
+            torch.cuda.current_stream(grown[0].device).synchronize()
         self.capacity = new_cap
         self.last_resize_s = time.perf_counter() - t0
         return True

@@ -5,6 +5,9 @@ Each is an ``_*_update`` (a sum of errors and a count) and an ``_*_compute``
 (the division), the two-sum streaming pattern. The sums are plain torch
 reductions in the inputs' dtype (float32 for float32 inputs), as the JAX
 package's are jnp reductions; no kernel of the JAX package lies on them.
+Float64 inputs are first cast to float32, as ``jnp.asarray`` does with 64-bit
+mode off, so every sum and output is float32 (float16 and integer inputs
+keep the JAX package's dtypes).
 """
 
 from __future__ import annotations
@@ -16,6 +19,12 @@ import torch
 from torch import Tensor
 
 from metrics_tpu_torch.utils.checks import _check_same_shape
+
+
+def _x32(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    """Float64 inputs as float32, the JAX package's view with 64-bit mode off."""
+    return (preds.to(torch.float32) if preds.dtype == torch.float64 else preds,
+            target.to(torch.float32) if target.dtype == torch.float64 else target)
 
 
 def _as_float(x: Tensor) -> Tensor:
@@ -30,6 +39,7 @@ def _at_least_float32(x: Tensor) -> Tensor:
 
 def _mean_absolute_error_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, int]:
     _check_same_shape(preds, target)
+    preds, target = _x32(preds, target)
     return torch.sum(torch.abs(_as_float(preds) - _as_float(target))), target.numel()
 
 
@@ -54,6 +64,7 @@ def _mean_squared_error_update(preds: Tensor, target: Tensor, num_outputs: int) 
     """The sum of squared errors (over rows: ``(num_outputs,)`` for 2-D inputs
     with several outputs) and the number of rows."""
     _check_same_shape(preds, target)
+    preds, target = _x32(preds, target)
     if num_outputs == 1:
         preds = preds.reshape(-1)
         target = target.reshape(-1)
@@ -82,6 +93,7 @@ def mean_squared_error(preds: Tensor, target: Tensor, squared: bool = True, num_
 def _mean_absolute_percentage_error_update(preds: Tensor, target: Tensor, epsilon: float = 1.17e-06
                                            ) -> Tuple[Tensor, int]:
     _check_same_shape(preds, target)
+    preds, target = _x32(preds, target)
     return torch.sum(torch.abs(preds - target) / torch.clamp(torch.abs(target), min=epsilon)), target.numel()
 
 
@@ -105,6 +117,7 @@ def mean_absolute_percentage_error(preds: Tensor, target: Tensor) -> Tensor:
 def _symmetric_mean_absolute_percentage_error_update(preds: Tensor, target: Tensor, epsilon: float = 1.17e-06
                                                      ) -> Tuple[Tensor, int]:
     _check_same_shape(preds, target)
+    preds, target = _x32(preds, target)
     abs_per_error = torch.abs(preds - target) / torch.clamp(torch.abs(target) + torch.abs(preds), min=epsilon)
     return 2 * torch.sum(abs_per_error), target.numel()
 
@@ -124,6 +137,7 @@ def symmetric_mean_absolute_percentage_error(preds: Tensor, target: Tensor) -> T
 
 def _weighted_mean_absolute_percentage_error_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
     _check_same_shape(preds, target)
+    preds, target = _x32(preds, target)
     return torch.sum(torch.abs((preds - target).reshape(-1))), torch.sum(torch.abs(target.reshape(-1)))
 
 
@@ -147,6 +161,7 @@ def weighted_mean_absolute_percentage_error(preds: Tensor, target: Tensor) -> Te
 
 def _mean_squared_log_error_update(preds: Tensor, target: Tensor) -> Tuple[Tensor, int]:
     _check_same_shape(preds, target)
+    preds, target = _x32(preds, target)
     return torch.sum((torch.log1p(preds) - torch.log1p(target)) ** 2), target.numel()
 
 
@@ -178,6 +193,7 @@ def _log_cosh_error_update(preds: Tensor, target: Tensor, num_outputs: int) -> T
     """The per-output sum of ``log(cosh(preds - target))`` in its stable form
     ``x + softplus(-2x) - log(2)``, and the number of rows."""
     _check_same_shape(preds, target)
+    preds, target = _x32(preds, target)
     preds, target = _unsqueeze_tensors(preds, target)
     diff = preds - target
     return torch.sum(diff + jax_softplus(-2.0 * diff) - math.log(2.0), dim=0), preds.shape[0]

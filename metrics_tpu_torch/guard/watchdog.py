@@ -21,7 +21,8 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Callable, Optional
+from contextlib import contextmanager
+from typing import Callable, Iterator, Optional
 
 __all__ = ["HangDetector", "Watchdog"]
 
@@ -34,6 +35,7 @@ class HangDetector:
         self._clock = clock
         self._lock = threading.Lock()
         self._busy_since: Optional[float] = None
+        self._stretch: Optional[Callable[[], int]] = None
 
     def mark_busy(self) -> None:
         """The dispatcher took ownership of a batch (called at drain)."""
@@ -46,11 +48,27 @@ class HangDetector:
         with self._lock:
             self._busy_since = None
 
+    @contextmanager
+    def stretched(self, factor: Callable[[], int]) -> Iterator[None]:
+        """Inside the block the deadline is ``timeout_s × factor()``, read at each
+        probe; the clock keeps running. On leaving it a busy clock starts afresh,
+        so the work after the block gets the plain ``timeout_s``."""
+        with self._lock:
+            self._stretch = factor
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._stretch = None
+                if self._busy_since is not None:
+                    self._busy_since = self._clock()
+
     def hung(self, now: Optional[float] = None) -> bool:
         with self._lock:
             if self._busy_since is None:
                 return False
-            return ((self._clock() if now is None else now) - self._busy_since) > self.timeout_s
+            limit = self.timeout_s * (max(1, self._stretch()) if self._stretch is not None else 1)
+            return ((self._clock() if now is None else now) - self._busy_since) > limit
 
 
 class Watchdog:

@@ -46,7 +46,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.kernels import _build, registry
+from metrics_tpu_torch.kernels import _build, _tally, registry
 from metrics_tpu_torch.obs import instrument as _obs
 
 KERNEL_NAME = "binned_curve"  # csrc/binned_curve.cu
@@ -230,6 +230,7 @@ def binned_curve_counts_cuda(preds: Tensor, target_w: Tensor, w: Tensor, thresho
         msg = lib.binned_curve_error_string(code).decode()
         raise RuntimeError(f"binned_curve CUDA kernel failed to launch: {msg} (error {code})")
     launches += 1
+    _tally.record(KERNEL_NAME)
     _obs.record_kernel_launch(KERNEL_NAME)
     return (tp[:, 0], fp[:, 0]) if one_column else (tp, fp)
 

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.kernels import _build
+from metrics_tpu_torch.kernels import _build, _tally
 from metrics_tpu_torch.kernels.scatter import (
     CMS_MAX_DEPTH,
     MAX_CUDA_SIZE,
@@ -294,6 +294,7 @@ def cms_walk_cuda(
         msg = _lib().cms_walk_error_string(code).decode()
         raise RuntimeError(f"cms_walk CUDA kernel failed to launch: {msg} (error {code})")
     launches += KERNELS
+    _tally.record(KERNEL_NAME, KERNELS)
     for _ in range(KERNELS):
         _obs.record_kernel_launch(KERNEL_NAME)
     return out_counts, out_ledger

@@ -33,7 +33,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.kernels import _build, registry
+from metrics_tpu_torch.kernels import _build, _tally, registry
 from metrics_tpu_torch.obs import instrument as _obs
 
 KERNEL_NAME = "pair_count"
@@ -254,6 +254,7 @@ def pair_count_cuda(
         )
     _check_code(code, "pair_count")
     launches += 1
+    _tally.record(KERNEL_NAME)
     _obs.record_kernel_launch(KERNEL_NAME)
     return out
 
@@ -290,6 +291,7 @@ def stat_scores_cuda(
             )
         _check_code(code, "stat_scores")
         stat_score_launches += 1
+        _tally.record("stat_scores")
         _obs.record_kernel_launch(STAT_SCORES_NAME)
     tp, fp, tn, fn = out[: 4 * num_classes].view(4, num_classes)
     return tp, fp, tn, fn

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.kernels import _build, registry
+from metrics_tpu_torch.kernels import _build, _tally, registry
 from metrics_tpu_torch.obs import instrument as _obs
 
 KERNEL_NAME = "scatter"  # csrc/scatter.cu
@@ -230,6 +230,7 @@ def _raise_on(code: int, kernel: str) -> None:
 
 def _counted(kernel: str) -> None:
     launches[kernel] += 1
+    _tally.record(kernel)
     _obs.record_kernel_launch(kernel)
 
 

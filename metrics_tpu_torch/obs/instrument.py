@@ -1,6 +1,7 @@
 """Instrumentation hooks of the metric core, the kernel plane, the comm plane,
-the engine and its durable, guard, tier and replication planes (port of the
-metric, kernel, sync, comm, engine, ckpt, guard, tier and repl sections of
+the engine and its durable, guard, tier and replication planes, the shard
+plane and the query plane (port of the metric, kernel, sync, comm, engine,
+ckpt, guard, tier, repl, shard and query sections of
 ``metrics_tpu/obs/instrument.py``).
 
 Every hook returns at once, or hands back a shared no-op, while ``OBS.enabled``
@@ -430,6 +431,96 @@ def guard_span(name: str, **attrs: Any) -> Any:
     if not OBS.enabled:
         return _NULL_SPAN
     return TRACER.span(name, **attrs)
+
+
+# ------------------------------------------------------------------- query plane
+
+QUERY_GLOBAL = REGISTRY.counter(
+    "metrics_tpu_torch_query_global_total",
+    "Global (fleet-wide) queries answered by the query plane, per op (quantile|cardinality|top_k|compute) "
+    "and result source (cached|merged).",
+)
+QUERY_CACHE_HITS = REGISTRY.counter(
+    "metrics_tpu_torch_query_cache_hits_total",
+    "Global query results served from the watermark-keyed cache: every contributing partition's "
+    "(epoch, seq) watermark compared equal, no re-merge ran.",
+)
+QUERY_CACHE_MISSES = REGISTRY.counter(
+    "metrics_tpu_torch_query_cache_misses_total",
+    "Global queries that had to re-merge: no cached result, a watermark advanced, an epoch changed, or "
+    "the live subset differed.",
+)
+QUERY_LEADER_READS = REGISTRY.counter(
+    "metrics_tpu_torch_query_leader_reads_total",
+    "Query-plane reads (rollups or watermark probes) served by a partition's WRITE LEADER instead of a "
+    "follower — the number the follower-served read contract drives to zero under healthy replication, "
+    "per op.",
+)
+QUERY_PARTITIONS_MISSING = REGISTRY.counter(
+    "metrics_tpu_torch_query_partitions_missing_total",
+    "Partitions a global query could not reach (headless past the retry budget, or every replica refused "
+    "the staleness bound): the answer degraded to a NAMED live subset, one count per missing partition "
+    "per query, per partition.",
+)
+QUERY_ROLLUP_SECONDS = REGISTRY.histogram(
+    "metrics_tpu_torch_query_rollup_seconds",
+    "Wall time of one partition rollup fold (every local tenant's mergeable state folded into one "
+    "partition-level state), per engine.",
+)
+
+
+def record_query(op: str, *, cached: bool) -> None:
+    if not OBS.enabled:
+        return
+    QUERY_GLOBAL.inc(1, op=op, source="cached" if cached else "merged")
+    if cached:
+        QUERY_CACHE_HITS.inc(1)
+    else:
+        QUERY_CACHE_MISSES.inc(1)
+
+
+def record_query_leader_read(op: str) -> None:
+    if not OBS.enabled:
+        return
+    QUERY_LEADER_READS.inc(1, op=op)
+
+
+def record_query_partition_missing(partition: str) -> None:
+    if not OBS.enabled:
+        return
+    QUERY_PARTITIONS_MISSING.inc(1, partition=partition)
+    FLIGHT.record("query_partition_missing", partition=partition)
+
+
+def record_query_rollup_seconds(engine: str, seconds: float) -> None:
+    if not OBS.enabled:
+        return
+    QUERY_ROLLUP_SECONDS.observe(float(seconds), engine=engine)
+
+
+# ---------------------------------------------------------------------- shard plane
+
+SHARD_TENANTS = REGISTRY.gauge(
+    "metrics_tpu_torch_shard_tenants",
+    "Registered tenants currently owned by one shard of a ShardedEngine (consistent-hash placement), per "
+    "engine and shard.",
+)
+SHARD_REBALANCES = REGISTRY.counter(
+    "metrics_tpu_torch_shard_rebalances_total",
+    "Completed shard-count resizes (hash-ring growth + tenant migration), per sharded engine.",
+)
+
+
+def set_shard_tenants(engine: str, shard: int, tenants: int) -> None:
+    if not OBS.enabled:
+        return
+    SHARD_TENANTS.set(tenants, engine=engine, shard=str(shard))
+
+
+def record_shard_rebalance(engine: str) -> None:
+    if not OBS.enabled:
+        return
+    SHARD_REBALANCES.inc(1, engine=engine)
 
 
 # ---------------------------------------------------------------------- tier plane

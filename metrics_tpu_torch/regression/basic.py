@@ -42,9 +42,14 @@ class _ErrorSum(Metric):
         self.add_state(count_state, zero_state((), torch.float32, device=self.device), dist_reduce_fx="sum")
 
     def _accumulate(self, **increments: Any) -> None:
-        """Add each increment onto the same-named float32 state."""
+        """Add each increment onto the same-named float32 state, cast to the
+        state's dtype first (a float64 increment would otherwise promote the
+        state; the JAX package keeps it float32 with x64 off)."""
         for name, value in increments.items():
-            setattr(self, name, getattr(self, name) + value)
+            state = getattr(self, name)
+            if isinstance(value, torch.Tensor):
+                value = value.to(state.dtype)
+            setattr(self, name, state + value)
 
 
 class MeanAbsoluteError(_ErrorSum):

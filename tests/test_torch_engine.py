@@ -947,8 +947,10 @@ def test_reads_that_wait_raise_naming_their_item():
     """``compute(sync=True)`` and ``compute_all(sync=True)`` ride the comm
     plane (here a two-rank fake world whose peer mirrors this rank, in both
     packages: every sum state doubles) and equal the JAX engine's; on one
-    process without a transport they are the local read. ``rollup`` still
-    waits for the query plane (ROADMAP A.9)."""
+    process without a transport they are the local read. ``rollup`` equals
+    the JAX engine's: a fold of every tenant for a metric, and the same
+    ``KeyError`` for a collection (whose slab has no top-level
+    ``_update_count``)."""
     from metrics_tpu import comm as jcomm
     from metrics_tpu_torch import comm
 
@@ -971,8 +973,21 @@ def test_reads_that_wait_raise_naming_their_item():
             assert_trees_match(got[key], want[key], key)
         local = engine.compute("k0")
         assert np.array_equal(got["k0"]["confmat"].numpy(), 2 * local["confmat"].numpy())
-        with pytest.raises(NotImplementedError, match="ROADMAP A.9"):
+        with pytest.raises(KeyError, match="_update_count"):
+            ref.rollup()
+        with pytest.raises(KeyError, match="_update_count"):
             engine.rollup()
+        ref_acc = JaxEngine(jcls.MulticlassAccuracy(C, average="micro"), buckets=(8,))
+        acc = StreamingEngine(tcls.MulticlassAccuracy(C, average="micro", **CPU), buckets=(8,))
+        try:
+            run_stream(ref_acc, [(key, args) for key, args in stream])
+            run_stream(acc, stream)
+            got_ru, want_ru = acc.rollup(), ref_acc.rollup()
+            assert (got_ru.tenants, got_ru.watermark, got_ru.follower) == (want_ru.tenants, want_ru.watermark, False)
+            assert_trees_match(got_ru.state, want_ru.state, "rollup")
+        finally:
+            ref_acc.close()
+            acc.close()
         assert engine.telemetry_snapshot()["read_jit_fallbacks"] == 0
     finally:
         engine.close()

@@ -101,6 +101,54 @@ def test_mean_squared_and_absolute_error_on_other_dtypes(dtype):
     close(tm.compute(), jm.compute())
 
 
+# the seven classes with their functionals (C.8: every state float32 whatever the input dtype)
+SEVEN = [(cls, fn) for cls, (fn, kw, inputs) in METRICS.items() if not kw]
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float16, np.int32, np.int64])
+@pytest.mark.parametrize("name,fn", SEVEN, ids=[c for c, _ in SEVEN])
+def test_error_sum_states_and_outputs_keep_the_jax_dtypes(name, fn, dtype):
+    """Float64, float16 and integer inputs: every state of the seven classes
+    stays float32 and each functional returns the JAX package's dtype (float32
+    for float64 input, as with x64 off), with its value (ROADMAP C.8)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    p = rng.random(N) * 6 + 0.25
+    t = np.abs(0.8 * p + rng.normal(size=N))
+    p, t = (x.astype(dtype) if np.issubdtype(dtype, np.floating) else np.rint(2 * x).astype(dtype) for x in (p, t))
+    jp, jt, tp, tt = jnp.asarray(p), jnp.asarray(t), torch.from_numpy(p), torch.from_numpy(t)
+    close(getattr(torch_fn, fn)(tp, tt), getattr(jax_fn, fn)(jp, jt))
+    jm, tm = getattr(jax_reg, name)(), getattr(torch_reg, name)(**CPU)
+    jm.update(jp, jt)
+    tm.update(tp, tt)
+    tstate = tm.update_state(tm.init_state(), tp, tt)
+    for key in jm._defaults:
+        assert getattr(tm, key).dtype == tstate[key].dtype == torch.float32, key
+        close(getattr(tm, key), getattr(jm, key))
+        close(tstate[key], getattr(jm, key))
+    close(tm.compute(), jm.compute())
+    close(tm.compute_from(tstate), jm.compute())
+
+
+def test_a_metric_that_saw_float64_restores_into_both_packages(tmp_path):
+    """``save`` after float64 input, then ``restore`` into a fresh metric of
+    each package (a float64 state raised ``CkptSchemaError`` before C.8)."""
+    rng = np.random.default_rng(8)
+    p, t = rng.normal(size=N), rng.normal(size=N)
+    tm = torch_reg.MeanSquaredError(**CPU)
+    tm.update(torch.from_numpy(p), torch.from_numpy(t))
+    path = str(tmp_path / "mse.mtckpt")
+    tm.save(path)
+    back, jback = torch_reg.MeanSquaredError(**CPU), jax_reg.MeanSquaredError()
+    back.restore(path)
+    jback.restore(path)
+    ref = jax_reg.MeanSquaredError()
+    ref.update(jnp.asarray(p), jnp.asarray(t))
+    for key in ref._defaults:
+        close(getattr(back, key), getattr(ref, key))
+        close(getattr(back, key), getattr(jback, key))
+    close(back.compute(), jback.compute())
+
+
 def test_percentage_errors_near_zero_targets_match_jax():
     """Targets at and next to 0: the epsilon clamp of the JAX package."""
     p = np.array([0.5, -1.0, 2.0, 1e-7, 0.0, 3.0], np.float32)
