@@ -66,8 +66,8 @@ checkout, and then:
 - Phase E drives the sketch plane at the JAX classes' default sizes through
   the functional API and once through the stateful one: QuantileSketch
   (alpha 0.01, 2048 buckets), CardinalitySketch (p = 12 and 16) and the
-  4 x 2048 count-min table on 8 batches of 2^22 values, HeavyHittersSketch
-  (k 32, 4 x 2048) on 4 batches of HH_BATCH ids. Launch counts are zeroed just
+  4 x 2048 count-min table on 2 batches of 2^22 values, HeavyHittersSketch
+  (k 32, 4 x 2048) on 2 batches of HH_BATCH ids. Launch counts are zeroed just
   before and read just after: 2 hist_add per quantile update, 1 hist_max per
   cardinality update, 1 cms_rows_add (its ids route, past the registry) per
   table update, 4 cms_walk kernels per heavy-hitter update, and no reference
@@ -96,7 +96,7 @@ checkout, and then:
   on both sides of the crossover between the sorted-threshold and the
   comparison route; float weights within ``rtol=1e-5, atol=1e-3``, two
   launches on one input bit-identical.
-- Phase H drives the binned curves at full width: 8 updates of 10^6 scores
+- Phase H drives the binned curves at full width: 2 updates of 10^6 scores
   at T = 200 through BinaryPrecisionRecallCurve, BinaryROC, BinaryAUROC
   (max_fpr None and 0.5) and BinaryAveragePrecision, functional API and
   stateful; MulticlassAUROC and MultilabelAveragePrecision at C = 10 on 10^6
@@ -147,7 +147,7 @@ checkout, and then:
   (64, 256), max_queue 2048, capacity 8; 8000 batch-1 lognormal requests
   over 8 tenants from 4 threads), beside 300 naive per-call updates. K2: the
   flagship metrics (accuracy micro, F1 macro, a confusion matrix at 1000
-  classes) in a ``MetricCollection``, 4000 requests of 1-16 int64 label
+  classes) in a ``MetricCollection``, 1000 requests of 1-16 int64 label
   pairs plus one 600-row request a tenant (split into chunks), states also
   against the plain versions on the CPU, ``compute()`` equal, and the
   collection's ``jitted_update_state`` against ``update_state``. K3:
@@ -244,9 +244,11 @@ checkout, and then:
   scale-out (``engine_throughput.py --replica``): K6's primary ships over a
   directory spool under 4 writers of 64-row batches paced at 1 ms; its
   compute() rate over 2 s against a follower's in its own process on the
-  same card (this script started with ``--replica-reader SPOOL SECONDS``),
-  with the follower's quiet rate, its readers' wait for the dispatch lock and
-  its lag; the JAX limits (5x, 500/s) are records. P3: K2's collection at
+  same card (this script started with ``--replica-reader SPOOL SECONDS``;
+  its graphs captured before the window, on one request a rung sent once
+  it bootstrapped), with the follower's quiet rate, its readers'
+  wait for the dispatch lock and its lag; the JAX limits (5x, 500/s) are
+  records. P3: K2's collection at
   C = 1000 and K1's quantiles, each a journaled primary and a follower on
   ``cuda:0`` over a ``LoopbackLink`` with their own graphs: the follower
   tracks a live segment; the primary restarts (a new epoch) and the follower
@@ -268,13 +270,13 @@ checkout, and then:
   ``parallel/sync.py``). Q1: the flagship metrics' ``update_state`` ->
   ``sync_state(s, group)`` -> ``compute_from`` at the step's shape over NCCL
   at world 1 on ``cuda:0`` (one eager all-reduce first, so the communicator
-  exists), 20 eager steps counted (2 stat-score + 1 table launches a step)
-  and the same step captured in one CUDA graph and replayed 20 times:
+  exists), 10 eager steps counted (2 stat-score + 1 table launches a step)
+  and the same step captured in one CUDA graph and replayed 10 times:
   states, synced states and values ``torch.equal`` to the eager fold, the
   profiler's launches 2 + 1 a replay, NCCL's operations in an eager step's
   profile. Q2: ``entry.make_dp_step`` at bench.py's full width in two
   processes on ``cuda:0`` over gloo (this script started with ``--q-rank q2
-  RANK PORT DIR``), each on its own seeded batch for 20 steps, the loss and
+  RANK PORT DIR``), each on its own seeded batch for 10 steps, the loss and
   gradients averaged and the metrics synced over a ``DeviceMesh``'s ``dp``
   every step: the synced counts and values equal one process's fold of both
   ranks' predictions, step ms with and without the metrics' sync, sync ms
@@ -282,7 +284,7 @@ checkout, and then:
   ``Metric.sync()`` on the same states (the default ``dist_sync_fn``,
   ``gather_all_tensors``: staged through numpy, gathered over gloo), timed
   and equal to the in-step sync. Q3: two serving processes
-  (``--q-rank q3``) each serve half of 8000 K2-style requests (the flagship
+  (``--q-rank q3``) each serve half of 4000 K2-style requests (the flagship
   collection at C = 1000, 8 tenants, buckets (64, 256), capacity 8) and call
   ``compute_all(sync=True)`` and ``compute(key, sync=True)``: every value
   equal to a one-process engine's over all the requests, every report
@@ -316,23 +318,78 @@ checkout, and then:
   the manifest at 16, and a restart that recovers every tenant on its ring
   shard.
 - Phase S drives the query plane (``metrics_tpu_torch.query.GlobalQuery``
-  over a stand-in partitioned client, one engine a partition, every read a
-  leader read) at ``--query``'s configuration. S1: 8 ``QuantileSketch``
-  engines (capacity 256, tiered, hot 4096, buckets (64,)) with 10^6
+  over the partition plane's ``PartitionedClient``) at ``--query``'s
+  configuration. S1: 8 ``QuantileSketch`` engines (capacity 256, tiered, hot
+  4096, buckets (64,)), one node leading all 8 partitions, with 10^6
   registered and 1024 fed tenants (seed 18): the global p50/p99 ``torch.equal`` to the per-tenant
   oracle on the card (``update_state`` replay, pairwise ``merge_states``),
   the merged state equal to the oracle's leaf for leaf, ``report.tenants ==
-  10^6 + 1024``, ``hist_add`` launched in the replays; S2: 512 tenants over 8
-  journaled engines, a populating miss, then 50 timed queries, every one a
-  cache hit, against the naive per-tenant scatter (512 ``compute`` calls; a
-  record beside the JAX 10x); S3: K6's configuration with and without a
-  thread calling ``rollup()`` every 2 ms, alternating pairs (a record beside
-  the JAX 5%), rollups served.
-  Depth cut for the time limit: M1, N1, O1 and P1 take 4 pairs (the JAX
-  benchmarks' 6), N2 3 guarded and 1 unguarded pair (5 and 2), P3 segments
-  of 192 and 512 requests (384 and 1024), R1 and R2 2 pairs and S3 3 (6),
-  R3 2000 requests (8000), R4 512; S1 and S2 serve with buckets (64,) (the
-  engine's six-rung default there: one capture an engine, not six).
+  10^6 + 1024``, ``hist_add`` launched in the replays; S2: 8 journaled
+  leaders shipping to 8 followers, 512 tenants written through the client,
+  ``GlobalQuery`` on ``prefer="replica"``: a populating miss, then 50 timed
+  queries, every one a cache hit served by followers with no leader read
+  (``QUERY_LEADER_READS`` unmoved: checked), the value equal to the leaders'
+  per-tenant oracle, ``hist_add`` in the followers' replays and, over a
+  profiled window of writes and their replays, equal to the profiler's
+  count; against the naive per-tenant scatter (512 routed leader
+  ``compute`` calls; a record beside the JAX 10x); S3: K6's configuration
+  with and without a thread calling ``rollup()`` every 2 ms, alternating
+  pairs (a record beside the JAX 5%), rollups served.
+- Phase T drives the cluster plane (``metrics_tpu_torch.cluster``). T1: the
+  JAX tests' three-node cluster at full width (the flagship collection at
+  C = 1000, 8 tenants, 64-row requests, buckets (64,)): 'a' a checkpointed
+  primary (``wal_flush="fsync"``) shipping through a ``FanoutTransport`` of
+  ``LoopbackLink``s, 'b' and 'c' followers with ``promote_checkpoint``, each
+  supervised by a live ``ClusterNode`` thread at ``--cluster``'s cadence
+  (TTL 1.0 s, heartbeat 0.2, suspect 0.8, confirm 2.5, tick 0.05, seeded)
+  over a ``DirectoryCoordStore``; writes through a ``ClusterClient``. 'a'
+  dies (its node stops without releasing, its engine closes); a follower
+  wins the lease at epoch 2 and promotes at it; writes go on; a's last
+  epoch-1 WAL frame, delivered again, is refused at both of its links; 'a'
+  is recovered from its directory (its states equal to the fold of what it
+  acknowledged) and its node demotes it to a follower of the new leader.
+  A thread samples every millisecond how many engines can commit writes (at
+  most one, checked); every engine's states ``torch.equal`` to a CPU fold
+  of every acknowledged write; the stat-score and table launches in the
+  three engines' replays equal to the profiler's count over a window of
+  writes; the death-to-first-acknowledgement time. T2: ``--cluster``'s pair,
+  K6's mix on a checkpointed primary shipping over a drained
+  ``LoopbackLink``, with and without a ``ClusterNode``, alternating pairs (a
+  record beside the JAX 5%).
+- Phase U drives the partition plane (``metrics_tpu_torch.part``). U1: 2
+  hosts x 4 partitions of the flagship collection (eight engines on
+  ``cuda:0``, buckets (64,)), 'a' leading p0 and p1 and following p2 and
+  p3, 'b' the reverse, two ``PartitionedNode`` threads over one
+  ``FakeCoordStore`` on the live clock, a ``PartitionedClient`` routing 16
+  tenants' writes. 'b' dies: p2 and p3 fail over to 'a' each on its own
+  lease (each partition's failover time) while p0 and p1 keep their
+  epochs; at most one engine of a partition can commit writes (sampled,
+  checked); the routes unchanged, every tenant's state equal to its fold,
+  the launches in the replays against the profiler. U2: ``migrate_tenant``
+  moves one tenant from p0 (guarded: the quarantine hold) to p2 while a
+  thread writes p0's other tenants: the moved state bit-identical, later
+  writes folded onto it, the manifest's override and epoch floor; p2's
+  leader restarts from its directory with the tenant, and
+  ``sweep_partitions`` evicts nothing. U3: ``--part``'s (b), a
+  ``partitions=1`` ``PartitionedNode`` against a plain ``ClusterNode`` on
+  T2's mix (a record beside the JAX 5%). U4: ``--part``'s (a), 4 loopback
+  hosts as processes of their own on the one card (this script started with
+  ``--u-host SEED PARTITIONS REQUESTS``), each leading 2 of 8 partitions of
+  ``BinaryAccuracy`` engines, against one host leading all 8 (a record
+  beside the JAX floor of 3.2x: the hosts share one card).
+  Depth cut for the time limit (a whole run must end within 1200 s on the
+  slowest host seen, about 1.5x the fastest; the depths before Phases T and
+  U came in brackets): Phase E 2 batches of 2^22 values and 2 of the heavy
+  hitters' ([8, 4]), Phase H 2 updates ([8]), K's profiled windows 500
+  requests ([1000]), K2 1000 ([4000]), M1 (on disk and in /dev/shm), N1,
+  O1 and P1 1 pair (the JAX benchmarks' 6; [4]), N2 3 guarded and 1 unguarded pair (5 and 2), M2 1000
+  flagship and 2000 quantile requests ([2000, 4000]), P3 segments of 128
+  and 384 requests (384 and 1024; [192, 512]), Q 10 steps ([20]), Q3 4000
+  requests ([8000]), R1, R2
+  and S3 1 pair (6; [2, 2, 3]), R3 500 requests (8000; [2000]), R4 256
+  ([512]); S1 and S2 serve with buckets (64,) (the engine's six-rung
+  default there: one capture an engine, not six); T1 64 + 64 writes around
+  the death and U1 64 + 48, T2 and U3 1 pair (6 there), U4 1 pair (4).
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
@@ -356,9 +413,9 @@ CUDA_CORE_OPS_PER_S = 67e12  # H100 SXM float32 rate outside the tensor cores, t
 FLAGSHIP_STEPS = 20
 TIMING_REPS = 5
 SKETCH_BATCH = 2**22  # values per sketch update in Phases E and F
-SKETCH_BATCHES = 8
+SKETCH_BATCHES = 2
 HH_BATCH = 2**17  # ids per heavy-hitter update: the CPU recomputation walks them one at a time (plain version)
-HH_BATCHES = 4  # fewer than SKETCH_BATCHES: the CPU recomputation walks 6 batches, about 45 us an item
+HH_BATCHES = 2  # the CPU recomputation walks 3 batches (the stream, then its second half), about 45 us an item
 WALK_SHAPES = (4096, HH_BATCH, SKETCH_BATCH)  # ids per ledger walk timed in Phase F
 WALK_FIELDS = ("us_per_item", "device_ms_by_kernel", "raises", "evictions", "sequential_chunks", "chunks",
                "snapshot_items", "eviction_bound_ms", "snapshot_bound_ms", "table_bound_ms")
@@ -374,7 +431,7 @@ CM_HASH_OPS = 1 + 3 * 2 + 2 + 1 + 1
 WALK_DECISION_CYCLES = 3 * 4
 CURVE_N = 10**6  # scores per curve update in Phases G to I
 CURVE_T = 200
-CURVE_UPDATES = 8
+CURVE_UPDATES = 2
 CURVE_COLS = 10
 EXACT_N = 2**20
 ZIPF_IDS = 10**7
@@ -1067,6 +1124,25 @@ def _profiler_lead_in(torch) -> None:
     for _ in range(4):
         x.add_(1)
     torch.cuda.synchronize()
+
+
+def _warm_profile(torch, run) -> dict:
+    """``_kernel_times`` of ``run()`` profiled in the active cycle of a profiler
+    session whose first cycle, a warm-up running ``run()`` too, is recorded
+    and discarded (``torch.profiler.schedule(warmup=1)``). Q1's sessions have
+    lost their first replay's two stat-score records in every session of a
+    whole run, with the lead-in and without it: the records lost are a
+    session's first graph-node records, and the warm-up cycle takes them."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    cycles = []
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: cycles.append(_kernel_times(p, torch))) as prof:
+        run()
+        prof.step()
+        run()
+        prof.step()
+    return cycles[-1]
 
 
 def _kernel_times(prof, torch):
@@ -2154,8 +2230,8 @@ K_TENANTS = 8
 K_THREADS = 4
 K1_REQUESTS = 8000
 K_NAIVE = 300  # naive per-call updates timed, as the benchmark times them
-K_PROFILED = 1000  # requests in the profiled window that follows the timed one
-K2_REQUESTS = 4000
+K_PROFILED = 500  # requests in the profiled window that follows the timed one
+K2_REQUESTS = 1000
 K2_ROWS = (1, 16)
 K2_BIG_ROWS = 600  # one request per tenant above the top bucket: split_rows cuts it
 K2_CLASSES = 1000  # bench.py's class count
@@ -2248,13 +2324,15 @@ def _k_leaves(tree, prefix: str = "") -> dict:
     return {prefix.rstrip("/"): tree}
 
 
-def _k_check_states(torch, engine, folds, rows, what: str) -> int:
-    """Every tenant's engine state equal to its fold, leaf for leaf with its dtype;
-    ``_update_count`` counts rows (the engine updates a row at a time, the fold a
-    request at a time). The number of leaves compared."""
+def _k_check_states(torch, engine, folds, rows, what: str, states=None) -> int:
+    """Every tenant's engine state (or its entry in ``states``, read beforehand)
+    equal to its fold, leaf for leaf with its dtype; ``_update_count`` counts
+    rows (the engine updates a row at a time, the fold a request at a time).
+    The number of leaves compared."""
     compared = 0
     for key, fold in folds.items():
-        got, want = _k_leaves(engine._keyed.state_of(key)), _k_leaves(fold)
+        state = states[key] if states is not None else engine._keyed.state_of(key)
+        got, want = _k_leaves(state), _k_leaves(fold)
         _check(set(got) == set(want), f"{what} {key}: leaves {sorted(got)} vs {sorted(want)}")
         for path, x in got.items():
             y = want[path]
@@ -2762,12 +2840,12 @@ def phase_l(torch, np) -> dict:
 
 # --------------------------------------------------------------------------- Phase M: the durable state plane
 
-M_PAIRS = 4  # plain/checkpointing pairs of benchmarks/engine_throughput.py's overhead gate (:442-476; 6 there)
+M_PAIRS = 1  # plain/checkpointing pairs of benchmarks/engine_throughput.py's overhead gate (:442-476; 6 there)
 M_INTERVAL_S = 0.25  # that gate's CheckpointConfig(interval_s=0.25, retain=3)
 M_RETAIN = 3
 M_GATE_PCT = 5.0  # its ckpt_overhead_lt_5pct: a record here (the engine's rate moves between calls)
-M2_QUANTILE_REQUESTS = 4000
-M2_FLAGSHIP_REQUESTS = 2000
+M2_QUANTILE_REQUESTS = 2000
+M2_FLAGSHIP_REQUESTS = 1000
 M3_CPU_REQUESTS = 40
 M3_BATCH = 4096  # labels per update of the collection saved and restored on the card
 
@@ -3103,7 +3181,7 @@ def phase_m(torch, np, obs, instrument) -> dict:
 
 # --------------------------------------------------------------------------- Phase N: the guard plane
 
-N_PAIRS = 4  # benchmarks/engine_throughput.py --guard's overhead pairs (:1284-1297; 6 there)
+N_PAIRS = 1  # benchmarks/engine_throughput.py --guard's overhead pairs (:1284-1297; 6 there)
 N_GATE_PCT = 5.0  # its guard_overhead_lt_5pct: a record here, as M1's
 N2_BURST, N2_HEAVY_ROWS, N2_LIGHT_TENANTS, N2_LIGHT_REQUESTS = 400, 64, 9, 100  # (:1309-1362)
 N2_GUARDED_PAIRS, N2_UNGUARDED_PAIRS = 3, 1  # 5 and 2 there
@@ -3116,15 +3194,19 @@ N3_REQUESTS = 48  # flagship requests a fault window
 N3_WATCHDOG = dict(watchdog_timeout_s=5.0, watchdog_poll_s=0.02, hang_lock_timeout_s=1.0)
 
 
-def _engine_pass(torch, np, reqs, folds, rows, what: str, **engine_kw) -> tuple:
+def _engine_pass(torch, np, reqs, folds, rows, what: str, supervise=None, **engine_kw) -> tuple:
     """One warmed, timed K6 pass (the benchmark's run_engine_pass) with the
-    given planes; the states held to the fold. Returns ``(record, engine)``
-    with the engine still open; the caller closes it."""
+    given planes, and supervised by ``supervise(engine)`` where given (a
+    cluster node, which registers itself as ``engine._cluster``); the states
+    held to the fold. Returns ``(record, engine)`` with the engine still open;
+    the caller closes it."""
     from metrics_tpu_torch.classification import BinaryAccuracy
     from metrics_tpu_torch.engine import StreamingEngine
 
     engine = StreamingEngine(BinaryAccuracy(device="cuda"), buckets=K_BUCKETS, max_queue=K_QUEUE,
                              capacity=K_TENANTS, **engine_kw)
+    if supervise is not None:
+        supervise(engine)
     rng = np.random.default_rng(13)
     _k_warm(engine, lambda n: (rng.integers(0, 2, n), rng.integers(0, 2, n)), K_BUCKETS,
             sorted({key for key, _ in reqs}))
@@ -3719,14 +3801,14 @@ def phase_o(torch, np) -> dict:
 
 # --------------------------------------------------------------------------- Phase P: the replication plane
 
-P_PAIRS = 4  # benchmarks/engine_throughput.py --replica's shipping pairs (:532-585; 6 there)
+P_PAIRS = 1  # benchmarks/engine_throughput.py --replica's shipping pairs (:532-585; 6 there)
 P_GATE_PCT = 5.0  # its shipping_overhead_lt_5pct: a record here, as M1's
 P_SHIP_INTERVAL_S = 0.02  # that gate's ReplConfig(ship_interval_s=0.02)
 P2_READ_S = 2.0  # the read windows of its scale-out gate (:595-666)
 P2_HEARTBEAT_S = 0.1
 P2_WRITERS, P2_WRITER_ROWS, P2_WRITER_PACE_S = 4, 64, 0.001
 P2_GATE_RATIO, P2_FLOOR_PER_S = 5.0, 500.0  # follower_ge_5x_primary_reads, follower_reads_ge_floor
-P3_SEGMENTS = {"flagship": 192, "quantile": 512}  # requests a segment: live, after the restart, profiled
+P3_SEGMENTS = {"flagship": 128, "quantile": 384}  # requests a segment: live, after the restart, profiled
 P3_AFTER_PROMOTION = 128  # requests the promoted engine serves
 P3_PROFILE_ATTEMPTS = 5
 P3_ZOMBIE = 32  # requests the deposed primary journals and ships after the promotion
@@ -3760,11 +3842,12 @@ def _p_read_rate(engine, seconds: float, n_threads: int = 4) -> float:
     return sum(counts) / (time.perf_counter() - t0)
 
 
-def _p1_pass(torch, np, reqs, folds, rows, directory: str, ship: bool) -> dict:
+def _p1_pass(torch, np, reqs, folds, rows, directory: str, ship: bool, supervise=None) -> dict:
     """One K6 pass with checkpointing (M1's configuration) and, with ``ship``, a
     shipping primary over a LoopbackLink that a thread drains and discards (the
     follower of a real deployment replays on another host); the shipper
-    thread's wall ms in its ticks is summed."""
+    thread's wall ms in its ticks is summed. ``supervise`` attaches a cluster
+    node (Phases T2 and U3), closed before the engine."""
     import threading
 
     from metrics_tpu_torch.engine import CheckpointConfig, ReplConfig
@@ -3783,14 +3866,21 @@ def _p1_pass(torch, np, reqs, folds, rows, directory: str, ship: bool) -> dict:
         drainer.start()
         kw["replication"] = ReplConfig(role="primary", transport=link, ship_interval_s=P_SHIP_INTERVAL_S)
     try:
-        rec, engine = _engine_pass(torch, np, reqs, folds, rows, "P1 ship" if ship else "P1 ckpt", **kw)
+        rec, engine = _engine_pass(torch, np, reqs, folds, rows, "P1 ship" if ship else "P1 ckpt",
+                                   supervise=supervise, **kw)
+        node = engine._cluster
         try:
             snap = engine.telemetry_snapshot()
             if ship:
                 _check(not engine._shipper.fenced and snap["ship_failures"] == 0,
                        f"P1: fenced {engine._shipper.fenced}, {snap['ship_failures']} ship failures")
                 rec["shipped_records"] = snap["shipped_records"]
+            if node is not None:
+                _check(node.failovers == 0 and not engine._repl_follower, "T pass: the supervised primary stepped down")
+                rec["lease_renewals"], rec["lease_epoch"] = node.lease_renewals, engine._shipper.epoch
         finally:
+            if node is not None:
+                node.close()
             engine.close()  # the final snapshot, then the shipper's final publish
         if ship:
             _check(engine._shipper.last_shipped_seq == engine._wal_seq,
@@ -3870,8 +3960,10 @@ class _PTimedLock:
 def _p2_reader(spool: str, seconds: float) -> int:
     """The read replica of Phase P2, in its own process (the parent starts this
     script again with ``--replica-reader SPOOL SECONDS``): a follower on the card
-    over the primary's directory spool. Prints READY once it holds tenant-0,
-    then one JSON line with its compute() rate under the primary's write flood."""
+    over the primary's directory spool. Prints BOOTSTRAPPED once it holds
+    tenant-0, READY once it has captured a graph a bucket (on the records of
+    the requests the parent sends then), then one JSON line with its compute()
+    rate under the primary's write flood."""
     import torch
 
     from metrics_tpu_torch.classification import BinaryAccuracy
@@ -3891,11 +3983,20 @@ def _p2_reader(spool: str, seconds: float) -> int:
         if "tenant-0" not in follower._keyed.keys:
             print("READER_FAILED bootstrap timed out", flush=True)
             return 1
-        # the primary's warm-up records replayed (the follower captures its graphs on them,
-        # under its dispatch lock), then the read path warm
         while (follower._applier.applied_seq < follower._applier.known_seq or follower._applier.applied_seq < 1) \
                 and time.perf_counter() < deadline:
             time.sleep(0.01)
+        # the follower captures a bucket's graph when it first replays a record of it, under
+        # its dispatch lock. A bootstrap snapshot that already covers the primary's warm-up
+        # records leaves both captures to the first records of the flood, inside the read
+        # window (0.27-0.46 s holds of the lock on an H100, reads down to 47/s): the parent
+        # sends one request a rung once this line is out, and the window waits for both
+        print("BOOTSTRAPPED", flush=True)
+        while follower.telemetry_snapshot()["compiles"] < len(K_BUCKETS) and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        if follower.telemetry_snapshot()["compiles"] < len(K_BUCKETS):
+            print("READER_FAILED the warm-up records were not replayed", flush=True)
+            return 1
         float(follower.compute("tenant-0"))
         # the readers' waits for the dispatch lock, which the applier holds through each replay
         waited = {"s": 0.0}
@@ -3954,7 +4055,12 @@ def phase_p2(torch, np) -> dict:
             reader = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--replica-reader", spool,
                                        str(P2_READ_S)], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             line = reader.stdout.readline()
-            _check("READY" in line, f"P2: the reader did not bootstrap: {line!r}")
+            _check("BOOTSTRAPPED" in line, f"P2: the reader did not bootstrap: {line!r}")
+            for rows in K_BUCKETS:  # replayed by the follower: its two graphs captured before the window
+                primary.submit("tenant-1", rng.integers(0, 2, rows), rng.integers(0, 2, rows))
+                primary.flush(timeout=300)
+            line = reader.stdout.readline()
+            _check("READY" in line, f"P2: the reader did not capture its graphs: {line!r}")
             ready_s = time.perf_counter() - t0
 
             def write_load(tid: int) -> None:
@@ -4380,10 +4486,10 @@ def phase_p(torch, np) -> dict:
 
 # ---------------------------------------------------------------------- Phase Q: the comm plane
 
-Q_STEPS = 20  # Q1's graph replays and eager steps, Q2's training steps
+Q_STEPS = 10  # Q1's graph replays and eager steps, Q2's training steps
 Q2_NO_SYNC_STEPS = 3  # Q2 steps timed without the metrics' sync
 Q_SYNC_REPS = 3  # Q2's timed sync_state calls, and its timed Metric.sync() calls
-Q3_REQUESTS = 8000  # K2's request generator, split between the two serving processes
+Q3_REQUESTS = 4000  # K2's request generator, split between the two serving processes
 Q_BENCH_ELEMENTS = 262144  # benchmarks/comm_bench.py's base cat-state size (fp32 elements)
 Q_BENCH_SKEWS = (1.0, 0.5, 0.55, 0.6)  # its rank skews, world 4
 Q_BENCH_REPEATS, Q_BENCH_SYNCS = 5, 30  # its overhead gate's rounds and syncs a round
@@ -4526,13 +4632,9 @@ def phase_q1(torch, entry_mod, confmat, card: str) -> dict:
         want = {k: captured[k] * Q_STEPS for k in ROUTES}
         attempts = []
         for attempt in range(3):
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                _profiler_lead_in(torch)
-                replay_all()
-                torch.cuda.synchronize()
+            times = _warm_profile(torch, lambda: (replay_all(), torch.cuda.synchronize()))
             # the second witness: the profiled replays all ran, or the states would fall short
             compared += _q_equal_trees(torch, g_new, states, f"Q1 profiled replays {attempt}: states")
-            times = _kernel_times(prof, torch)
             seen = {k: sum(len(v) for n, v in times.items() if K_PROFILE_NAMES[k][0] in n) for k in ROUTES}
             attempts.append(seen)
             if seen == want or not times:
@@ -5105,13 +5207,13 @@ R_REQUESTS = 8000  # benchmarks/engine_throughput.py --shard (:903-1000): seed 3
 R_SEED = 3
 R_TENANTS = 32
 R_SHARDS = 8
-R_PAIRS = 2  # alternating pairs of each comparison (6 there)
+R_PAIRS = 1  # alternating pairs of each comparison (6 there)
 R_SPEEDUP_FLOOR = 4.0  # its --shard-speedup-floor: a record here (8 dispatchers share one card and one interpreter)
 R_GATE_PCT = 5.0  # its shard1_overhead_lt_5pct: a record here, as M1's
-R_K2_REQUESTS = 512  # K2-style flagship requests over the 8 shards
+R_K2_REQUESTS = 256  # K2-style flagship requests over the 8 shards
 R_K2_BUCKETS = (64,)
 R_K2_CAPACITY = 16
-R_RESIZE_REQUESTS = 2000  # the first requests of the mix, served by the checkpointed shards of R3 and R5
+R_RESIZE_REQUESTS = 500  # the first requests of the mix, served by the checkpointed shards of R3 and R5
 R_RESIZE_TO = 16
 
 
@@ -5188,14 +5290,6 @@ def _r_equal(torch, got: dict, want: dict, what: str) -> int:
     return compared
 
 
-def _r_launches(sharded) -> dict:
-    out = {}
-    for engine in sharded.engines:
-        for name, n in engine.graph_launches().items():
-            out[name] = out.get(name, 0) + n
-    return out
-
-
 def phase_r_k2(torch, np) -> dict:
     """K2's flagship collection (C = 1000) over 8 shards, each with the guard's
     watchdog: the eight dispatchers capture at once, with no takeover and no
@@ -5207,7 +5301,6 @@ def phase_r_k2(torch, np) -> dict:
 
     from metrics_tpu_torch.engine import GuardConfig
     from metrics_tpu_torch.shard import ShardConfig, ShardedEngine
-    from torch.profiler import ProfilerActivity, profile
 
     kernels = ("stat_scores", "pair_count")
     rng = np.random.default_rng(5)
@@ -5251,29 +5344,9 @@ def phase_r_k2(torch, np) -> dict:
         for index, engine in enumerate(sharded.engines):
             mine = {k: v for k, v in folds.items() if sharded.shard_of(k) == index}
             compared += _k_check_states(torch, engine, mine, rows, f"R K2 shard {index}")
-        attempts = []
-        for _ in range(3):
-            before = _r_launches(sharded)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                _profiler_lead_in(torch)
-                wall_s = _k_submit(sharded, profile_reqs, K_THREADS)
-            expected = {k: n - before.get(k, 0) for k, n in _r_launches(sharded).items() if k in kernels}
-            times = _kernel_times(prof, torch)
-            seen = {k: sum(len(v) for n, v in times.items() if K_PROFILE_NAMES[k][0] in n) // K_PROFILE_NAMES[k][1]
-                    for k in kernels}
-            attempts.append({"profiled": seen, "in_replays": expected})
-            if seen == expected or not times:
-                break
-        for k in kernels:
-            _check(expected.get(k, 0) > 0, f"R K2: {k} was never launched in a replay ({expected})")
-            # as in P3: the profiler can lose a few records at this launch rate; a lost replay
-            # would take a whole 64-row graph's launches of a kernel at once
-            per_row = {"stat_scores": 2, "pair_count": 1}[k]
-            _check(not times or 0 <= expected[k] - seen[k] < per_row * R_K2_BUCKETS[0],
-                   f"R K2: profiled launches against captured x replays, each attempt: {attempts}")
-        busy_us = sum(sum(v) for v in times.values())
-        graph_launches = _r_launches(sharded)
+        prof = _replays_profiled(torch, sharded.engines, lambda: _k_submit(sharded, profile_reqs, K_THREADS), kernels,
+                           T_PER_ROW, "R K2")
+        graph_launches = _replay_launches(sharded.engines, kernels)
     finally:
         sharded.close()
     return {
@@ -5281,10 +5354,10 @@ def phase_r_k2(torch, np) -> dict:
         "concurrent_capture_ms": captures, "concurrent_capture_wall_s": capture_wall_s,
         "watchdog_timeout_s": N3_WATCHDOG["watchdog_timeout_s"],
         "captures_past_the_timeout": sum(ms > N3_WATCHDOG["watchdog_timeout_s"] * 1e3 for ms in captures),
-        "state_leaves_equal": compared,
-        "launches_in_replays": expected, "launches_profiled": seen, "profile_attempts": attempts,
-        "launches_all_replays": {k: graph_launches.get(k, 0) for k in kernels},
-        "profiled_wall_s": wall_s, "profiled_idle_share": 1.0 - busy_us / (wall_s * 1e6) if times else None,
+        "state_leaves_equal": compared, "launches_all_replays": graph_launches,
+        "launches_in_replays": prof["launches_in_replays"], "launches_profiled": prof["launches_profiled"],
+        "profile_attempts": prof["profile_attempts"], "profiled_wall_s": prof["wall_s"],
+        "profiled_idle_share": prof["idle_share"],
     }
 
 
@@ -5393,6 +5466,684 @@ def phase_r(torch, np) -> dict:
 
 # --------------------------------------------------------------------------- Phase S: the query plane
 
+T_TENANTS = 8
+T_ROWS = 64  # rows a request: one 64-row graph replay each
+T_BUCKETS = (64,)
+T_BEFORE = 64  # client writes acknowledged before the leader dies
+T_AFTER = 64  # and after the failover
+T_PROFILED = 24  # client writes in a profiled window
+# benchmarks/engine_throughput.py --cluster's cadence (:700-706), seeded per node
+T_CADENCE = dict(lease_ttl_s=1.0, heartbeat_interval_s=0.2, suspect_after_s=0.8, confirm_after_s=2.5,
+                 tick_interval_s=0.05)
+T_CLIENT = dict(retries=40, backoff_s=0.02, backoff_cap_s=0.25)  # a failover outlasts the default budget of 8
+T_PAIRS = 1  # --cluster's supervision pairs (:679-745; 6 there)
+T_GATE_PCT = 5.0  # its cluster_overhead_lt_5pct, and --part's part1_overhead_lt_5pct: records here, as M1's
+T_WAIT_S = 120.0
+T_PER_ROW = {"stat_scores": 2, "pair_count": 1}
+U_PARTITIONS = 4
+U_TENANTS_PER_PARTITION = 4
+U_BEFORE = 64
+U_AFTER = 48
+U_SIBLING = 48  # writes to p0's other tenants while one of them migrates
+U4_PARTITIONS, U4_HOSTS = 8, 4  # --part's scaling gate (:1400-1460)
+U4_REQUESTS = 8000
+U4_PAIRS = 1  # its alternating pairs (4 there)
+U4_FLOOR = 3.2  # its --part-scale-floor: a record here (the hosts share one card)
+U4_READY_S = 120.0
+
+
+def _t_labels(np, rng):
+    return rng.integers(0, K2_CLASSES, T_ROWS).astype(np.int64), rng.integers(0, K2_CLASSES, T_ROWS).astype(np.int64)
+
+
+def _t_reqs(np, seed: int, n: int, keys):
+    """``n`` 64-row flagship requests: every tenant of ``keys`` once, in order,
+    then tenants drawn at random."""
+    rng = np.random.default_rng(seed)
+    return [(keys[i] if i < len(keys) else keys[int(rng.integers(0, len(keys)))], _t_labels(np, rng))
+            for i in range(n)]
+
+
+def _t_writable(engine) -> bool:
+    """Accepts writes: neither a follower nor closed."""
+    return not engine._repl_follower and not engine._closed
+
+
+class _WriterPoll:
+    """A thread that samples, every millisecond, how many engines of each group
+    (a lineage, a partition) accept writes; the most seen at once, and the
+    longest gap between two of its samples (how long the interpreter kept it
+    waiting: a supervisor thread waits as long)."""
+
+    def __init__(self, groups) -> None:
+        import threading
+
+        self._groups = groups
+        self.most = dict.fromkeys(groups, 0)
+        self.samples = 0
+        self.max_gap_s = 0.0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, name="writer-poll", daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        last = time.perf_counter()
+        while not self._stop.wait(0.001):
+            for name, engines in self._groups.items():
+                self.most[name] = max(self.most[name], sum(_t_writable(e) for e in engines()))
+            self.samples += 1
+            now = time.perf_counter()
+            self.max_gap_s, last = max(self.max_gap_s, now - last), now
+
+    def stop(self) -> dict:
+        self._stop.set()
+        self._thread.join(10)
+        return {"most_writable_at_once": dict(self.most), "samples": self.samples, "max_sample_gap_s": self.max_gap_s}
+
+
+def _t_write(submit, reqs, acked: list, lock=None) -> None:
+    """Each request through ``submit`` (a router's, or an engine's), its receipt
+    awaited; the acknowledged ones appended to ``acked`` in order, each with
+    whether the engine applied it inline (receipt bucket None: no dispatcher
+    yet, as in the instant between a promotion's role flip and its dispatcher's
+    start, one ``update_state`` of the whole request, which counts one update)."""
+    for key, args in reqs:
+        receipt = submit(key, *args).result(timeout=T_WAIT_S)
+        item = (key, args, receipt["bucket"] is None)
+        if lock is None:
+            acked.append(item)
+        else:
+            with lock:
+                acked.append(item)
+
+
+def _t_fold(torch, acked):
+    """The CPU fold of every acknowledged request, and the ``_update_count`` each
+    tenant's state must show: its rows, or one for a request applied inline."""
+    folds, _rows = _k_fold(torch, _k2_metric("cpu"), [(key, args) for key, args, _inline in acked], "cpu")
+    counts = {}
+    for key, args, inline in acked:
+        counts[key] = counts.get(key, 0) + (1 if inline else args[0].shape[0])
+    return folds, counts
+
+
+def _t_caught_up(engines, leader: str, followers, what: str) -> float:
+    target = engines[leader]._wal_seq
+    return _wait_for(lambda: all(engines[f]._applier is not None and engines[f]._applier.bootstrapped
+                                 and engines[f]._applier.applied_seq >= target for f in followers),
+                     f"{what}: the followers caught up to seq {target}", timeout=T_WAIT_S)
+
+
+def _replay_launches(engines, kernels) -> dict:
+    out = dict.fromkeys(kernels, 0)
+    for engine in engines:
+        for name, n in engine.graph_launches().items():
+            if name in out:
+                out[name] += n
+    return out
+
+
+def _replays_profiled(torch, engines, run, kernels, per_row: dict, what: str) -> dict:
+    """The hand kernels' launches in the engines' replays (captured x replays)
+    against the profiler's count over one window of ``run`` (client writes and
+    the followers' replays of them); profiled again, up to 3 times, while they
+    disagree. As in P3 and R4, the profiler may lose a few records at this
+    launch rate: a lost replay would take a whole 64-row graph's launches of a
+    kernel at once."""
+    from torch.profiler import ProfilerActivity, profile
+
+    attempts = []
+    for _ in range(3):
+        before = _replay_launches(engines, kernels)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _profiler_lead_in(torch)
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+        after = _replay_launches(engines, kernels)
+        expected = {k: after[k] - before[k] for k in kernels}
+        times = _kernel_times(prof, torch)
+        seen = {k: sum(len(v) for n, v in times.items() if K_PROFILE_NAMES[k][0] in n) // K_PROFILE_NAMES[k][1]
+                for k in kernels}
+        attempts.append({"profiled": seen, "in_replays": expected})
+        if seen == expected or not times:
+            break
+    for k in kernels:
+        _check(expected[k] > 0, f"{what}: {k} was never launched in a replay ({expected})")
+        _check(not times or 0 <= expected[k] - seen[k] < per_row[k] * T_BUCKETS[0],
+               f"{what}: profiled launches against captured x replays, each attempt: {attempts}")
+    busy_us = sum(sum(v) for v in times.values())
+    return {"launches_in_replays": expected, "launches_profiled": seen, "profile_attempts": attempts,
+            "wall_s": wall_s, "idle_share": 1.0 - busy_us / (wall_s * 1e6) if times else None}
+
+
+def phase_t1(torch, np, root: str) -> dict:
+    """The JAX tests' three-node cluster at full width, live: 'a' a checkpointed
+    primary shipping through a FanoutTransport of LoopbackLinks, 'b' and 'c'
+    followers with promote_checkpoint, each supervised by a ClusterNode thread
+    at the --cluster cadence over a DirectoryCoordStore. Writes go through a
+    ClusterClient; 'a' dies (its node stops without releasing, its engine
+    closes); a follower wins the lease at a higher epoch and promotes at it;
+    writes go on; a's last epoch-1 shipment, delivered again, is refused at
+    both links; 'a' is recovered from its directory, steps down and its node
+    attaches it to the new leader. The states against a CPU fold of every
+    acknowledged write; then, with the supervisors stopped (the profiler's
+    teardown holds the interpreter past half a lease), the launches in the
+    three engines' replays against the profiler."""
+    import threading
+
+    from metrics_tpu_torch.cluster import ClusterClient, ClusterConfig, ClusterNode, DirectoryCoordStore
+    from metrics_tpu_torch.engine import CheckpointConfig, ReplConfig, StreamingEngine
+    from metrics_tpu_torch.repl import FanoutTransport, FencedError, LoopbackLink
+
+    names = ("a", "b", "c")
+    links = {}
+
+    def link(src, dst):
+        return links.setdefault((src, dst), LoopbackLink())
+
+    def ckpt(name):
+        return CheckpointConfig(directory=os.path.join(root, name), interval_s=3600.0, retain=M_RETAIN,
+                                wal_flush="fsync")
+
+    def primary_cfg():
+        return ReplConfig(role="primary", transport=FanoutTransport([link("a", "b"), link("a", "c")]),
+                          ship_interval_s=0.01, heartbeat_interval_s=0.05, epoch=1)
+
+    def node_for(name):
+        return ClusterNode(engines[name], ClusterConfig(
+            node_id=name, peers=tuple(n for n in names if n != name), store=store, link_factory=link,
+            rng_seed=ord(name), **T_CADENCE))
+
+    kw = dict(buckets=T_BUCKETS, max_queue=K_QUEUE, capacity=T_TENANTS)
+    keys = [f"tenant-{k}" for k in range(T_TENANTS)]
+    store = DirectoryCoordStore(os.path.join(root, "coord"))
+    engines = {"a": StreamingEngine(_k2_metric(), checkpoint=ckpt("a"), replication=primary_cfg(), **kw)}
+    for name in ("b", "c"):
+        engines[name] = StreamingEngine(_k2_metric(), replication=ReplConfig(
+            role="follower", transport=link("a", name), poll_interval_s=0.005, promote_checkpoint=ckpt(name)), **kw)
+    shipped = []  # a's last WAL frame, kept to be delivered again after the failover
+    fan = engines["a"]._repl_cfg.transport
+    send = fan.send
+
+    def recording_send(frames):
+        send(frames)
+        wal = [f for f in frames if type(f).__name__ == "WalFrame"]
+        if wal:
+            shipped[:] = wal[-1:]
+
+    fan.send = recording_send
+    # deterministic formation: 'a' holds epoch 1 before any node ticks
+    _check(store.acquire_lease("a", T_CADENCE["lease_ttl_s"]) is not None, "T1: the first lease")
+    nodes, poll, acked = {}, None, []
+    reqs = _t_reqs(np, 31, T_BEFORE + T_AFTER + T_PROFILED, keys)
+    before, after, profiled = reqs[:T_BEFORE], reqs[T_BEFORE:T_BEFORE + T_AFTER], reqs[T_BEFORE + T_AFTER:]
+    lineage = dict(engines)  # the engines the sampler watches: a's recovered engine joins once it stepped down
+    try:
+        poll = _WriterPoll({"lineage": lambda: list(lineage.values())})
+        nodes = {name: node_for(name) for name in names}
+        form_s = _wait_for(lambda: all(nodes[n]._following == "a" for n in ("b", "c")), "T1: b and c follow a",
+                           timeout=T_WAIT_S)
+        client = ClusterClient(store, dict(engines), rng_seed=7, **T_CLIENT)
+        t0 = time.perf_counter()
+        _t_write(client.submit, before, acked)
+        before_s = time.perf_counter() - t0
+        _t_caught_up(engines, "a", ("b", "c"), "T1 before")
+        epoch_before = store.read_lease().epoch
+        # 'a' dies: its node stops without releasing the lease, its engine closes (no final snapshot)
+        promoted = {}
+        t_dead = time.perf_counter()
+
+        def watch():
+            while not promoted and time.perf_counter() - t_dead < T_WAIT_S:
+                for n in ("b", "c"):
+                    if _t_writable(engines[n]):
+                        promoted[n] = time.perf_counter() - t_dead
+                time.sleep(0.001)
+
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        nodes["a"].close(release=False)
+        engines["a"].close(checkpoint=False)
+        _t_write(client.submit, after[:1], acked)
+        first_ack_s = time.perf_counter() - t_dead
+        watcher.join(T_WAIT_S)
+        lease = store.read_lease()
+        leader = lease.holder
+        loser = "c" if leader == "b" else "b"
+        _t_write(client.submit, after[1:], acked)
+        _t_caught_up(engines, leader, (loser,), "T1 after")
+        _check(leader in ("b", "c") and lease.epoch > epoch_before and engines[leader]._repl_epoch == lease.epoch
+               and nodes[leader].failovers == 1 and nodes[loser]._following == leader,
+               f"T1: lease {lease} after epoch {epoch_before}, epochs {[engines[n]._repl_epoch for n in names]}, "
+               f"failovers {[nodes[n].failovers for n in names]}, {loser} follows {nodes[loser]._following}")
+        # a's last shipment at epoch 1, delivered late: both of its links refuse it at the fence
+        refused = 0
+        for dst in ("b", "c"):
+            try:
+                link("a", dst).send(shipped)
+            except FencedError:
+                refused += 1
+        _check(len(shipped) == 1 and shipped[0].epoch == epoch_before and refused == 2,
+               f"T1: a's late epoch-{epoch_before} shipment refused at {refused} of 2 links")
+        # 'a' recovered from its directory (no dispatcher started), its states equal to the
+        # fold of what it acknowledged; it steps down, and its node attaches it to the new
+        # leader, where it bootstraps into the new lineage
+        t1 = time.perf_counter()
+        engines["a"] = StreamingEngine(_k2_metric(), checkpoint=ckpt("a"), replication=primary_cfg(), start=False,
+                                       **kw)
+        recovered_s = time.perf_counter() - t1
+        folds, counts = _t_fold(torch, acked[:T_BEFORE])
+        recovered = _k_check_states(torch, None, folds, counts, "T1 a recovered", states=_p_states(engines["a"]))
+        recovered_epoch = int(engines["a"]._repl_epoch)
+        engines["a"].demote(None)
+        lineage["a"] = engines["a"]
+        nodes["a"] = node_for("a")
+        rejoin_s = _wait_for(lambda: nodes["a"]._following == leader and engines["a"]._applier is not None,
+                             "T1: a rejoins as a follower", timeout=T_WAIT_S)
+        _t_caught_up(engines, leader, ("a", loser), "T1 rejoin")
+        final = store.read_lease()
+        cluster = {"lease": {"holder": final.holder, "epoch": final.epoch},
+                   "failovers": {n: nodes[n].failovers for n in names},
+                   "suspicions": {n: nodes[n].suspicions for n in names},
+                   "lease_renewals": {n: nodes[n].lease_renewals for n in names},
+                   "health": {n: engines[n].health()["cluster"] for n in names}}
+        _check(final.holder == leader and final.epoch == lease.epoch,
+               f"T1: the lease moved again after the failover: {final} after {lease}")
+        for node in nodes.values():
+            node.close(release=False)
+        nodes = {}
+        # with the supervisors stopped: a profiled window of writes on the leader and the
+        # two followers' replays of them
+        prof = _replays_profiled(torch, [engines[n] for n in names],
+                           lambda: (_t_write(engines[leader].submit, profiled, acked),
+                                    _t_caught_up(engines, leader, ("a", loser), "T1 profiled")),
+                           ("stat_scores", "pair_count"), T_PER_ROW, "T1")
+        folds, counts = _t_fold(torch, acked)
+        leaves = {n: _k_check_states(torch, None, folds, counts, f"T1 {n}", states=_p_states(engines[n]))
+                  for n in names}
+        launches = _replay_launches([engines[n] for n in names], ("stat_scores", "pair_count"))
+        polled = poll.stop()
+        _check(polled["most_writable_at_once"]["lineage"] == 1,
+               f"T1: engines that accepted writes at once: {polled}")
+        out = {
+            "leader": leader, "epoch_before": epoch_before, "lease_epoch": lease.epoch, "acknowledged": len(acked),
+            "applied_inline": sum(inline for _k, _a, inline in acked), "form_s": form_s,
+            "before_req_per_s": len(before) / before_s, "death_to_first_ack_s": first_ack_s,
+            "death_to_promotion_s": promoted.get(leader), "redirects": client.redirects,
+            "late_shipment_refused_links": refused, "a_recovered_ms": recovered_s * 1e3,
+            "a_recovered_leaves_equal": recovered, "a_recovered_epoch": recovered_epoch, "a_rejoin_s": rejoin_s,
+            "state_leaves_equal": leaves, "launches_all_replays": launches, **cluster, **prof, **polled,
+        }
+    finally:
+        if poll is not None:
+            poll.stop()
+        for node in nodes.values():
+            node.close(release=False)
+        for engine in engines.values():
+            engine.close(checkpoint=False)
+    return out
+
+
+def _t_supervisor(kind):
+    """``None``, or a function attaching a ClusterNode or a partitions=1
+    PartitionedNode at the --cluster cadence over a FakeCoordStore on the live
+    clock (the --cluster and --part gates' supervisors)."""
+    from metrics_tpu_torch.cluster import ClusterConfig, ClusterNode, FakeCoordStore
+    from metrics_tpu_torch.part import PartConfig, PartitionedNode
+
+    if kind == "cluster":
+        return lambda engine: ClusterNode(engine, ClusterConfig(
+            node_id="bench-a", peers=("bench-b",), store=FakeCoordStore(), rng_seed=0, **T_CADENCE))
+    if kind == "part":
+        return lambda engine: PartitionedNode({0: engine}, PartConfig(
+            node_id="bench-a", peers=("bench-b",), store=FakeCoordStore(), partitions=1, rng_seed=0, **T_CADENCE))
+    return None
+
+
+def _t_pairs(torch, np, a, b, pairs: int = T_PAIRS) -> dict:
+    """``pairs`` alternating pairs of P1's shipping K6 passes (the --cluster
+    gate's pass) supervised by ``a`` and by ``b`` (``"none"``, ``"cluster"``,
+    ``"part"``); the median pair ratio a / b less one, in %."""
+    import statistics
+    import tempfile
+
+    from metrics_tpu_torch.classification import BinaryAccuracy
+
+    reqs = _k6_reqs(np, K1_REQUESTS, K_TENANTS)
+    folds, rows = _k_fold(torch, BinaryAccuracy(device="cuda"), reqs, "cuda")
+    got = {a: [], b: []}
+    for i in range(pairs):
+        for side in ((a, b) if i % 2 == 0 else (b, a)):
+            with tempfile.TemporaryDirectory() as d:
+                got[side].append(_p1_pass(torch, np, reqs, folds, rows, d, True, _t_supervisor(side)))
+    ratios = [x["req_per_s"] / y["req_per_s"] for x, y in zip(got[a], got[b])]
+    overhead_pct = (statistics.median(ratios) - 1.0) * 100.0
+    return {"overhead_pct": overhead_pct, "gate_pct": T_GATE_PCT, "within_gate": overhead_pct < T_GATE_PCT,
+            "pair_ratios": ratios, f"{a}_req_per_s": [r["req_per_s"] for r in got[a]],
+            f"{b}_req_per_s": [r["req_per_s"] for r in got[b]],
+            "lease_renewals": [r.get("lease_renewals") for r in got[a] + got[b]],
+            "lease_epochs": [r.get("lease_epoch") for r in got[a] + got[b]], "requests": len(reqs)}
+
+
+def phase_t(torch, np) -> dict:
+    """The cluster plane on the card: a live failover (T1) and the supervision
+    overhead (T2)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = {"T1": phase_t1(torch, np, d)}
+    out["T1"]["seconds"] = time.perf_counter() - t0
+    print(f"phase T1 {json.dumps(out['T1'])}")
+    out["T2"] = _t_pairs(torch, np, "none", "cluster")
+    print(f"phase T2 {json.dumps(out['T2'])}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase T: {out['seconds']:.1f} s")
+    return out
+
+
+def phase_u12(torch, np, root: str) -> dict:
+    """2 hosts x 4 partitions of the flagship collection on one card over one
+    FakeCoordStore on the live clock: 'a' leads p0 and p1 and follows p2 and
+    p3, 'b' the reverse, each a PartitionedNode thread at the --cluster
+    cadence; a PartitionedClient routes 16 tenants' writes. 'b' dies: p2 and
+    p3 fail over to 'a' each on its own lease while p0 and p1 keep their
+    epochs (U1). One tenant migrates from p0 to p2 while a thread writes p0's
+    other tenants (U2). Then, the supervisors stopped, a profiled window of
+    writes on a's four engines, the states against the fold, and p2's leader
+    restarts from its directory."""
+    import threading
+
+    from metrics_tpu_torch.cluster import FakeCoordStore
+    from metrics_tpu_torch.engine import CheckpointConfig, GuardConfig, ReplConfig, StreamingEngine
+    from metrics_tpu_torch.part import (
+        PartConfig,
+        PartitionedClient,
+        PartitionedNode,
+        PartitionMap,
+        migrate_tenant,
+        partition_name,
+        sweep_partitions,
+    )
+    from metrics_tpu_torch.repl import FanoutTransport, LoopbackLink
+
+    hosts, home = ("a", "b"), {0: "a", 1: "a", 2: "b", 3: "b"}
+    pids = range(U_PARTITIONS)
+    links = {}
+
+    def link(src, dst, part):
+        return links.setdefault((src, dst, part), LoopbackLink())
+
+    def ckpt(host, pid):
+        return CheckpointConfig(directory=os.path.join(root, host, partition_name(pid)), interval_s=3600.0,
+                                retain=M_RETAIN, wal_flush="fsync")
+
+    kw = dict(buckets=T_BUCKETS, max_queue=K_QUEUE, capacity=2 * U_TENANTS_PER_PARTITION)
+    store = FakeCoordStore()  # the live clock
+    pmap = PartitionMap(U_PARTITIONS, seed=7, directory=os.path.join(root, "pmap"))
+    keys, per_pid, i = [], {pid: 0 for pid in pids}, 0
+    while len(keys) < U_PARTITIONS * U_TENANTS_PER_PARTITION:
+        key = f"tenant-{i}"
+        if per_pid[pmap.partition_of(key)] < U_TENANTS_PER_PARTITION:
+            keys.append(key)
+            per_pid[pmap.partition_of(key)] += 1
+        i += 1
+    engines = {h: {} for h in hosts}
+    for pid in pids:
+        leader = home[pid]
+        other = "b" if leader == "a" else "a"
+        engines[leader][pid] = StreamingEngine(
+            _k2_metric(), checkpoint=ckpt(leader, pid), guard=GuardConfig(shed=False) if pid == 0 else None,
+            replication=ReplConfig(role="primary", transport=FanoutTransport([link(leader, other, partition_name(pid))]),
+                                   ship_interval_s=0.01, heartbeat_interval_s=0.05, epoch=1), **kw)
+        engines[other][pid] = StreamingEngine(_k2_metric(), replication=ReplConfig(
+            role="follower", transport=link(leader, other, partition_name(pid)), poll_interval_s=0.005,
+            promote_checkpoint=ckpt(other, pid)), **kw)
+        _check(store.acquire_lease(leader, T_CADENCE["lease_ttl_s"], name=partition_name(pid)) is not None,
+               f"U1: the first lease of p{pid}")
+    nodes, poll, acked, lock = {}, None, [], threading.Lock()
+    reqs = _t_reqs(np, 41, U_BEFORE + U_AFTER + T_PROFILED, keys)
+    before, after, profiled = reqs[:U_BEFORE], reqs[U_BEFORE:U_BEFORE + U_AFTER], reqs[U_BEFORE + U_AFTER:]
+    try:
+        poll = _WriterPoll({f"p{pid}": (lambda pid=pid: [engines[h][pid] for h in hosts]) for pid in pids})
+        nodes = {h: PartitionedNode(engines[h], PartConfig(
+            node_id=h, peers=tuple(x for x in hosts if x != h), store=store, partitions=U_PARTITIONS,
+            link_factory=link, seed=7, rng_seed=ord(h), **T_CADENCE), pmap=pmap) for h in hosts}
+        form_s = _wait_for(lambda: all(nodes[h]._slots[pid].following == home[pid]
+                                       for pid in pids for h in hosts if h != home[pid]),
+                           "U1: every follower slot attached", timeout=T_WAIT_S)
+        client = PartitionedClient(store, engines, pmap=pmap, rng_seed=7, **T_CLIENT)
+        t0 = time.perf_counter()
+        _t_write(client.submit, before, acked)
+        before_s = time.perf_counter() - t0
+        for pid in pids:
+            _t_caught_up({h: engines[h][pid] for h in hosts}, home[pid], [h for h in hosts if h != home[pid]],
+                         f"U1 p{pid}")
+        epochs = {pid: store.read_lease(partition_name(pid)).epoch for pid in pids}
+        routes = {key: client.partition_of(key) for key in keys}
+        # 'b' dies holding p2 and p3
+        t_dead = time.perf_counter()
+        nodes["b"].close(release=False)
+        for engine in engines["b"].values():
+            engine.close(checkpoint=False)
+        failover_s = {}
+        while len(failover_s) < 2:
+            for pid in (2, 3):
+                if pid not in failover_s and nodes["a"]._slots[pid].failovers:
+                    failover_s[pid] = time.perf_counter() - t_dead
+            _check(time.perf_counter() - t_dead < T_WAIT_S, f"U1: failovers of p2, p3 within {T_WAIT_S} s")
+            time.sleep(0.002)
+        _t_write(client.submit, after, acked)
+        leases = {pid: store.read_lease(partition_name(pid)) for pid in pids}
+        _check(all(leases[pid].holder == "a" for pid in pids) and nodes["a"].owned() == tuple(pids)
+               and all(leases[pid].epoch == epochs[pid] for pid in (0, 1))
+               and all(leases[pid].epoch > epochs[pid] and engines["a"][pid]._repl_epoch == leases[pid].epoch
+                       for pid in (2, 3)),
+               f"U1: leases {leases} against {epochs} before")
+        _check({key: client.partition_of(key) for key in keys} == routes, "U1: a route moved")
+        u1 = {"form_s": form_s, "before_req_per_s": len(before) / before_s, "failover_s": failover_s,
+              "epochs_before": epochs, "epochs_after": {pid: leases[pid].epoch for pid in pids},
+              "redirects": client.redirects, "acknowledged": len(acked)}
+        # U2: one of p0's tenants moves to p2 while a thread keeps writing p0's others
+        src, dst = engines["a"][0], engines["a"][2]
+        moved = next(k for k in keys if pmap.partition_of(k) == 0)
+        siblings = [k for k in keys if pmap.partition_of(k) == 0 and k != moved]
+        entry_before = src.export_tenant(moved, retire=False)
+        plan = migrate_tenant(moved, 2, pmap=pmap, src_engine=src, dst_engine=dst, node_id="a", dry_run=True)
+        writer = threading.Thread(target=_t_write,
+                                  args=(client.submit, _t_reqs(np, 43, U_SIBLING, siblings), acked, lock))
+        t0 = time.perf_counter()
+        writer.start()
+        migrated = migrate_tenant(moved, 2, pmap=pmap, src_engine=src, dst_engine=dst, node_id="a")
+        migrate_s = time.perf_counter() - t0
+        writer.join(T_WAIT_S)
+        _check(not writer.is_alive() and migrated is True and plan["valid"], f"U2: migrated {migrated}, plan {plan}")
+        entry_after = dst.export_tenant(moved, retire=False)
+        same = [np.array_equal(np.asarray(x), np.asarray(y)) for x, y in
+                zip(_k_leaves(entry_before["state"]).values(), _k_leaves(entry_after["state"]).values())]
+        _check(len(same) == len(_k_leaves(entry_before["state"])) and all(same), "U2: the moved state differs")
+        _t_write(client.submit, _t_reqs(np, 44, 8, [moved]), acked)  # later writes fold onto the moved state
+        manifest = PartitionMap(U_PARTITIONS, seed=7, directory=pmap.directory)
+        _check(manifest.partition_of(moved) == 2 and moved not in list(src._keyed.keys)
+               and manifest.epoch_floor(2) == plan["epoch_floor"], "U2: the manifest does not hold the move")
+        final = {pid: store.read_lease(partition_name(pid)).epoch for pid in pids}
+        u1["epochs_at_the_end"] = final
+        u1["health"] = nodes["a"].health_view()
+        _check(all(final[pid] == epochs[pid] for pid in (0, 1)), f"U: p0 or p1 changed epoch: {final} from {epochs}")
+        for node in nodes.values():
+            node.close(release=False)
+        nodes = {}
+        # the supervisors stopped: a profiled window of writes on a's four engines
+        prof = _replays_profiled(torch, list(engines["a"].values()),
+                           lambda: _t_write(lambda key, *args: engines["a"][pmap.partition_of(key)].submit(key, *args),
+                                            profiled, acked),
+                           ("stat_scores", "pair_count"), T_PER_ROW, "U1")
+        u1.update(prof)
+        u1["launches_all_replays"] = _replay_launches(list(engines["a"].values()), ("stat_scores", "pair_count"))
+        folds, counts = _t_fold(torch, acked)
+        leaves = 0
+        for pid in pids:
+            mine = {k: v for k, v in folds.items() if pmap.partition_of(k) == pid}
+            leaves += _k_check_states(torch, None, mine, counts, f"U p{pid}", states=_p_states(engines["a"][pid]))
+        # p2's leader restarts from its directory: the tenant is recovered there, and
+        # the recovery sweep finds no tenant on a partition that does not route it
+        dst.close(checkpoint=False)
+        t0 = time.perf_counter()
+        engines["a"][2] = StreamingEngine(_k2_metric(), checkpoint=ckpt("a", 2), **kw)
+        restart_s = time.perf_counter() - t0
+        swept = sweep_partitions(manifest, engines["a"])
+        mine = {k: v for k, v in folds.items() if manifest.partition_of(k) == 2}
+        restarted = _k_check_states(torch, None, mine, counts, "U2 restarted p2", states=_p_states(engines["a"][2]))
+        _check(swept == 0 and moved in mine, f"U2: the sweep evicted {swept}")
+        polled = poll.stop()
+        _check(all(n == 1 for n in polled["most_writable_at_once"].values()),
+               f"U: engines of one partition that accepted writes at once: {polled}")
+        u1.update(polled)
+        u1["state_leaves_equal"] = leaves
+        u1["applied_inline"] = sum(inline for _k, _a, inline in acked)
+        u2 = {"moved": moved, "plan": plan, "migrate_s": migrate_s, "sibling_writes": U_SIBLING,
+              "restart_s": restart_s, "restarted_leaves_equal": restarted, "swept": swept}
+    finally:
+        if poll is not None:
+            poll.stop()
+        for node in nodes.values():
+            node.close(release=False)
+        for per_pid in engines.values():
+            for engine in per_pid.values():
+                engine.close(checkpoint=False)
+    return {"U1": u1, "U2": u2}
+
+
+def _u_host(seed: int, npart: int, requests: int) -> int:
+    """One loopback host of U4 (this script started with ``--u-host``): a
+    PartitionedNode leading ``npart`` partitions of ``BinaryAccuracy`` engines
+    on cuda:0 on its own FakeCoordStore at the --cluster cadence; READY once
+    every lease is held, then, on GO, its share of batch-1 writes from 4
+    threads and one JSON line of its rate (engine_throughput.py's
+    _part_host_child)."""
+    import gc
+    import threading
+
+    import numpy as np
+
+    from metrics_tpu_torch.classification import BinaryAccuracy
+    from metrics_tpu_torch.cluster import FakeCoordStore
+    from metrics_tpu_torch.engine import StreamingEngine
+    from metrics_tpu_torch.part import PartConfig, PartitionedNode
+
+    rng = np.random.default_rng(seed)
+    engines = {pid: StreamingEngine(BinaryAccuracy(device="cuda"), buckets=(8,), max_queue=K_QUEUE, capacity=8)
+               for pid in range(npart)}
+    node = PartitionedNode(engines, PartConfig(node_id="host", peers=(), store=FakeCoordStore(), partitions=npart,
+                                               rng_seed=seed, **T_CADENCE))
+    try:
+        deadline = time.perf_counter() + 30.0
+        while len(node.owned()) < npart and time.perf_counter() < deadline:
+            time.sleep(0.01)
+        per = requests // npart
+        streams = {pid: [(f"t{pid}-{rng.integers(0, 8)}", rng.integers(0, 2, 1), rng.integers(0, 2, 1))
+                         for _ in range(per)] for pid in range(npart)}
+        flat = [(pid, *streams[pid][i]) for i in range(per) for pid in range(npart)]
+        for pid in range(npart):  # warm: slots allocated, the bucket captured
+            for k in range(8):
+                engines[pid].submit(f"t{pid}-{k}", np.ones(1, np.int64), np.ones(1, np.int64))
+            engines[pid].flush(timeout=300)
+            engines[pid].reset()
+        print("READY" if len(node.owned()) == npart else "NOLEASE", flush=True)
+        sys.stdin.readline()  # GO
+        gc.collect()
+        gc.disable()
+        t0 = time.perf_counter()
+
+        def client(tid: int) -> None:
+            for i in range(tid, len(flat), 4):
+                pid, key, p, t = flat[i]
+                engines[pid].submit(key, p, t)
+
+        threads = [threading.Thread(target=client, args=(tid,)) for tid in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join()
+        for engine in engines.values():
+            engine.flush(timeout=300)
+        wall = time.perf_counter() - t0
+        processed = sum(e.telemetry_snapshot()["processed"] for e in engines.values())
+        print(json.dumps({"rps": len(flat) / wall, "wall": wall, "processed": processed}), flush=True)
+    finally:
+        gc.enable()
+        node.close(release=False)
+        for engine in engines.values():
+            engine.close()
+    return 0
+
+
+def _u4_pass(n_hosts: int) -> dict:
+    """U4_REQUESTS writes over U4_PARTITIONS partitions, led by ``n_hosts``
+    processes on the one card, started together; the aggregate rate over the
+    slowest host's wall."""
+    per_host, npart = U4_REQUESTS // n_hosts, U4_PARTITIONS // n_hosts
+    children = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--u-host", str(11 + i), str(npart),
+                                  str(per_host)], stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+                for i in range(n_hosts)]
+    try:
+        t0 = time.perf_counter()
+        for ch in children:
+            line = ch.stdout.readline()
+            _check("READY" in line, f"U4: a host did not lead its partitions: {line!r}")
+        ready_s = time.perf_counter() - t0
+        for ch in children:
+            ch.stdin.write("GO\n")
+            ch.stdin.flush()
+        done = [json.loads(ch.stdout.readline()) for ch in children]
+        for ch in children:
+            ch.stdin.close()
+            _check(ch.wait(U4_READY_S) == 0, "U4: a host exited non-zero")
+    finally:
+        for ch in children:
+            if ch.poll() is None:
+                ch.kill()
+                ch.wait(60)
+    total = n_hosts * (per_host // npart) * npart
+    _check(all(d["processed"] == (per_host // npart) * npart + 8 * npart for d in done),
+           f"U4: processed {[d['processed'] for d in done]}")
+    return {"req_per_s": total / max(d["wall"] for d in done), "host_walls_s": [d["wall"] for d in done],
+            "ready_s": ready_s}
+
+
+def phase_u(torch, np) -> dict:
+    """The partition plane on the card: independent failovers and a live
+    migration (U1, U2), the partition layer's overhead at partitions=1 (U3)
+    and the 4-host write scaling (U4)."""
+    import statistics
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        out = phase_u12(torch, np, d)
+    out["U1"]["seconds_u1_u2"] = time.perf_counter() - t0
+    print(f"phase U1 {json.dumps(out['U1'])}")
+    print(f"phase U2 {json.dumps(out['U2'])}")
+    out["U3"] = _t_pairs(torch, np, "cluster", "part")
+    print(f"phase U3 {json.dumps(out['U3'])}")
+    passes = {1: [], U4_HOSTS: []}
+    for i in range(U4_PAIRS):
+        for n in ((1, U4_HOSTS) if i % 2 == 0 else (U4_HOSTS, 1)):
+            passes[n].append(_u4_pass(n))
+    ratios = [four["req_per_s"] / one["req_per_s"] for one, four in zip(passes[1], passes[U4_HOSTS])]
+    scale = statistics.median(ratios)
+    out["U4"] = {"scale_x": scale, "jax_floor_x": U4_FLOOR, "meets_jax_floor": scale >= U4_FLOOR,
+                 "pair_ratios": ratios, "one_host": passes[1], "four_hosts": passes[U4_HOSTS],
+                 "partitions": U4_PARTITIONS, "requests": U4_REQUESTS}
+    print(f"phase U4 {json.dumps(out['U4'])}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase U: {out['seconds']:.1f} s")
+    return out
+
+
 S_PARTITIONS = 8  # benchmarks/engine_throughput.py --query (:1779-2030)
 S_QUANTS = (0.5, 0.99)
 S_REGISTERED = 10**6
@@ -5401,37 +6152,9 @@ S_SEED = 18
 S_DASH_TENANTS = 512
 S_HITS = 50
 S_CACHE_FLOOR = 10.0  # its --query-cache-floor: a record here
-S_PAIRS = 3  # the rollup storm's alternating pairs (6 there)
+S_PAIRS = 1  # the rollup storm's alternating pairs (6 there)
 S_BUCKETS = (64,)  # the partitions' bucket ladder (the engine's default, 6 rungs, there): 1 capture an engine
 S_GATE_PCT = 5.0  # its rollup_overhead_lt_5pct: a record here, as M1's
-
-
-class StandInClient:
-    """A partitioned client over one engine a partition: ``GlobalQuery`` reads
-    partition i's rollup and watermark from ``engines[i]``, always a leader
-    read. The partition plane's own client (routers, leases, followers) is not
-    ported yet (ROADMAP A.9b); the CPU tests hold a twin of this class against it."""
-
-    class _PMap:
-        def __init__(self, partitions: int) -> None:
-            self.partitions = partitions
-
-        def name_of(self, pid: int) -> str:
-            return f"p{int(pid)}"
-
-    def __init__(self, engines) -> None:
-        self.engines = list(engines)
-        self.pmap = self._PMap(len(self.engines))
-
-    def rollup(self, pid: int, *, prefer: str = "replica", window: bool = False):
-        import dataclasses
-
-        node = f"{self.pmap.name_of(pid)}-leader"
-        ru = self.engines[pid].rollup(window=window)
-        return dataclasses.replace(ru, partition=self.pmap.name_of(pid), node=node), node, True
-
-    def wal_watermark(self, pid: int, *, prefer: str = "replica", retries=None):
-        return self.engines[pid].wal_watermark(), f"{self.pmap.name_of(pid)}-leader", True
 
 
 def _s_engine(**kw):
@@ -5443,10 +6166,13 @@ def _s_engine(**kw):
 
 def phase_s_exact(torch, np) -> dict:
     """(a) A global p99 over 10^6 registered and 1024 active tenants in 8
-    partitions, ``torch.equal`` to the per-tenant oracle on the card."""
+    partitions, read through a PartitionedClient with one node leading all 8,
+    ``torch.equal`` to the per-tenant oracle on the card."""
     import functools
 
+    from metrics_tpu_torch.cluster import FakeCoordStore
     from metrics_tpu_torch.engine import TierConfig
+    from metrics_tpu_torch.part import PartitionedClient, PartitionMap, partition_name
     from metrics_tpu_torch.query import GlobalQuery
     from metrics_tpu_torch.sketch import QuantileSketch
 
@@ -5454,6 +6180,11 @@ def phase_s_exact(torch, np) -> dict:
     engines = [_s_engine(capacity=256, telemetry_labels={"partition": f"p{pid}"},
                          tier=TierConfig(hot_capacity=4096, idle_demote_s=3600.0, check_interval_s=3600.0))
                for pid in range(S_PARTITIONS)]
+    store = FakeCoordStore()
+    for pid in range(S_PARTITIONS):  # one node leads every partition: exactness is about the merge
+        _check(store.acquire_lease("a", 600.0, name=partition_name(pid)) is not None, f"S1: the lease of p{pid}")
+    client = PartitionedClient(store, {"a": dict(enumerate(engines))}, pmap=PartitionMap(S_PARTITIONS), retries=2,
+                               rng_seed=5)
     try:
         t0 = time.perf_counter()
         per_part = [S_REGISTERED // S_PARTITIONS + (1 if pid < S_REGISTERED % S_PARTITIONS else 0)
@@ -5472,7 +6203,7 @@ def phase_s_exact(torch, np) -> dict:
             engine.flush(timeout=300)
         feed_s = time.perf_counter() - t0
         metric = QuantileSketch(quantiles=S_QUANTS, device="cuda")
-        gq = GlobalQuery(StandInClient(engines), prefer="leader")
+        gq = GlobalQuery(client, prefer="leader")
         t0 = time.perf_counter()
         value, report = gq.quantile(metric, S_QUANTS)
         torch.cuda.synchronize()
@@ -5526,37 +6257,75 @@ def phase_s_exact(torch, np) -> dict:
 
 
 def phase_s_cached(torch, np, root: str) -> dict:
-    """(b) The cached path against the naive per-tenant scatter: 512 tenants over
-    8 journaled leader engines, a populating miss, then 50 timed queries."""
+    """(b) The cached path against the naive per-tenant scatter, served by
+    followers: 8 journaled leaders shipping to 8 followers, one
+    PartitionedClient over both ('a' the leaders, 'b' the followers), 512
+    tenants written through it, ``GlobalQuery`` on ``prefer="replica"``: a
+    populating miss, then 50 timed queries, every one a hit with no leader
+    read, the value equal to the leaders' per-tenant oracle; the
+    ``hist_add`` launches in the replays against the profiler."""
+    import functools
+
     from metrics_tpu_torch import obs
-    from metrics_tpu_torch.engine import CheckpointConfig
+    from metrics_tpu_torch.cluster import FakeCoordStore
+    from metrics_tpu_torch.engine import CheckpointConfig, ReplConfig
     from metrics_tpu_torch.obs.instrument import QUERY_CACHE_HITS, QUERY_LEADER_READS
+    from metrics_tpu_torch.part import PartitionedClient, PartitionMap, partition_name
     from metrics_tpu_torch.query import GlobalQuery
-    from metrics_tpu_torch.shard import HashRing
+    from metrics_tpu_torch.repl import FanoutTransport, LoopbackLink
     from metrics_tpu_torch.sketch import QuantileSketch
 
     rng = np.random.default_rng(S_SEED + 1)
-    ring = HashRing(S_PARTITIONS)
-    engines = [_s_engine(capacity=128, telemetry_labels={"partition": f"p{pid}"},
-                         checkpoint=CheckpointConfig(directory=os.path.join(root, f"p{pid}"), interval_s=0.05))
-               for pid in range(S_PARTITIONS)]
+    store = FakeCoordStore()
+    leaders, followers = {}, {}
+    for pid in range(S_PARTITIONS):
+        link, labels = LoopbackLink(), {"partition": partition_name(pid)}
+        leaders[pid] = _s_engine(capacity=128, telemetry_labels=labels, checkpoint=CheckpointConfig(
+            directory=os.path.join(root, f"p{pid}"), interval_s=0.05), replication=ReplConfig(
+            role="primary", transport=FanoutTransport([link]), ship_interval_s=0.01, heartbeat_interval_s=0.05,
+            epoch=1))
+        followers[pid] = _s_engine(capacity=128, telemetry_labels=labels, replication=ReplConfig(
+            role="follower", transport=link, poll_interval_s=0.01))
+        _check(store.acquire_lease("a", 600.0, name=partition_name(pid)) is not None, f"S2: the lease of p{pid}")
+    client = PartitionedClient(store, {"a": leaders, "b": followers}, pmap=PartitionMap(S_PARTITIONS), retries=4,
+                               rng_seed=7)
+    engines = [*leaders.values(), *followers.values()]
+
+    def settle() -> float:
+        """Until every follower covers a stable leader seq (a journal entry after
+        the stamp would invalidate the cache mid-timing)."""
+        t0 = time.perf_counter()
+        while True:
+            _check(time.perf_counter() - t0 < T_WAIT_S, "S2: the followers never caught up")
+            for engine in leaders.values():
+                engine.flush(timeout=300)
+            seqs = {pid: e._wal_seq for pid, e in leaders.items()}
+            if all(f._applier.bootstrapped and f._applier.applied_seq >= seqs[pid] for pid, f in followers.items()):
+                time.sleep(0.15)
+                if all(leaders[pid]._wal_seq == seqs[pid] for pid in leaders):
+                    return time.perf_counter() - t0
+            time.sleep(0.02)
+
     try:
         keys = [f"dash-{t}" for t in range(S_DASH_TENANTS)]
+        t0 = time.perf_counter()
         for key in keys:
-            engines[ring.shard_for(key)].submit(key, rng.lognormal(0.0, 1.0, 16).astype(np.float32))
-        for engine in engines:
+            client.submit(key, rng.lognormal(0.0, 1.0, 16).astype(np.float32))
+        for engine in leaders.values():
             engine.flush(timeout=300)
+        feed_s = time.perf_counter() - t0
+        settle_s = settle()
         metric = QuantileSketch(quantiles=S_QUANTS, device="cuda")
-        gq = GlobalQuery(StandInClient(engines))
-        _v, miss = gq.quantile(metric, 0.99)
+        gq = GlobalQuery(client)  # prefer="replica": the dashboard's reads
+        miss_value, miss = gq.quantile(metric, 0.99)
         obs.reset()
         obs.enable()
         hits = True
         try:
             t0 = time.perf_counter()
             for _ in range(S_HITS):
-                _v, r = gq.quantile(metric, 0.99)
-                hits = hits and r.cache_hit
+                value, r = gq.quantile(metric, 0.99)
+                hits = hits and r.cache_hit and r.follower_served
             torch.cuda.synchronize()
             cached_s = (time.perf_counter() - t0) / S_HITS
             hit_count = sum(QUERY_CACHE_HITS.collect().values())
@@ -5564,25 +6333,38 @@ def phase_s_cached(torch, np, root: str) -> dict:
         finally:
             obs.reset()
             obs.disable()
-        engines[ring.shard_for(keys[0])].compute(keys[0])  # warm the read path
+        states = {}
+        for pid, engine in leaders.items():
+            states.update(engine._read_states(None, False))
+        oracle = functools.reduce(metric.merge_states, [states[k] for k in keys])
+        expect = metric.quantile_from(oracle, 0.99)
+        client.compute(keys[0], prefer="leader")  # warm the read path
         t0 = time.perf_counter()
         for key in keys:
-            engines[ring.shard_for(key)].compute(key)
+            client.compute(key, prefer="leader")
         torch.cuda.synchronize()
         naive_s = time.perf_counter() - t0
+        replays = _replay_launches(followers.values(), ("hist_add",))
         checks = {"every_timed_query_was_a_hit": hits and hit_count == S_HITS,
-                  "populating_miss_was_full_coverage": miss.partitions_missing == () and not miss.cache_hit}
+                  "hit_flow_never_touched_a_write_leader": leader_reads == 0,
+                  "populating_miss_was_full_coverage": miss.partitions_missing == () and not miss.cache_hit,
+                  "served_by_followers": miss.follower_served and {p.node for p in miss.partitions} == {"b"},
+                  "value_equals_the_leaders_oracle": bool(torch.equal(value, expect) and torch.equal(miss_value, expect)),
+                  "hist_add_in_the_followers_replays": replays["hist_add"] > 0}
         for name, ok in checks.items():
-            _check(ok, f"S cached: {name} failed ({hit_count} hits of {S_HITS})")
+            _check(ok, f"S cached: {name} failed ({hit_count} hits of {S_HITS}, {leader_reads} leader reads)")
+        more = [(keys[int(rng.integers(0, len(keys)))], rng.lognormal(0.0, 1.0, 16).astype(np.float32))
+                for _ in range(T_PROFILED)]
+        prof = _replays_profiled(torch, engines, lambda: ([client.submit(k, v).result(timeout=T_WAIT_S) for k, v in more],
+                                                    settle()), ("hist_add",), {"hist_add": 2}, "S2")
     finally:
         for engine in engines:
             engine.close()
     ratio = naive_s / cached_s
     return {"checks": checks, "cached_ms": cached_s * 1e3, "naive_scatter_ms": naive_s * 1e3, "ratio_x": ratio,
             "jax_floor_x": S_CACHE_FLOOR, "meets_jax_floor": ratio >= S_CACHE_FLOOR, "leader_reads": leader_reads,
-            "leader_reads_note": "the stand-in client serves every read from a leader; the follower-served gate "
-                                 "waits for the partition plane (ROADMAP A.9b)",
-            "tenants": S_DASH_TENANTS, "timed_hits": S_HITS}
+            "feed_s": feed_s, "settle_s": settle_s, "tenants": S_DASH_TENANTS, "timed_hits": S_HITS,
+            "launches_in_follower_replays": replays, **prof}
 
 
 def _s_storm_pass(torch, np, reqs, folds, rows, storm: bool) -> tuple:
@@ -5673,6 +6455,8 @@ def main() -> int:
         return _p2_reader(sys.argv[2], float(sys.argv[3]))  # Phase P2's follower process
     if len(sys.argv) == 6 and sys.argv[1] == "--q-rank":
         return _q_child(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5])  # a rank of Phase Q2 or Q3
+    if len(sys.argv) == 5 and sys.argv[1] == "--u-host":
+        return _u_host(int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]))  # a host of Phase U4
     import torch
 
     if not torch.cuda.is_available():
@@ -5714,6 +6498,12 @@ def main() -> int:
             if "ptxas" in ln or "spill" in ln:
                 print(f"    {ln.strip()}")
 
+    t_mark = [time.perf_counter()]
+
+    def phases_took(names: str) -> None:
+        print(f"phase {names}: {time.perf_counter() - t_mark[0]:.1f} s")
+        t_mark[0] = time.perf_counter()
+
     route_err = phase_a(torch, confmat)
     scatter_err = phase_a_scatter(torch, scatter)
     scatter_err["cms_rows_add"] = max(scatter_err["cms_rows_add"], phase_a_cms_ids(torch, scatter))
@@ -5724,16 +6514,20 @@ def main() -> int:
     six_shape = phase_c_kernel(torch, confmat, n=SIX_N, classes=SIX_C)  # Phase J2's shape, shared memory
     phase_d_profile(torch, entry_mod, step, args)
     del args, step
+    phases_took("A-D")
     sketch_launches, sketch_data = phase_e(torch, scatter, cms_walk, obs, instrument)
     sketch_recs = phase_f(torch, scatter, cms_walk, sketch_data, issue_ops_per_s, clock_mhz * 1e6)
     del sketch_data
+    phases_took("E-F")
     curve_err = phase_g(torch, bc)
     curve_launches, curve_data = phase_h(torch, bc, obs, instrument)
     curve_recs = phase_i(torch, bc, curve_data)
     del curve_data
+    phases_took("G-I")
     collection_step = phase_j1(torch, entry_mod, obs, instrument, steps)
     six = phase_j2(torch, obs, instrument)
     phase_j3(torch)
+    phases_took("J")
     engine = phase_k(torch, scatter)
     import numpy as np
 
@@ -5745,6 +6539,8 @@ def main() -> int:
     comm_plane = phase_q(torch, np, entry_mod, confmat, obs, card)
     shard_plane = phase_r(torch, np)
     query_plane = phase_s(torch, np)
+    cluster_plane = phase_t(torch, np)
+    partition_plane = phase_u(torch, np)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -5791,6 +6587,14 @@ def main() -> int:
                 # the shard plane (Phase R4): the flagship collection over 8 shards, in their replays
                 "phase_r4_shard_replays": shard_plane["R4_flagship"]["launches_all_replays"][route],
                 "phase_r4_shard_replays_profiled": shard_plane["R4_flagship"]["launches_profiled"][route],
+                # the cluster and partition planes (Phases T1, U1): leaders that fail over, followers
+                # that replay, a tenant that migrates; all replays, and a profiled window's
+                "phase_t1_replays": cluster_plane["T1"]["launches_all_replays"][route],
+                "phase_t1_replays_profiled": cluster_plane["T1"]["launches_profiled"][route],
+                "phase_t1_replays_in_profiled_window": cluster_plane["T1"]["launches_in_replays"][route],
+                "phase_u1_replays": partition_plane["U1"]["launches_all_replays"][route],
+                "phase_u1_replays_profiled": partition_plane["U1"]["launches_profiled"][route],
+                "phase_u1_replays_in_profiled_window": partition_plane["U1"]["launches_in_replays"][route],
             },
         })
     shape_fields = ("shape", *fields)
@@ -5819,7 +6623,15 @@ def main() -> int:
                                          replication["P3"]["quantile"]["launches_profiled"][kernel],
                                      # the query plane (Phase S1): 8 partitions' quantile engines
                                      "phase_s1_partition_replays":
-                                         query_plane["S1_exactness"]["launches_in_replays"]["hist_add"]}}
+                                         query_plane["S1_exactness"]["launches_in_replays"]["hist_add"],
+                                     # S2: the followers that serve the cached query, and a profiled
+                                     # window of leaders' and followers' replays
+                                     "phase_s2_follower_replays":
+                                         query_plane["S2_cached"]["launches_in_follower_replays"]["hist_add"],
+                                     "phase_s2_replays_in_profiled_window":
+                                         query_plane["S2_cached"]["launches_in_replays"]["hist_add"],
+                                     "phase_s2_replays_profiled":
+                                         query_plane["S2_cached"]["launches_profiled"]["hist_add"]}}
                if kernel == "hist_add" else {}),
         })
     walk = sketch_recs[f"cms_walk_{HH_BATCH}"]
@@ -5849,7 +6661,8 @@ def main() -> int:
     print(json.dumps({"step": steps, "collection_step": collection_step, "six_metric_collection": six,
                       "engine": engine, "binary_multilabel_mse": classification_l, "durable": durable,
                       "guard": guard, "tier": tier, "replication": replication, "comm": comm_plane,
-                      "shard": shard_plane, "query": query_plane, "card": card}))
+                      "shard": shard_plane, "query": query_plane, "cluster": cluster_plane,
+                      "partition": partition_plane, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

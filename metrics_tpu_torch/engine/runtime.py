@@ -801,6 +801,10 @@ class StreamingEngine:
         self._repl_follower = False
         self._repl_epoch = 0
         self._promote_lock = threading.Lock()
+        # cluster plane (metrics_tpu_torch.cluster / .part): the supervising
+        # ClusterNode or PartitionedNode registers itself here, so health()
+        # carries a `cluster` section and a second supervisor is refused
+        self._cluster: Optional[Any] = None
         if replication is not None and replication.role == "follower" and checkpoint is not None:
             raise MetricsTPUUserError(
                 "a follower replica does not own a durable lineage while following — its state "
@@ -1473,16 +1477,23 @@ class StreamingEngine:
         the promote lock so a concurrent role flip cannot tear a (new epoch, old
         seq) pair. On a follower: the applier's applied position, behind the same
         staleness gate as every other follower read. ``seq`` is ``-1`` with no
-        journaled write yet (or no durable plane at all)."""
+        journaled write yet (or no durable plane at all). An engine whose
+        telemetry carries a ``partition`` label (stamped when a
+        ``PartitionedNode`` adopts it) also sets that partition's WAL-seq gauge."""
         if self._closed:
             raise EngineClosed("wal_watermark() on a closed StreamingEngine")
         self._check_quarantined("wal_watermark")
         self._check_staleness()
         applier = self._applier
         if self._repl_follower and applier is not None:
-            return applier.watermark()
-        with self._promote_lock:
-            return int(self._repl_epoch), int(self._wal_seq)
+            wm = applier.watermark()
+        else:
+            with self._promote_lock:
+                wm = (int(self._repl_epoch), int(self._wal_seq))
+        partition = self.telemetry.label("partition")
+        if partition:
+            _obs.set_part_wal_seq(self.telemetry.engine_id, partition, wm[1])
+        return wm
 
     def _check_quarantined(self, op: str) -> None:
         """Fail fast instead of deadlocking on a dispatch lock a wedged worker holds."""
@@ -1563,7 +1574,8 @@ class StreamingEngine:
         once a hung dispatcher could not be superseded (the guard's watchdog). A
         guard plane's ``on_health_transition`` hook is called once per edge,
         outside the engine's locks. With replication, ``"replication"`` holds
-        the role, epoch, positions and lag.
+        the role, epoch, positions and lag; under a ``ClusterNode`` or
+        ``PartitionedNode``, ``"cluster"`` holds its ``health_view()``.
         """
         with self._lock:
             quarantined = self._quarantined
@@ -1610,6 +1622,9 @@ class StreamingEngine:
         }
         if self._repl_cfg is not None:
             out["replication"] = self._replication_health()
+        cluster = self._cluster
+        if cluster is not None:
+            out["cluster"] = cluster.health_view()
         if guard is not None:
             guard.publish_health(state)
         # detected under the lock (once per transition, however many readers

@@ -46,9 +46,9 @@ BUNDLE_KIND = "metrics_tpu-flight"
 BUNDLE_VERSION = 1
 
 # the edges that dump a bundle (the JAX package's trigger matrix). The port's
-# guard and engine fire the first four and the comm plane's live-set agreement
-# the sixth; the cluster and pilot planes that fire the other two are not
-# ported yet (ROADMAP A.9)
+# guard and engine fire the first four, the cluster plane's lost election the
+# fifth and the comm plane's live-set agreement the sixth; the pilot plane that
+# fires the last is not ported yet (ROADMAP A.9c)
 TRIGGERS = (
     "guard_quarantine",
     "engine_quarantine",

@@ -1,15 +1,16 @@
 """Instrumentation hooks of the metric core, the kernel plane, the comm plane,
-the engine and its durable, guard, tier and replication planes, the shard
-plane and the query plane (port of the metric, kernel, sync, comm, engine,
-ckpt, guard, tier, repl, shard and query sections of
-``metrics_tpu/obs/instrument.py``).
+the engine and its durable, guard, tier and replication planes, the cluster,
+partition, shard and query planes (port of the metric, kernel, sync, comm,
+engine, ckpt, guard, tier, repl, cluster, partition, shard and query sections
+of ``metrics_tpu/obs/instrument.py``).
 
 Every hook returns at once, or hands back a shared no-op, while ``OBS.enabled``
 is false. Unlike the JAX package, whose callers are jitted and so count
 compiled lowerings, PyTorch runs eagerly: the kernel hooks count calls. The
 spans land in the process tracer (:data:`~metrics_tpu_torch.obs.trace.TRACER`),
-and the guard's quarantines, watchdog restarts, breaker openings and an
-engine's quarantine and a live set that shrank dump flight-recorder bundles
+and the guard's quarantines, watchdog restarts, breaker openings, an
+engine's quarantine, a lost election and a live set that shrank dump
+flight-recorder bundles
 (:data:`~metrics_tpu_torch.obs.flight.FLIGHT`), as in the JAX package.
 """
 
@@ -638,6 +639,127 @@ def repl_span(name: str, **attrs: Any) -> Any:
     if not OBS.enabled:
         return _NULL_SPAN
     return TRACER.span(name, **attrs)
+
+
+# ---------------------------------------------------------------------- cluster plane
+
+CLUSTER_ROLE = REGISTRY.gauge(
+    "metrics_tpu_torch_cluster_role",
+    "This node's role in the cluster control plane: 1 leader (holds the lease), 0 follower, per node.",
+)
+CLUSTER_FAILOVERS = REGISTRY.counter(
+    "metrics_tpu_torch_cluster_failovers_total",
+    "Self-driving failovers completed by this node: lease won + promote() succeeded at the lease "
+    "epoch, per node.",
+)
+CLUSTER_LEASE_RENEWALS = REGISTRY.counter(
+    "metrics_tpu_torch_cluster_lease_renewals_total",
+    "Leadership lease renewals (same epoch, deadline extended), per node.",
+)
+CLUSTER_SUSPICIONS = REGISTRY.counter(
+    "metrics_tpu_torch_cluster_suspicions_total",
+    "Failure-detector suspicion edges: a peer's heartbeat went silent past the suspect threshold "
+    "(counted once per silence episode), per node.",
+)
+
+_ROLE_CODES = {"follower": 0, "leader": 1}
+
+
+def set_cluster_role(node: str, role: str) -> None:
+    if not OBS.enabled:
+        return
+    CLUSTER_ROLE.set(_ROLE_CODES.get(role, 0), node=node)
+
+
+def record_cluster_failover(node: str) -> None:
+    if not OBS.enabled:
+        return
+    CLUSTER_FAILOVERS.inc(1, node=node)
+    FLIGHT.record("cluster_failover", node=node)
+
+
+def record_cluster_lease_renewal(node: str) -> None:
+    if not OBS.enabled:
+        return
+    CLUSTER_LEASE_RENEWALS.inc(1, node=node)
+
+
+def record_cluster_suspicion(node: str, peer: str) -> None:
+    if not OBS.enabled:
+        return
+    CLUSTER_SUSPICIONS.inc(1, node=node, peer=peer)
+    FLIGHT.record("cluster_suspicion", node=node, peer=peer)
+
+
+def record_cluster_election_failed(node: str) -> None:
+    """One lost election: this node was eligible, past its backoff, raced the
+    lease CAS during an actual leader vacancy — and lost. Routine contention
+    against a LIVE leader never reaches this hook, so each firing is a real
+    failover-stalled edge worth a bundle."""
+    if not OBS.enabled:
+        return
+    FLIGHT.record("election_failed", node=node)
+    FLIGHT.dump("election_failed", node=node)
+
+
+# ------------------------------------------------------------------- partition plane
+
+PART_ROLE = REGISTRY.gauge(
+    "metrics_tpu_torch_part_role",
+    "This node's role for one keyspace partition: 1 leader (holds the named lease), 0 follower, "
+    "per node and partition.",
+)
+PART_FAILOVERS = REGISTRY.counter(
+    "metrics_tpu_torch_part_failovers_total",
+    "Per-partition failovers completed by this node: named lease won + promote() succeeded at the "
+    "lease epoch, per node and partition.",
+)
+PART_MIGRATIONS = REGISTRY.counter(
+    "metrics_tpu_torch_part_migrations_total",
+    "Live tenant migrations completed between partitions (quarantine + snapshot handoff + "
+    "destination-first commit), per node.",
+)
+PART_WAL_SEQ = REGISTRY.gauge(
+    "metrics_tpu_torch_part_wal_seq",
+    "Newest WAL position of one partition's engine — journaled seq on a leader, applied seq on a "
+    "follower (-1 before the first record), per engine and partition. The query plane's watermark "
+    "cache keys on (epoch, seq) pairs of exactly this number.",
+)
+
+
+def set_part_role(node: str, partition: str, role: str) -> None:
+    if not OBS.enabled:
+        return
+    PART_ROLE.set(_ROLE_CODES.get(role, 0), node=node, partition=partition)
+
+
+def record_part_failover(node: str, partition: str) -> None:
+    if not OBS.enabled:
+        return
+    PART_FAILOVERS.inc(1, node=node, partition=partition)
+    FLIGHT.record("part_failover", node=node, partition=partition)
+
+
+def record_part_lease_lost(node: str, partition: str) -> None:
+    """A held partition lease was lost (expired or conceded) and the partition
+    stepped down — the per-partition analogue of the cluster plane's failover
+    edge, always worth a flight-recorder mark."""
+    if not OBS.enabled:
+        return
+    FLIGHT.record("part_lease_lost", node=node, partition=partition)
+
+
+def record_part_migration(node: str) -> None:
+    if not OBS.enabled:
+        return
+    PART_MIGRATIONS.inc(1, node=node)
+    FLIGHT.record("part_migration", node=node)
+
+
+def set_part_wal_seq(engine: str, partition: str, seq: int) -> None:
+    if not OBS.enabled:
+        return
+    PART_WAL_SEQ.set(float(seq), engine=engine, partition=partition)
 
 
 # ---------------------------------------------------------------------- engine

@@ -25,12 +25,11 @@ merge answers ``quantile(m, 0.5)``, ``quantile(m, 0.99)`` and
 ``cardinality(m)`` alike, because the expensive part — rollup folds and the
 merge tree — is identical for all of them.
 
-The client is duck-typed: anything with a ``pmap`` (``partitions``,
-``name_of(pid)``) whose ``rollup(pid, prefer=, window=)`` and
-``wal_watermark(pid, prefer=, retries=)`` return ``(result, node,
-is_leader)``. The partitioned client of the partition plane is such a client
-(ROADMAP A.9b); until it is ported, a caller passes its own over a list of
-engines, one a partition.
+The client is the partition plane's
+:class:`~metrics_tpu_torch.part.PartitionedClient`, or anything duck-typed like
+it: a ``pmap`` (``partitions``, ``name_of(pid)``) and ``rollup(pid, prefer=,
+window=)`` / ``wal_watermark(pid, prefer=, retries=)`` returning ``(result,
+node, is_leader)``.
 """
 
 from __future__ import annotations
@@ -77,8 +76,9 @@ def _metric_key(metric: Any) -> Tuple[Any, ...]:
 
 
 class GlobalQuery:
-    """Fleet-wide reads over a partitioned client (the JAX package's
-    ``metrics_tpu.part.PartitionedClient``, or any client of its interface).
+    """Fleet-wide reads over a partitioned client
+    (:class:`~metrics_tpu_torch.part.PartitionedClient`, or any client of its
+    interface).
 
     Args:
         client: the partitioned client (its per-partition routers serve the

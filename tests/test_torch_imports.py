@@ -171,19 +171,28 @@ def test_shard_and_query_plane_modules_are_scanned(relpath):
     assert relpath in SOURCES
 
 
-@pytest.mark.parametrize("plane,count", [("shard", 6), ("query", 15), ("cluster", 3)])
+CLUSTER_PART_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("cluster/store", "cluster/config", "cluster/node", "cluster/client", "part/__init__", "part/pmap",
+                 "part/config", "part/migrate", "part/node", "part/client")
+]
+
+
+@pytest.mark.parametrize("relpath", CLUSTER_PART_MODULES)
+def test_cluster_and_partition_plane_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
+@pytest.mark.parametrize("plane,count", [("shard", 6), ("query", 15), ("cluster", 12), ("part", 7)])
 def test_the_shard_query_and_cluster_planes_export_the_jax_names(plane, count):
-    """``shard`` and ``query`` export every name of the JAX package's; ``cluster``
-    holds only its three error types until the rest of the plane is ported."""
+    """``shard``, ``query``, ``cluster`` and ``part`` export every name of the
+    JAX package's."""
     import importlib
 
     port = importlib.import_module(f"metrics_tpu_torch.{plane}")
     ref = importlib.import_module(f"metrics_tpu.{plane}")
     assert len(port.__all__) == count and all(hasattr(port, name) for name in port.__all__)
-    if plane == "cluster":
-        assert set(port.__all__) == {"ClusterConfigError", "CoordStoreError", "NoLeaderError"} <= set(ref.__all__)
-    else:
-        assert sorted(port.__all__) == sorted(ref.__all__)
+    assert sorted(port.__all__) == sorted(ref.__all__)
 
 
 def _series(reg):

@@ -522,8 +522,7 @@ def test_a_write_between_the_stamp_and_the_fold_is_in_both(tmp_path):
 
 class StandInClient:
     """A partitioned client over one engine a partition (either package's):
-    every rollup and probe is served by partition i's engine, as a leader.
-    A twin of the stand-in in ``chip_smoke.py``."""
+    every rollup and probe is served by partition i's engine, as a leader."""
 
     class _PMap:
         def __init__(self, partitions):
@@ -740,6 +739,104 @@ def test_the_stand_in_is_faithful_to_the_jax_partitioned_client(fleet):
     assert got_report.watermarks == want_report.watermarks and got_report.tenants == want_report.tenants == 20
     assert [(r.partition, r.tenants, r.watermark) for r in got_report.partitions] == \
         [(r.partition, r.tenants, r.watermark) for r in want_report.partitions]
+
+
+def _replicated_fleet(pkg, root, keys, rng_seed=7):
+    """P journaled leaders shipping to P followers over loopback links, one
+    ``PartitionedClient`` over both (the JAX ``--query`` benchmark's (b) fleet),
+    fed ``keys`` through the client; returns once every follower covers a
+    stable leader seq."""
+    import metrics_tpu.cluster as jc
+    import metrics_tpu.part as jp
+    import metrics_tpu.repl as jrepl
+    import metrics_tpu_torch.cluster as tc
+    import metrics_tpu_torch.part as tp
+    import metrics_tpu_torch.repl as trepl
+
+    cluster, part, repl, eng = (tc, tp, trepl, tm.engine) if pkg == "port" else (jc, jp, jrepl, jeng)
+    make = FAMILIES["ddsketch"][1 if pkg == "port" else 0]
+    store = cluster.FakeCoordStore(clock=cluster.ManualClock(0.0))
+    leaders, followers = {}, {}
+    for pid in range(P):
+        link = repl.LoopbackLink()
+        leaders[pid] = eng.StreamingEngine(make(), capacity=8, buckets=(8,), checkpoint=eng.CheckpointConfig(
+            directory=str(root / pkg / f"p{pid}"), interval_s=0.05, durable=False), replication=eng.ReplConfig(
+            role="primary", transport=repl.FanoutTransport([link]), ship_interval_s=0.01,
+            heartbeat_interval_s=0.05, epoch=1))
+        followers[pid] = eng.StreamingEngine(make(), capacity=8, buckets=(8,), replication=eng.ReplConfig(
+            role="follower", transport=link, poll_interval_s=0.01))
+        assert store.acquire_lease("a", 600.0, name=part.partition_name(pid))
+    client = part.PartitionedClient(store, {"a": leaders, "b": followers}, pmap=part.PartitionMap(P), retries=4,
+                                    rng_seed=rng_seed, sleep=lambda s: None)
+    rng = np.random.default_rng(21)
+    for key in keys:
+        batch = rng.lognormal(0.0, 1.0, 8).astype(np.float32)
+        client.submit(key, torch.from_numpy(batch) if pkg == "port" else jnp.asarray(batch))
+    deadline = time.monotonic() + 30
+    while True:
+        for engine in leaders.values():
+            engine.flush()
+        seqs = {pid: e._wal_seq for pid, e in leaders.items()}
+        if all(f._applier.bootstrapped and f._applier.applied_seq >= seqs[pid] for pid, f in followers.items()):
+            time.sleep(0.1)
+            if all(leaders[pid]._wal_seq == seqs[pid] for pid in leaders):
+                return client, leaders, followers
+        assert time.monotonic() < deadline, "the followers never caught up"
+        time.sleep(0.02)
+
+
+def test_a_follower_served_global_query_over_the_partitioned_client_equals_jax(tmp_path):
+    """``GlobalQuery`` on ``prefer="replica"`` over each package's
+    ``PartitionedClient`` (leaders on 'a', followers on 'b'): the populating
+    miss and every hit are served by followers, the hit flow makes no leader
+    read, and the value and report equal the JAX package's."""
+    from metrics_tpu import obs as jobs
+    from metrics_tpu.obs.instrument import QUERY_LEADER_READS as JAX_LEADER_READS
+    from metrics_tpu_torch.obs.instrument import QUERY_CACHE_HITS, QUERY_LEADER_READS
+
+    keys = [f"dash-{t}" for t in range(24)]
+    made = []
+    try:
+        for pkg in ("jax", "port"):
+            made.append(_replicated_fleet(pkg, tmp_path, keys))
+        (jclient, jleaders, _jf), (client, leaders, followers) = made
+        metric, jmetric = FAMILIES["ddsketch"][1](), FAMILIES["ddsketch"][0]()
+        gq, jgq = tq.GlobalQuery(client), jq.GlobalQuery(jclient)
+        value, miss = gq.quantile(metric, 0.99)
+        jvalue, jmiss = jgq.quantile(jmetric, 0.99)
+        obs.reset()
+        jobs.reset()
+        obs.enable()
+        jobs.enable()
+        try:
+            hits = [gq.quantile(metric, 0.99) for _ in range(5)]
+            jhits = [jgq.quantile(jmetric, 0.99) for _ in range(5)]
+            assert _total(QUERY_LEADER_READS) == 0 and _total(JAX_LEADER_READS) == 0
+            assert _total(QUERY_CACHE_HITS) == 5
+        finally:
+            obs.disable()
+            jobs.disable()
+            obs.reset()
+            jobs.reset()
+        assert all(r.cache_hit and r.follower_served for _v, r in hits) and all(r.cache_hit for _v, r in jhits)
+        assert all(torch.equal(v, value) for v, _r in hits)
+        oracle = functools.reduce(metric.merge_states, [leaders[client.partition_of(k)]._keyed.state_of(k)
+                                                         for k in keys])
+        assert torch.equal(value, metric.quantile_from(oracle, 0.99))
+        np.testing.assert_allclose(value.numpy(), np.asarray(jvalue), rtol=1e-6)
+        assert miss.follower_served and not miss.cache_hit and miss.partitions_missing == ()
+
+        def view(report):
+            return (report.watermarks, report.merge_hops, report.tenants, report.partitions_missing,
+                    [(r.partition, r.node, r.follower, r.watermark, r.tenants, r.staleness_seqs)
+                     for r in report.partitions])
+
+        assert view(miss) == view(jmiss) and view(hits[-1].report) == view(jhits[-1].report)
+        assert {r.node for r in miss.partitions} == {"b"} and miss.tenants == len(keys)
+    finally:
+        for _client, lead, follow in made:
+            for engine in [*lead.values(), *follow.values()]:
+                engine.close()
 
 
 # ------------------------------------------------------------------------ the property oracle
