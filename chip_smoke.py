@@ -270,13 +270,13 @@ checkout, and then:
   ``parallel/sync.py``). Q1: the flagship metrics' ``update_state`` ->
   ``sync_state(s, group)`` -> ``compute_from`` at the step's shape over NCCL
   at world 1 on ``cuda:0`` (one eager all-reduce first, so the communicator
-  exists), 10 eager steps counted (2 stat-score + 1 table launches a step)
-  and the same step captured in one CUDA graph and replayed 10 times:
+  exists), 6 eager steps counted (2 stat-score + 1 table launches a step)
+  and the same step captured in one CUDA graph and replayed 6 times:
   states, synced states and values ``torch.equal`` to the eager fold, the
   profiler's launches 2 + 1 a replay, NCCL's operations in an eager step's
   profile. Q2: ``entry.make_dp_step`` at bench.py's full width in two
   processes on ``cuda:0`` over gloo (this script started with ``--q-rank q2
-  RANK PORT DIR``), each on its own seeded batch for 10 steps, the loss and
+  RANK PORT DIR``), each on its own seeded batch for 6 steps, the loss and
   gradients averaged and the metrics synced over a ``DeviceMesh``'s ``dp``
   every step: the synced counts and values equal one process's fold of both
   ranks' predictions, step ms with and without the metrics' sync, sync ms
@@ -305,7 +305,7 @@ checkout, and then:
   against 1 in req/s, median of alternating pairs (a record beside the JAX
   floor of 4x: the eight dispatchers share one card and one interpreter); R2:
   1 shard against the bare engine (a record against the JAX 5%); R3: the
-  first 2000 requests over 8 checkpointed shards, every tenant's state on its
+  first 250 requests over 8 checkpointed shards, every tenant's state on its
   ring shard ``torch.equal`` to a one-engine fold, and its value; R4: K2's
   flagship collection (C = 1000) over 8 shards with the guard's watchdog:
   one tenant a shard captures its 64-row graph at once with the others, with
@@ -377,19 +377,56 @@ checkout, and then:
   ``--u-host SEED PARTITIONS REQUESTS``), each leading 2 of 8 partitions of
   ``BinaryAccuracy`` engines, against one host leading all 8 (a record
   beside the JAX floor of 3.2x: the hosts share one card).
+- Phase V drives the confusion-matrix family and the autopilot plane
+  (``metrics_tpu_torch.pilot``). V1: ``MulticlassJaccardIndex`` (macro),
+  ``MulticlassCohenKappa`` (weights None, linear, quadratic) and
+  ``MulticlassMatthewsCorrCoef`` for 4 updates at bench.py's width (N =
+  1024, 1000 classes) and J2's (10^6 labels, C = 100): one table launch of
+  ``csrc/pair_count.cu`` an update (counted just around the updates), no
+  reference dispatch, the int32 table ``torch.equal`` to the plain pair
+  count and to the port's on the CPU, the value within rtol 1e-5, atol 1e-6
+  of the CPU's; ms and device µs an update. Their binary and multilabel
+  forms at N = 10^6 (plain torch counts) against the CPU. A
+  ``MetricCollection`` of the confusion matrix and the three metrics forms
+  the JAX package's groups ({cm, mcc}, {jaccard}, {kappa} at construction,
+  one group after the first update): 3 then 1 table launches an update with
+  groups, 4 without, every table equal. V2: ``engine_throughput.py
+  --pilot``'s zipf-storm self-heal (:1619-1706): one ``PartitionedNode``
+  leading 4 partitions of ``BinaryAccuracy`` engines on the card (buckets
+  (64,), capacity 64, ``GuardConfig(shed=False)``) over a
+  ``FakeCoordStore``, 8 hot tenants all on p0 and 2 background tenants on
+  each other partition, batch-1 requests 85% zipf(1.2) over the hot set
+  from 4 threads; a live ``AutoPilot`` (the benchmark's config) must spread
+  the hot set over at least 3 partitions with at least one migration and
+  no operator input, then is paused for the timed window; req/s against a
+  hand-balanced layout (a record beside the JAX floor of 0.9x: the
+  partitions share one card and one interpreter); every tenant's state, on
+  the engine its map names and no other, equal to a CPU fold of its
+  accepted writes. V3: the quiet pilot's cost (:1708-1760): a uniform mix on
+  a balanced fleet with a default-config pilot holding the lease against
+  none (a record beside the JAX 1%); the pilot journals every cycle and
+  moves nothing. V4: two ``AutoPilot`` threads over one store: the holder
+  is closed without releasing its lease and the standby takes it within
+  one TTL, the shared journal's seqs running on; then a tier retune of p0's
+  engine (hot capacity 4 -> 16 through the actuator) takes effect at the
+  next sweep and grows the slab, states equal to the fold. Every pilot ends
+  with no actuator failure, no ``last_error`` and no ``pilot_action_failed``
+  bundle.
   Depth cut for the time limit (a whole run must end within 1200 s on the
-  slowest host seen, about 1.5x the fastest; the depths before Phases T and
-  U came in brackets): Phase E 2 batches of 2^22 values and 2 of the heavy
+  slowest host seen, about 1.5x the fastest, where a whole run with Phase V
+  took 1104.6 s before the cuts marked "before Phase V"; the depths before
+  Phases T and U came in brackets): Phase E 2 batches of 2^22 values and 2 of the heavy
   hitters' ([8, 4]), Phase H 2 updates ([8]), K's profiled windows 500
   requests ([1000]), K2 1000 ([4000]), M1 (on disk and in /dev/shm), N1,
-  O1 and P1 1 pair (the JAX benchmarks' 6; [4]), N2 3 guarded and 1 unguarded pair (5 and 2), M2 1000
-  flagship and 2000 quantile requests ([2000, 4000]), P3 segments of 128
-  and 384 requests (384 and 1024; [192, 512]), Q 10 steps ([20]), Q3 4000
+  O1 and P1 1 pair (the JAX benchmarks' 6; [4]), N2 3 guarded and 1 unguarded pair (5 and 2), M2 500
+  flagship and 1000 quantile requests ([2000, 4000]; 1000 and 2000 before Phase V), P3 segments of 64
+  and 192 requests (384 and 1024; [192, 512]; 128 and 384 before Phase V), Q 6 steps ([20]; 10 before Phase V), Q3 4000
   requests ([8000]), R1, R2
-  and S3 1 pair (6; [2, 2, 3]), R3 500 requests (8000; [2000]), R4 256
+  and S3 1 pair (6; [2, 2, 3]), R3 250 requests (8000; [2000]; 500 before Phase V), R4 256
   ([512]); S1 and S2 serve with buckets (64,) (the engine's six-rung
-  default there: one capture an engine, not six); T1 64 + 64 writes around
-  the death and U1 64 + 48, T2 and U3 1 pair (6 there), U4 1 pair (4).
+  default there: one capture an engine, not six); T1 48 + 48 writes around
+  the death (64 + 64 before Phase V) and U1 64 + 48, T2 and U3 1 pair (6 there), U4 1 pair (4); V2 1 healed /
+  hand-balanced pair (2 there), V3 1 quiet pair (6 there).
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
@@ -2844,8 +2881,8 @@ M_PAIRS = 1  # plain/checkpointing pairs of benchmarks/engine_throughput.py's ov
 M_INTERVAL_S = 0.25  # that gate's CheckpointConfig(interval_s=0.25, retain=3)
 M_RETAIN = 3
 M_GATE_PCT = 5.0  # its ckpt_overhead_lt_5pct: a record here (the engine's rate moves between calls)
-M2_QUANTILE_REQUESTS = 2000
-M2_FLAGSHIP_REQUESTS = 1000
+M2_QUANTILE_REQUESTS = 1000  # the depth cut (4000 there, 2000 before Phase V)
+M2_FLAGSHIP_REQUESTS = 500  # (2000 there, 1000 before Phase V)
 M3_CPU_REQUESTS = 40
 M3_BATCH = 4096  # labels per update of the collection saved and restored on the card
 
@@ -3808,7 +3845,7 @@ P2_READ_S = 2.0  # the read windows of its scale-out gate (:595-666)
 P2_HEARTBEAT_S = 0.1
 P2_WRITERS, P2_WRITER_ROWS, P2_WRITER_PACE_S = 4, 64, 0.001
 P2_GATE_RATIO, P2_FLOOR_PER_S = 5.0, 500.0  # follower_ge_5x_primary_reads, follower_reads_ge_floor
-P3_SEGMENTS = {"flagship": 128, "quantile": 384}  # requests a segment: live, after the restart, profiled
+P3_SEGMENTS = {"flagship": 64, "quantile": 192}  # requests a segment: live, after the restart, profiled (cut)
 P3_AFTER_PROMOTION = 128  # requests the promoted engine serves
 P3_PROFILE_ATTEMPTS = 5
 P3_ZOMBIE = 32  # requests the deposed primary journals and ships after the promotion
@@ -4486,7 +4523,7 @@ def phase_p(torch, np) -> dict:
 
 # ---------------------------------------------------------------------- Phase Q: the comm plane
 
-Q_STEPS = 10  # Q1's graph replays and eager steps, Q2's training steps
+Q_STEPS = 6  # Q1's graph replays and eager steps, Q2's training steps (cut)
 Q2_NO_SYNC_STEPS = 3  # Q2 steps timed without the metrics' sync
 Q_SYNC_REPS = 3  # Q2's timed sync_state calls, and its timed Metric.sync() calls
 Q3_REQUESTS = 4000  # K2's request generator, split between the two serving processes
@@ -5213,7 +5250,7 @@ R_GATE_PCT = 5.0  # its shard1_overhead_lt_5pct: a record here, as M1's
 R_K2_REQUESTS = 256  # K2-style flagship requests over the 8 shards
 R_K2_BUCKETS = (64,)
 R_K2_CAPACITY = 16
-R_RESIZE_REQUESTS = 500  # the first requests of the mix, served by the checkpointed shards of R3 and R5
+R_RESIZE_REQUESTS = 250  # the first requests of the mix, served by the checkpointed shards of R3 and R5 (cut)
 R_RESIZE_TO = 16
 
 
@@ -5469,8 +5506,8 @@ def phase_r(torch, np) -> dict:
 T_TENANTS = 8
 T_ROWS = 64  # rows a request: one 64-row graph replay each
 T_BUCKETS = (64,)
-T_BEFORE = 64  # client writes acknowledged before the leader dies
-T_AFTER = 64  # and after the failover
+T_BEFORE = 48  # client writes acknowledged before the leader dies (cut)
+T_AFTER = 48  # and after the failover (cut)
 T_PROFILED = 24  # client writes in a profiled window
 # benchmarks/engine_throughput.py --cluster's cadence (:700-706), seeded per node
 T_CADENCE = dict(lease_ttl_s=1.0, heartbeat_interval_s=0.2, suspect_after_s=0.8, confirm_after_s=2.5,
@@ -6450,6 +6487,572 @@ def phase_s(torch, np) -> dict:
     return out
 
 
+V_SHAPES = ((1024, 1000, "bench.py's step"), (SIX_N, SIX_C, "J2's collection"))
+V_UPDATES = 4  # updates of each metric at each shape
+V_KAPPA_WEIGHTS = (None, "linear", "quadratic")
+V_RTOL, V_ATOL = 1e-5, 1e-6  # the card against the CPU: float32 sums of equal counts in another order
+V_GROUPS = {0: ["cm", "mcc", "jaccard", "kappa"]}  # the JAX collection's, after the first update
+V_GROUPS_BUILT = {0: ["cm", "mcc"], 1: ["jaccard"], 2: ["kappa"]}
+V_PARTITIONS = 4  # benchmarks/engine_throughput.py --pilot (:1544-1760)
+V_HOT = 8
+V_REQUESTS = 8000
+V_HOT_FRAC = 0.85
+V_HEAL_PAIRS = 1  # healed / hand-balanced pairs (2 there)
+V_QUIET_PAIRS = 1  # quiet pilot on / off pairs (6 there)
+V_HEAL_FLOOR = 0.9  # its --pilot-recovery-floor: a record here (the hosts share one card and one interpreter)
+V_QUIET_GATE_PCT = 1.0  # its pilot_idle_cost_lt_1pct: a record here
+V_HEAL_DEADLINE_S = 90.0
+# the heal pass's PilotConfig (:1643-1649), journal directory aside
+V_PILOT = dict(lease_ttl_s=2.0, tick_interval_s=0.05, evaluate_interval_s=0.25, ewma_alpha=0.6, min_observations=2,
+               min_rate=5.0, migration_budget=4, budget_window_s=0.5, tenant_cooldown_s=120.0)
+V_PART = dict(lease_ttl_s=5.0, heartbeat_interval_s=0.2, suspect_after_s=2.0, confirm_after_s=5.0,
+              tick_interval_s=0.05)
+
+
+def _v_multiclass(dev: str, classes: int) -> dict:
+    from metrics_tpu_torch.classification import (
+        MulticlassCohenKappa, MulticlassJaccardIndex, MulticlassMatthewsCorrCoef,
+    )
+
+    out = {"jaccard_macro": MulticlassJaccardIndex(classes, average="macro", device=dev)}
+    for w in V_KAPPA_WEIGHTS:
+        out[f"kappa_{w or 'none'}"] = MulticlassCohenKappa(classes, weights=w, device=dev)
+    out["mcc"] = MulticlassMatthewsCorrCoef(classes, device=dev)
+    return out
+
+
+def _v_collection(dev: str, classes: int, groups: bool):
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.classification import (
+        MulticlassCohenKappa, MulticlassConfusionMatrix, MulticlassJaccardIndex, MulticlassMatthewsCorrCoef,
+    )
+
+    return MetricCollection({
+        "cm": MulticlassConfusionMatrix(classes, device=dev),
+        "jaccard": MulticlassJaccardIndex(classes, device=dev),
+        "kappa": MulticlassCohenKappa(classes, weights="linear", device=dev),
+        "mcc": MulticlassMatthewsCorrCoef(classes, device=dev),
+    }, compute_groups=groups)
+
+
+def _v_close(torch, got, want, what: str) -> float:
+    """The card's value against the CPU's within (V_RTOL, V_ATOL); the largest absolute difference."""
+    g, w = got.cpu().double(), want.double()
+    _check(got.dtype == want.dtype == torch.float32 and got.shape == want.shape, f"{what}: dtype/shape")
+    _check(bool(torch.isfinite(g).all()), f"{what}: non-finite {got}")
+    _check(torch.allclose(g, w, rtol=V_RTOL, atol=V_ATOL), f"{what}: card {got} vs CPU {want}")
+    return float((g - w).abs().max())
+
+
+def _v_batches(torch, np, seed: int, n: int, classes: int, dev: str):
+    """``V_UPDATES`` int64 (preds, target) label batches, 30% of preds equal to their target."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(V_UPDATES):
+        target = rng.integers(0, classes, n)
+        preds = np.where(rng.random(n) < 0.3, target, rng.integers(0, classes, n))
+        out.append((torch.from_numpy(preds).to(dev), torch.from_numpy(target).to(dev)))
+    return out
+
+
+def phase_v1(torch, np, obs, instrument, confmat) -> dict:
+    """The confusion-matrix family on the card at bench.py's width and J2's: each
+    multiclass metric's int32 table against the plain pair count, one table
+    launch an update, values against the port on the CPU; the binary and
+    multilabel forms at J2's N; the four-metric collection's launches with
+    groups on and off."""
+    from metrics_tpu_torch.classification import (
+        BinaryCohenKappa, BinaryJaccardIndex, BinaryMatthewsCorrCoef, MultilabelJaccardIndex,
+        MultilabelMatthewsCorrCoef,
+    )
+
+    out = {"tolerance": {"rtol": V_RTOL, "atol": V_ATOL}, "shapes": {}}
+    total_launches = {"pair_count": 0, "stat_scores": 0}
+    worst = 0.0
+    for n, classes, what in V_SHAPES:
+        key = f"N{n}_C{classes}"
+        batches = _v_batches(torch, np, n + classes, n, classes, "cuda")
+        plain = sum(confmat.pair_count_bincount(t, p, classes, classes, None, None) for p, t in batches)
+        rec = {"what": what, "metrics": {}}
+        for name, m in _v_multiclass("cuda", classes).items():
+            cpu = _v_multiclass("cpu", classes)[name]
+            per_update = []
+            obs.enable()
+            try:
+                instrument.KERNEL_LAUNCHES.clear()  # the main path's run starts here ...
+                instrument.KERNEL_DISPATCHES.clear()
+                for preds, target in batches:
+                    before = _route_launches(instrument)
+                    m.update(preds, target)
+                    per_update.append(_diff(_route_launches(instrument), before))
+                _no_reference_dispatch(instrument, f"phase V1 {name} {key}")  # ... and ends here
+            finally:
+                obs.disable()
+            _check(per_update == [(0, 1)] * V_UPDATES, f"V1 {name} {key}: (stat-score, table) launches {per_update}")
+            total_launches["pair_count"] += V_UPDATES
+            _check(m.confmat.dtype == torch.int32 and torch.equal(m.confmat, plain),
+                   f"V1 {name} {key}: the table differs from the plain pair count")
+            for preds, target in batches:
+                cpu.update(preds.cpu(), target.cpu())
+            _check(torch.equal(m.confmat.cpu(), cpu.confmat), f"V1 {name} {key}: the table differs from the CPU's")
+            value, want = m.compute(), cpu.compute()
+            err = _v_close(torch, value, want, f"V1 {name} {key}")
+            worst = max(worst, err)
+            ms = _time_ms(lambda: m.update(*batches[0]), 20, warmup=2)
+            prof = _update_profile(torch, lambda _s, b: m.update(*b), None, batches[0], "pair_count_", iters=10)
+            # the profiler may drop some of a window's records: the table kernel's time over its recorded launches
+            table = [k for k in prof["top_kernels"] if "pair_count_" in k["name"]]
+            table_us = sum(k["us_per_update"] for k in table) / sum(k["launches_per_update"] for k in table) \
+                if table else None
+            rec["metrics"][name] = {"value": float(value), "cpu_value": float(want), "abs_err": err,
+                                    "launches_per_update": dict(zip(ROUTES, per_update[-1])),
+                                    "ms_per_update": ms, "device_us_per_update": prof["device_busy_us_per_update"],
+                                    "table_kernel_us_per_launch": table_us,
+                                    "pair_count_launches_recorded": prof["pair_count__launches_recorded"],
+                                    "profiled_updates": 10, "profile_complete": prof["complete"],
+                                    "idle_share": prof["idle_share"]}
+            print(f"phase V1 {key} {name} {json.dumps(rec['metrics'][name])}")
+        # the confusion matrix with the three metrics, groups on and off
+        launches = {}
+        cols = {"groups": _v_collection("cuda", classes, True), "no_groups": _v_collection("cuda", classes, False)}
+        built = {k: list(v) for k, v in cols["groups"].compute_groups.items()}
+        _check(built == V_GROUPS_BUILT, f"V1 {key}: groups at construction {built}, the JAX package's {V_GROUPS_BUILT}")
+        obs.enable()
+        try:
+            for mode, col in cols.items():
+                instrument.KERNEL_LAUNCHES.clear()
+                instrument.KERNEL_DISPATCHES.clear()
+                per_update = []
+                for preds, target in batches:
+                    before = _route_launches(instrument)
+                    col.update(preds, target)
+                    per_update.append(_diff(_route_launches(instrument), before))
+                launches[mode] = per_update
+                _no_reference_dispatch(instrument, f"phase V1 collection {mode} {key}")
+        finally:
+            obs.disable()
+        groups = {k: list(v) for k, v in cols["groups"].compute_groups.items()}
+        _check(groups == V_GROUPS, f"V1 {key}: groups {groups}, the JAX package forms {V_GROUPS}")
+        _check(launches["groups"] == [(0, 3)] + [(0, 1)] * (V_UPDATES - 1), f"V1 {key}: {launches['groups']}")
+        _check(launches["no_groups"] == [(0, 4)] * V_UPDATES, f"V1 {key}: {launches['no_groups']}")
+        total_launches["pair_count"] += sum(t for _, t in launches["groups"] + launches["no_groups"])
+        for mode, col in cols.items():
+            for name, m in col.items(keep_base=True):
+                _check(torch.equal(m.confmat, plain), f"V1 {key} collection {mode} {name}: table differs")
+        val_on, val_off = cols["groups"].compute(), cols["no_groups"].compute()
+        for name in val_on:
+            _check(torch.equal(val_on[name], val_off[name]), f"V1 {key} {name}: groups on vs off")
+        times = {mode: [] for mode in cols}
+        for _ in range(TIMING_REPS):
+            for mode, col in cols.items():
+                times[mode].append(_time_ms(lambda: col.update(*batches[0]), V_UPDATES, warmup=1))
+        rec["collection"] = {"groups": groups, "built": built,
+                             "table_launches_per_update": {k: v[-1][1] for k, v in launches.items()},
+                             "table_launches_forming_update": launches["groups"][0][1],
+                             **{f"{mode}_ms_per_update": min(times[mode]) for mode in cols}}
+        rec["collection"]["speedup"] = rec["collection"]["no_groups_ms_per_update"] / rec["collection"][
+            "groups_ms_per_update"]
+        print(f"phase V1 {key} collection {json.dumps(rec['collection'])}")
+        out["shapes"][key] = rec
+
+    # the binary and multilabel forms at J2's N: plain torch counts (no hand kernel), against the CPU
+    rng = np.random.default_rng(18)
+    scores = rng.random(SIX_N).astype(np.float32)
+    target = (rng.random(SIX_N) < np.where(scores > 0.5, 0.8, 0.2)).astype(np.int32)
+    ml_shape = (SIX_N // SIX_C, SIX_C)
+    forms = {
+        "binary_jaccard": (lambda d: BinaryJaccardIndex(device=d), (scores, target)),
+        **{f"binary_kappa_{w or 'none'}": (lambda d, w=w: BinaryCohenKappa(weights=w, device=d), (scores, target))
+           for w in V_KAPPA_WEIGHTS},
+        "binary_mcc": (lambda d: BinaryMatthewsCorrCoef(device=d), (scores, target)),
+        "multilabel_jaccard": (lambda d: MultilabelJaccardIndex(SIX_C, device=d),
+                               (scores.reshape(ml_shape), target.reshape(ml_shape))),
+        "multilabel_mcc": (lambda d: MultilabelMatthewsCorrCoef(SIX_C, device=d),
+                           (scores.reshape(ml_shape), target.reshape(ml_shape))),
+    }
+    out["binary_multilabel"] = {}
+    for name, (make, arrays) in forms.items():
+        card, cpu = make("cuda"), make("cpu")
+        dev_args = tuple(torch.from_numpy(a).cuda() for a in arrays)
+        card.update(*dev_args)
+        cpu.update(*(torch.from_numpy(a) for a in arrays))
+        _check(card.confmat.dtype == torch.int32 and torch.equal(card.confmat.cpu(), cpu.confmat),
+               f"V1 {name}: the int32 counts differ from the CPU's")
+        err = _v_close(torch, card.compute(), cpu.compute(), f"V1 {name}")
+        worst = max(worst, err)
+        ms = _time_ms(lambda: card.update(*dev_args), 10, warmup=2)
+        out["binary_multilabel"][name] = {"value": float(card.compute()), "abs_err": err, "ms_per_update": ms}
+    print(f"phase V1 binary and multilabel at N={SIX_N} {json.dumps(out['binary_multilabel'])}")
+    out["launches"] = total_launches
+    out["max_abs_err_vs_cpu"] = worst
+    return out
+
+
+def _v_keys_on(pmap, pid: int, prefix: str, n: int) -> list:
+    out, i = [], 0
+    while len(out) < n:
+        key = f"{prefix}-{i}"
+        if pmap.partition_of(key) == pid:
+            out.append(key)
+        i += 1
+    return out
+
+
+def _v_storm(np, rng, hot: list, bg: list, n: int, hot_frac: float) -> list:
+    """Batch-1 requests: ``hot_frac`` of them zipf(1.2) over ``hot``, the rest
+    uniform over ``bg`` (the benchmark's pilot_storm, drawn in its order)."""
+    if hot:
+        w = 1.0 / np.arange(1, len(hot) + 1) ** 1.2
+        w /= w.sum()
+        hot_picks = rng.choice(len(hot), size=n, p=w)
+    hot_mask = rng.random(n) < hot_frac
+    bg_picks = rng.integers(0, len(bg), size=n)
+    keys = [hot[hot_picks[j]] if hot and hot_mask[j] else bg[bg_picks[j]] for j in range(n)]
+    return [(k, (rng.integers(0, 2, 1), rng.integers(0, 2, 1))) for k in keys]
+
+
+class _VFleet:
+    """One host leading ``V_PARTITIONS`` partitions of ``BinaryAccuracy`` engines
+    on the card over a FakeCoordStore, telemetry reset first (the pilot rates
+    counter deltas keyed by node and partition). Every accepted write is kept
+    for the fold."""
+
+    def __init__(self, torch, seed: int, tier_p0=None) -> None:
+        import threading
+
+        from metrics_tpu_torch import obs
+        from metrics_tpu_torch.classification import BinaryAccuracy
+        from metrics_tpu_torch.cluster import FakeCoordStore
+        from metrics_tpu_torch.engine import GuardConfig, StreamingEngine
+        from metrics_tpu_torch.part import PartConfig, PartitionedNode
+        from metrics_tpu_torch.tier import TierConfig
+
+        obs.reset()
+        obs.enable()  # the engines' telemetry is the pilot's only input
+        self.torch = torch
+        self.store = FakeCoordStore()
+        self.engines = {
+            pid: StreamingEngine(BinaryAccuracy(device="cuda"), buckets=(64,), max_queue=K_QUEUE,
+                                 capacity=tier_p0["capacity"] if tier_p0 and pid == 0 else 64,
+                                 guard=GuardConfig(shed=False),
+                                 tier=TierConfig(**tier_p0["tier"]) if tier_p0 and pid == 0 else None)
+            for pid in range(V_PARTITIONS)
+        }
+        self.node = PartitionedNode(self.engines, PartConfig(node_id="bench-pilot", store=self.store,
+                                                             partitions=V_PARTITIONS, rng_seed=seed, **V_PART))
+        _wait_for(lambda: len(self.node.owned()) == V_PARTITIONS, "V: the host leads every partition", 30.0)
+        self.acked, self.futures, self._lock = [], [], threading.Lock()
+
+    def submit(self, key, args) -> bool:
+        """One write routed by the live map; False if the source holds it (a migration's quarantine)."""
+        from metrics_tpu_torch.guard.errors import TenantQuarantined
+
+        try:
+            fut = self.engines[self.node.pmap.partition_of(key)].submit(key, *args)
+        except TenantQuarantined:
+            return False
+        with self._lock:
+            self.acked.append((key, args))
+            self.futures.append(fut)
+        return True
+
+    def warm(self, keys) -> None:
+        """Every tenant resident and each engine's graph captured before any timed window."""
+        for key in keys:
+            _check(self.submit(key, (_v_zero(), _v_zero())), f"V: warm write of {key} refused")
+        self.flush()
+
+    def flush(self) -> None:
+        for eng in self.engines.values():
+            eng.flush(timeout=300)
+
+    def pump(self, storm, threads: int = K_THREADS) -> float:
+        """Timed: every request routed through the live partition map; a held
+        (quarantined) write is re-routed after 2 ms, never dropped."""
+        import threading
+
+        from metrics_tpu_torch.utils.graphs import collector_paused
+
+        def client(tid: int) -> None:
+            for key, args in storm[tid::threads]:
+                while not self.submit(key, args):
+                    time.sleep(0.002)
+
+        with collector_paused():
+            t0 = time.perf_counter()
+            workers = [threading.Thread(target=client, args=(tid,)) for tid in range(threads)]
+            for th in workers:
+                th.start()
+            for th in workers:
+                th.join(300)
+                _check(not th.is_alive(), "V: a client thread did not finish")
+            self.flush()
+            seconds = time.perf_counter() - t0
+        return len(storm) / seconds
+
+    def check_states(self, what: str) -> int:
+        """Every tenant's state, on the engine its partition map names and on no
+        other, equal to a CPU fold of its accepted writes; every receipt answered."""
+        from concurrent.futures import wait
+
+        from metrics_tpu_torch.classification import BinaryAccuracy
+
+        self.flush()
+        self.torch.cuda.synchronize()
+        done, not_done = wait(self.futures, timeout=60)
+        _check(not not_done, f"{what}: {len(not_done)} receipts unanswered")
+        errors = [f.exception() for f in done if f.exception() is not None]
+        _check(not errors, f"{what}: {len(errors)} writes failed, first {errors[:1]!r}")
+        folds, rows = _k_fold(self.torch, BinaryAccuracy(device="cpu"), self.acked, "cpu")
+        compared = 0
+        for key in folds:
+            pid = self.node.pmap.partition_of(key)
+            others = [p for p, e in self.engines.items() if p != pid and key in e._keyed.keys]
+            _check(not others, f"{what} {key}: also resident on {others}")
+            # read through the engine (a demoted tenant's state from host memory), its lock taken
+            states = self.engines[pid]._read_states([key], False)
+            compared += _k_check_states(self.torch, self.engines[pid], {key: folds[key]}, rows, what, states=states)
+        return compared
+
+    def close(self) -> None:
+        self.node.close(release=False)
+        for eng in self.engines.values():
+            eng.close()
+
+
+def _v_zero():
+    import numpy as np
+
+    return np.zeros(1, np.int64)
+
+
+def _v_pilot_checks(pilot, obs, what: str) -> dict:
+    """No fallback around the pilot: no failed action, no failed tick, no
+    ``pilot_action_failed`` bundle."""
+    from metrics_tpu_torch.obs.flight import FLIGHT
+
+    dumped = FLIGHT.dump_counts().get("pilot_action_failed", 0)
+    _check(pilot.actuator.failures == 0, f"{what}: {pilot.actuator.failures} actuator failures")
+    _check(pilot.last_error is None, f"{what}: the pilot's last error {pilot.last_error!r}")
+    _check(dumped == 0, f"{what}: {dumped} pilot_action_failed bundles")
+    return {"actuator_failures": pilot.actuator.failures, "last_error": None, "action_failed_bundles": dumped}
+
+
+def _v_heal_pass(torch, np, obs, seed: int, healed: bool, root: str) -> dict:
+    """The zipf storm against a fleet whose hot set all starts on p0. Healed: a
+    live AutoPilot must spread it, with no operator input, before the timed
+    window (then paused); otherwise the layout is balanced by hand up front."""
+    from metrics_tpu_torch.pilot import AutoPilot, PilotConfig, read_journal
+
+    fleet = _VFleet(torch, seed)
+    pilot = None
+    try:
+        rng = np.random.default_rng(seed)
+        pmap = fleet.node.pmap
+        hot = _v_keys_on(pmap, 0, "hot", V_HOT)
+        bg = [k for pid in range(1, V_PARTITIONS) for k in _v_keys_on(pmap, pid, "bg", 2)]
+        if not healed:
+            for i, key in enumerate(hot):  # the operator's layout
+                pmap.set_override(key, i % V_PARTITIONS)
+        fleet.warm(hot + bg)
+        storm = _v_storm(np, rng, hot, bg, V_REQUESTS, V_HOT_FRAC)
+        rec = {"healed": healed}
+        if healed:
+            journal = os.path.join(root, f"journal-{seed}")
+            pilot = AutoPilot(fleet.node, PilotConfig(node_id="bench-pilot", store=fleet.store,
+                                                      journal_directory=journal, **V_PILOT))
+            t0 = time.perf_counter()
+            i = 0
+            while len({pmap.partition_of(k) for k in hot}) < 3 and time.perf_counter() - t0 < V_HEAL_DEADLINE_S:
+                fleet.submit(*storm[i % len(storm)])  # throttled: relative skew, not a crush of the pilot thread
+                i += 1
+                time.sleep(0.0005)
+            rec["heal_s"] = time.perf_counter() - t0
+            rec["warm_writes"] = i
+            pilot.pause()  # actuation frozen for the timed window
+            time.sleep(0.3)  # an in-flight cycle finishes
+        rec["req_per_s"] = fleet.pump(storm)
+        rec["spread"] = len({pmap.partition_of(k) for k in hot})
+        rec["layout"] = {k: pmap.partition_of(k) for k in hot}
+        rec["leaves_equal_fold"] = fleet.check_states(f"V2 {'healed' if healed else 'balanced'}")
+        if pilot is not None:
+            rec["migrations"] = pilot.actuator.executed
+            rec.update(_v_pilot_checks(pilot, obs, "V2"))
+            rec["journal_records"] = len(read_journal(journal))
+            rec["hot_partitions"] = pilot.health()["hot_partitions"]
+        return rec
+    finally:
+        if pilot is not None:
+            pilot.close()
+        fleet.close()
+
+
+def _v_quiet_pass(torch, np, obs, seed: int, with_pilot: bool, root: str) -> dict:
+    """A uniform mix on a balanced fleet: the pilot holds the lease, evaluates at
+    its default cadence, journals every cycle and finds nothing to do; the only
+    difference from the pass without it is the controller."""
+    from metrics_tpu_torch.pilot import AutoPilot, PilotConfig, read_journal
+
+    fleet = _VFleet(torch, seed)
+    pilot = None
+    try:
+        rng = np.random.default_rng(seed)
+        keys = [k for pid in range(V_PARTITIONS) for k in _v_keys_on(fleet.node.pmap, pid, "tenant", 2)]
+        fleet.warm(keys)
+        storm = _v_storm(np, rng, [], keys, V_REQUESTS, 0.0)
+        journal = os.path.join(root, f"quiet-{seed}")
+        if with_pilot:
+            pilot = AutoPilot(fleet.node, PilotConfig(node_id="bench-pilot", store=fleet.store,
+                                                      journal_directory=journal))
+            _wait_for(lambda: pilot.role == "pilot", "V3: the pilot wins its lease", 10.0)
+        rec = {"pilot": with_pilot, "req_per_s": fleet.pump(storm)}
+        rec["leaves_equal_fold"] = fleet.check_states("V3")
+        if pilot is not None:
+            _check(pilot.role == "pilot" and pilot.cycles >= 1, f"V3: role {pilot.role}, {pilot.cycles} cycles")
+            pilot.close()
+            records = read_journal(journal)
+            moves = [o for r in records for o in r["outcomes"] if o.get("kind") == "migrate_tenant"]
+            _check(len(records) == pilot.cycles, f"V3: {len(records)} journal records for {pilot.cycles} cycles")
+            _check(pilot.actuator.executed == 0 and not moves, f"V3: the quiet pilot acted: {moves}")
+            rec.update({"cycles": pilot.cycles, "journal_records": len(records), "migrations": 0,
+                        **_v_pilot_checks(pilot, obs, "V3")})
+        return rec
+    finally:
+        if pilot is not None:
+            pilot.close()
+        fleet.close()
+
+
+def phase_v4(torch, np, obs, root: str) -> dict:
+    """Two AutoPilots over one store beside a live fleet on the card: the holder
+    is closed without releasing its lease, the standby takes it within one TTL
+    and numbers the shared journal on. Then a tier retune of p0's engine (hot
+    capacity 4 -> 16) through the actuator: the next sweep keeps the 12
+    tenants it was kept from hot, the slab grows to hold them (its graphs
+    captured again), and every state equals the fold."""
+    from metrics_tpu_torch.pilot import PILOT_LEASE, Actuator, AutoPilot, PilotConfig, RetuneTier, read_journal
+
+    tier_p0 = {"capacity": 4, "tier": {"hot_capacity": 4, "check_interval_s": 0.0, "idle_demote_s": 1e9}}
+    fleet = _VFleet(torch, 41, tier_p0=tier_p0)
+    journal = os.path.join(root, "journal-v4")
+    # tier_capacity_max = 4: the pilots' own policy never retunes; the retune below is the actuator's alone
+    cfg = dict(V_PILOT, tier_capacity_max=4)
+    pilots = {}
+    try:
+        rng = np.random.default_rng(41)
+        keys = [k for pid in range(V_PARTITIONS) for k in _v_keys_on(fleet.node.pmap, pid, "tenant", 2)]
+        fleet.warm(keys)
+        pilots = {name: AutoPilot(fleet.node, PilotConfig(node_id=name, store=fleet.store,
+                                                          journal_directory=journal, **cfg)) for name in ("a", "b")}
+        _wait_for(lambda: any(p.role == "pilot" for p in pilots.values()), "V4: a pilot wins the lease", 10.0)
+        holder = next(n for n, p in pilots.items() if p.role == "pilot")
+        standby = "b" if holder == "a" else "a"
+        fleet.pump(_v_storm(np, rng, [], keys, 1000, 0.0))
+        _wait_for(lambda: pilots[holder].cycles >= 2, "V4: the holder's cycles", 10.0)
+        epoch = pilots[holder].health()["lease_epoch"]
+        pilots[holder].close(release=False)  # dies: its lease is left to run out
+        taken = _wait_for(lambda: pilots[standby].role == "pilot", "V4: the standby takes the lease",
+                          timeout=3 * cfg["lease_ttl_s"])
+        _check(taken <= cfg["lease_ttl_s"] + cfg["tick_interval_s"],
+               f"V4: the standby took {taken:.3f} s, one TTL is {cfg['lease_ttl_s']} s")
+        fleet.pump(_v_storm(np, rng, [], keys, 1000, 0.0))
+        _wait_for(lambda: pilots[standby].cycles >= 2, "V4: the standby's cycles", 10.0)
+        new_epoch = pilots[standby].health()["lease_epoch"]
+        lease = fleet.store.read_lease(PILOT_LEASE)
+        _check(lease is not None and lease.holder == standby and lease.epoch == new_epoch, f"V4: the lease {lease}")
+        records = read_journal(journal)
+        seqs = [r["seq"] for r in records]
+        nodes = [r["node"] for r in records]
+        _check(seqs == list(range(len(records))), f"V4: journal seqs {seqs}")
+        first_b = nodes.index(standby)
+        _check(set(nodes[:first_b]) == {holder} and set(nodes[first_b:]) == {standby},
+               f"V4: journal nodes {nodes}")
+        _check(new_epoch > epoch, f"V4: lease epochs {epoch} -> {new_epoch}")
+        rec = {"holder": holder, "standby": standby, "takeover_s": taken, "lease_ttl_s": cfg["lease_ttl_s"],
+               "epochs": [epoch, new_epoch], "journal_records": len(records), "holder_records": first_b}
+        pilots[standby].close()  # before the skewed writes below, which it would rebalance
+        for name, p in pilots.items():
+            rec[f"pilot_{name}"] = _v_pilot_checks(p, obs, f"V4 {name}")
+            _check(p.actuator.executed == 0, f"V4: pilot {name} acted on a uniform mix")
+
+        # the retune: hot capacity 4 -> 16 on p0, taking effect at the engine's next sweep. The
+        # tenants are admitted one at a time first, so the slab holds the cap's rows before it and
+        # grows after it because of it (its graphs then captured against the new slab)
+        eng = fleet.engines[0]
+        p0 = _v_keys_on(fleet.node.pmap, 0, "tiered", 12)
+        for key in p0:
+            _check(fleet.submit(key, (_v_zero(), _v_zero())), "V4: a tiered write refused")
+            fleet.flush()
+            eng._maybe_tier()
+        before = {"hot": len(eng._keyed.keys), "slab_rows": eng._keyed.capacity,
+                  "compiles": eng.telemetry_snapshot()["compiles"]}
+        act = Actuator(PilotConfig(node_id=standby, store=fleet.store), fleet.node)
+        outcome = act.execute([RetuneTier(pid=0, hot_capacity=16)], now=fleet.store.now())[0]
+        _check(outcome["outcome"] == "ok" and outcome["was"] == 4 and eng._tier.cfg.hot_capacity == 16,
+               f"V4: retune {outcome}")
+        for key in p0:
+            _check(fleet.submit(key, (_v_zero() + 1, _v_zero() + 1)), "V4: a tiered write refused")
+        fleet.flush()
+        eng._maybe_tier()
+        after = {"hot": len(eng._keyed.keys), "slab_rows": eng._keyed.capacity,
+                 "compiles": eng.telemetry_snapshot()["compiles"]}
+        _check(before["hot"] == 4 and 12 <= after["hot"] <= 16 and after["slab_rows"] > before["slab_rows"],
+               f"V4: the retune did not take effect at the next sweep: {before} -> {after}")
+        rec["retune"] = {"outcome": outcome, "before": before, "after": after,
+                         "leaves_equal_fold": fleet.check_states("V4")}
+        return rec
+    finally:
+        for p in pilots.values():
+            p.close(release=False)
+        fleet.close()
+
+
+def phase_v(torch, np, obs, instrument, confmat) -> dict:
+    """The confusion-matrix family (V1) and the autopilot plane (V2-V4) on the card."""
+    import statistics
+    import tempfile
+
+    t0 = time.perf_counter()
+    out = {"V1": phase_v1(torch, np, obs, instrument, confmat)}
+    out["V1"]["seconds"] = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as root:
+        t1 = time.perf_counter()
+        heal = []
+        for i in range(V_HEAL_PAIRS):
+            order = (True, False) if i % 2 == 0 else (False, True)
+            pair = {h: _v_heal_pass(torch, np, obs, 21 + i, h, root) for h in order}
+            heal.append(pair)
+        ratios = [p[True]["req_per_s"] / p[False]["req_per_s"] for p in heal]
+        for p in heal:
+            _check(p[True]["spread"] >= 3, f"V2: the hot set spread over {p[True]['spread']} partitions")
+            _check(p[True]["migrations"] >= 1, "V2: the pilot executed no migration")
+        ratio = statistics.median(ratios)
+        out["V2"] = {"healed_over_balanced_x": ratio, "jax_floor_x": V_HEAL_FLOOR,
+                     "meets_jax_floor": ratio >= V_HEAL_FLOOR, "pair_ratios": ratios,
+                     "passes": [{str(k): v for k, v in p.items()} for p in heal], "seconds": time.perf_counter() - t1}
+        print(f"phase V2 {json.dumps(out['V2'])}")
+        t1 = time.perf_counter()
+        quiet = []
+        for i in range(V_QUIET_PAIRS):
+            order = (False, True) if i % 2 == 0 else (True, False)
+            quiet.append({w: _v_quiet_pass(torch, np, obs, 31 + i, w, root) for w in order})
+        costs = [q[False]["req_per_s"] / q[True]["req_per_s"] for q in quiet]
+        cost_pct = (statistics.median(costs) - 1.0) * 100.0
+        out["V3"] = {"quiet_pilot_cost_pct": cost_pct, "jax_limit_pct": V_QUIET_GATE_PCT,
+                     "meets_jax_limit": cost_pct < V_QUIET_GATE_PCT, "pair_ratios": costs,
+                     "passes": [{str(k): v for k, v in q.items()} for q in quiet],
+                     "seconds": time.perf_counter() - t1}
+        print(f"phase V3 {json.dumps(out['V3'])}")
+        t1 = time.perf_counter()
+        out["V4"] = phase_v4(torch, np, obs, root)
+        out["V4"]["seconds"] = time.perf_counter() - t1
+        print(f"phase V4 {json.dumps(out['V4'])}")
+    obs.reset()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase V: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--replica-reader":
         return _p2_reader(sys.argv[2], float(sys.argv[3]))  # Phase P2's follower process
@@ -6541,6 +7144,7 @@ def main() -> int:
     query_plane = phase_s(torch, np)
     cluster_plane = phase_t(torch, np)
     partition_plane = phase_u(torch, np)
+    pilot_plane = phase_v(torch, np, obs, instrument, confmat)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -6595,6 +7199,16 @@ def main() -> int:
                 "phase_u1_replays": partition_plane["U1"]["launches_all_replays"][route],
                 "phase_u1_replays_profiled": partition_plane["U1"]["launches_profiled"][route],
                 "phase_u1_replays_in_profiled_window": partition_plane["U1"]["launches_in_replays"][route],
+                # the confusion-matrix family (Phase V1): Jaccard, kappa (3 weightings) and Matthews, one
+                # table launch an update each at both shapes, and the four-metric collection's updates
+                # (1 an update with groups, after 3 in the one that forms them; 4 without)
+                "phase_v1_family_and_collections": pilot_plane["V1"]["launches"][route],
+                "phase_v1_per_update": {key: {name: m["launches_per_update"][route]
+                                              for name, m in rec["metrics"].items()}
+                                        for key, rec in pilot_plane["V1"]["shapes"].items()},
+                "phase_v1_collection_per_update": {key: rec["collection"]["table_launches_per_update"]
+                                                   for key, rec in pilot_plane["V1"]["shapes"].items()}
+                if route == "pair_count" else None,
             },
         })
     shape_fields = ("shape", *fields)
@@ -6662,7 +7276,7 @@ def main() -> int:
                       "engine": engine, "binary_multilabel_mse": classification_l, "durable": durable,
                       "guard": guard, "tier": tier, "replication": replication, "comm": comm_plane,
                       "shard": shard_plane, "query": query_plane, "cluster": cluster_plane,
-                      "partition": partition_plane, "card": card}))
+                      "partition": partition_plane, "pilot": pilot_plane, "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

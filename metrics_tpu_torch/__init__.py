@@ -20,9 +20,12 @@ from metrics_tpu_torch.classification import (
     ROC,
     Accuracy,
     AveragePrecision,
+    CohenKappa,
     ConfusionMatrix,
     F1Score,
     FBetaScore,
+    JaccardIndex,
+    MatthewsCorrCoef,
     Precision,
     PrecisionRecallCurve,
     Recall,
@@ -51,12 +54,15 @@ __all__ = [
     "AveragePrecision",
     "CardinalitySketch",
     "CatMetric",
+    "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
     "HeavyHittersSketch",
+    "JaccardIndex",
     "LogCoshError",
+    "MatthewsCorrCoef",
     "MaxMetric",
     "MeanAbsoluteError",
     "MeanAbsolutePercentageError",

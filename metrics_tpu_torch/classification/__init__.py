@@ -1,6 +1,7 @@
 """Classification module metrics (port of ``metrics_tpu/classification``): the
-stat-score family (binary, multiclass, multilabel and the task façades) and
-the curve family."""
+stat-score family (binary, multiclass, multilabel and the task façades), the
+curve family, and the confusion-matrix family (Jaccard, Cohen's kappa,
+Matthews)."""
 
 from metrics_tpu_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy
 from metrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
@@ -10,6 +11,7 @@ from metrics_tpu_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from metrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from metrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
     ConfusionMatrix,
@@ -25,6 +27,18 @@ from metrics_tpu_torch.classification.f_beta import (
     MulticlassFBetaScore,
     MultilabelF1Score,
     MultilabelFBetaScore,
+)
+from metrics_tpu_torch.classification.jaccard import (
+    BinaryJaccardIndex,
+    JaccardIndex,
+    MulticlassJaccardIndex,
+    MultilabelJaccardIndex,
+)
+from metrics_tpu_torch.classification.matthews_corrcoef import (
+    BinaryMatthewsCorrCoef,
+    MatthewsCorrCoef,
+    MulticlassMatthewsCorrCoef,
+    MultilabelMatthewsCorrCoef,
 )
 from metrics_tpu_torch.classification.precision_recall import (
     BinaryPrecision,
@@ -75,9 +89,12 @@ __all__ = [
     "BinaryAccuracy",
     "BinaryAUROC",
     "BinaryAveragePrecision",
+    "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryJaccardIndex",
+    "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
     "BinaryPrecisionRecallCurve",
     "BinaryRecall",
@@ -86,15 +103,21 @@ __all__ = [
     "BinarySpecificity",
     "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
+    "CohenKappa",
     "ConfusionMatrix",
     "F1Score",
     "FBetaScore",
+    "JaccardIndex",
+    "MatthewsCorrCoef",
     "MulticlassAccuracy",
     "MulticlassAUROC",
     "MulticlassAveragePrecision",
+    "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassJaccardIndex",
+    "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
     "MulticlassPrecisionRecallCurve",
     "MulticlassRecall",
@@ -109,6 +132,8 @@ __all__ = [
     "MultilabelConfusionMatrix",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
+    "MultilabelJaccardIndex",
+    "MultilabelMatthewsCorrCoef",
     "MultilabelPrecision",
     "MultilabelPrecisionRecallCurve",
     "MultilabelRecall",

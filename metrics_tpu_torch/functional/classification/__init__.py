@@ -1,6 +1,7 @@
 """Classification functionals (port of ``metrics_tpu/functional/classification``):
-the stat-score family (binary, multiclass, multilabel and the task façades)
-and the curve family."""
+the stat-score family (binary, multiclass, multilabel and the task façades),
+the curve family, and the confusion-matrix family (Jaccard, Cohen's kappa,
+Matthews)."""
 
 from metrics_tpu_torch.functional.classification.accuracy import (
     accuracy,
@@ -14,6 +15,11 @@ from metrics_tpu_torch.functional.classification.average_precision import (
     binary_average_precision,
     multiclass_average_precision,
     multilabel_average_precision,
+)
+from metrics_tpu_torch.functional.classification.cohen_kappa import (
+    binary_cohen_kappa,
+    cohen_kappa,
+    multiclass_cohen_kappa,
 )
 from metrics_tpu_torch.functional.classification.confusion_matrix import (
     binary_confusion_matrix,
@@ -30,6 +36,18 @@ from metrics_tpu_torch.functional.classification.f_beta import (
     multiclass_fbeta_score,
     multilabel_f1_score,
     multilabel_fbeta_score,
+)
+from metrics_tpu_torch.functional.classification.jaccard import (
+    binary_jaccard_index,
+    jaccard_index,
+    multiclass_jaccard_index,
+    multilabel_jaccard_index,
+)
+from metrics_tpu_torch.functional.classification.matthews_corrcoef import (
+    binary_matthews_corrcoef,
+    matthews_corrcoef,
+    multiclass_matthews_corrcoef,
+    multilabel_matthews_corrcoef,
 )
 from metrics_tpu_torch.functional.classification.precision_recall import (
     binary_precision,
@@ -78,9 +96,12 @@ __all__ = [
     "binary_accuracy",
     "binary_auroc",
     "binary_average_precision",
+    "binary_cohen_kappa",
     "binary_confusion_matrix",
     "binary_f1_score",
     "binary_fbeta_score",
+    "binary_jaccard_index",
+    "binary_matthews_corrcoef",
     "binary_precision",
     "binary_precision_recall_curve",
     "binary_recall",
@@ -89,15 +110,21 @@ __all__ = [
     "binary_specificity",
     "binary_specificity_at_sensitivity",
     "binary_stat_scores",
+    "cohen_kappa",
     "confusion_matrix",
     "f1_score",
     "fbeta_score",
+    "jaccard_index",
+    "matthews_corrcoef",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
+    "multiclass_cohen_kappa",
     "multiclass_confusion_matrix",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
+    "multiclass_jaccard_index",
+    "multiclass_matthews_corrcoef",
     "multiclass_precision",
     "multiclass_precision_recall_curve",
     "multiclass_recall",
@@ -112,6 +139,8 @@ __all__ = [
     "multilabel_confusion_matrix",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
+    "multilabel_jaccard_index",
+    "multilabel_matthews_corrcoef",
     "multilabel_precision",
     "multilabel_precision_recall_curve",
     "multilabel_recall",

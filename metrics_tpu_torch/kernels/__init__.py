@@ -1,10 +1,15 @@
 """Kernel plane (port of ``metrics_tpu/kernels``): hand-written CUDA kernels for
 Hopper, each beside its plain PyTorch version, routed by :mod:`.registry`.
-Importing the package registers every entry."""
+Importing the package registers every entry.
+
+The registry's names are re-exported as the JAX package exports them, except
+``configure``, ``mode`` and ``forced``: the port has no mode that routes a CUDA
+tensor to a kernel's plain version, so it has nothing for them to set."""
 
 from typing import Dict
 
-from metrics_tpu_torch.kernels import binned_curve, cms_walk, confmat, engine_scan, scatter
+from metrics_tpu_torch.kernels import binned_curve, cms_walk, confmat, engine_scan, registry, scatter
+from metrics_tpu_torch.kernels.registry import REGISTRY, KernelEntry, dispatch, get, names, register, selected
 
 
 def launch_counts() -> Dict[str, int]:
@@ -21,4 +26,19 @@ def launch_counts() -> Dict[str, int]:
     }
 
 
-__all__ = ["binned_curve", "cms_walk", "confmat", "engine_scan", "launch_counts", "scatter"]
+__all__ = [
+    "REGISTRY",
+    "KernelEntry",
+    "binned_curve",
+    "cms_walk",
+    "confmat",
+    "dispatch",
+    "engine_scan",
+    "get",
+    "launch_counts",
+    "names",
+    "register",
+    "registry",
+    "scatter",
+    "selected",
+]

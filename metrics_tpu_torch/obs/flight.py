@@ -47,8 +47,8 @@ BUNDLE_VERSION = 1
 
 # the edges that dump a bundle (the JAX package's trigger matrix). The port's
 # guard and engine fire the first four, the cluster plane's lost election the
-# fifth and the comm plane's live-set agreement the sixth; the pilot plane that
-# fires the last is not ported yet (ROADMAP A.9c)
+# fifth, the comm plane's live-set agreement the sixth and the pilot's
+# actuator (an action that raised) the last
 TRIGGERS = (
     "guard_quarantine",
     "engine_quarantine",

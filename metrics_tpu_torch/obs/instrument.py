@@ -1,16 +1,16 @@
 """Instrumentation hooks of the metric core, the kernel plane, the comm plane,
 the engine and its durable, guard, tier and replication planes, the cluster,
-partition, shard and query planes (port of the metric, kernel, sync, comm,
-engine, ckpt, guard, tier, repl, cluster, partition, shard and query sections
-of ``metrics_tpu/obs/instrument.py``).
+partition, shard, query and pilot planes (port of the metric, kernel, sync,
+comm, engine, ckpt, guard, tier, repl, cluster, partition, shard, query and
+pilot sections of ``metrics_tpu/obs/instrument.py``).
 
 Every hook returns at once, or hands back a shared no-op, while ``OBS.enabled``
 is false. Unlike the JAX package, whose callers are jitted and so count
 compiled lowerings, PyTorch runs eagerly: the kernel hooks count calls. The
 spans land in the process tracer (:data:`~metrics_tpu_torch.obs.trace.TRACER`),
 and the guard's quarantines, watchdog restarts, breaker openings, an
-engine's quarantine, a lost election and a live set that shrank dump
-flight-recorder bundles
+engine's quarantine, a lost election, a live set that shrank and a failed
+pilot action dump flight-recorder bundles
 (:data:`~metrics_tpu_torch.obs.flight.FLIGHT`), as in the JAX package.
 """
 
@@ -760,6 +760,70 @@ def set_part_wal_seq(engine: str, partition: str, seq: int) -> None:
     if not OBS.enabled:
         return
     PART_WAL_SEQ.set(float(seq), engine=engine, partition=partition)
+
+
+# ---------------------------------------------------------------------- pilot plane
+
+PILOT_DECISIONS = REGISTRY.counter(
+    "metrics_tpu_torch_pilot_decisions_total",
+    "Autopilot reconcile decisions journaled, per node and decision kind "
+    "(partition_hot, rebalance_planned, tier_retune, ...) — flag edges and "
+    "refusals-to-act count too, so a silent controller is visibly deciding "
+    "nothing rather than dead.",
+)
+PILOT_MIGRATIONS = REGISTRY.counter(
+    "metrics_tpu_torch_pilot_migrations_total",
+    "Tenant migrations the autopilot EXECUTED (a subset of "
+    "metrics_tpu_torch_part_migrations_total, which also counts operator-driven "
+    "moves), per node.",
+)
+PILOT_PAUSED = REGISTRY.gauge(
+    "metrics_tpu_torch_pilot_paused",
+    "1 while this node's autopilot actuation is frozen (pause() or "
+    "enabled=False) — the kill switch, scrapeable.",
+)
+
+
+def record_pilot_decision(node: str, kind: str) -> None:
+    if not OBS.enabled:
+        return
+    PILOT_DECISIONS.inc(1, node=node, kind=kind)
+
+
+def record_pilot_migration(node: str) -> None:
+    if not OBS.enabled:
+        return
+    PILOT_MIGRATIONS.inc(1, node=node)
+    FLIGHT.record("pilot_migration", node=node)
+
+
+def set_pilot_paused(node: str, paused: bool) -> None:
+    if not OBS.enabled:
+        return
+    PILOT_PAUSED.set(1 if paused else 0, node=node)
+
+
+def record_pilot_lease_won(node: str, epoch: int) -> None:
+    """This node became the fleet's controller (won the pilot named lease)."""
+    if not OBS.enabled:
+        return
+    FLIGHT.record("pilot_lease_won", node=node, epoch=epoch)
+
+
+def record_pilot_lease_lost(node: str) -> None:
+    if not OBS.enabled:
+        return
+    FLIGHT.record("pilot_lease_lost", node=node)
+
+
+def record_pilot_action_failed(node: str, kind: str) -> None:
+    """An actuator action raised — always a bundle-worthy edge: the journal
+    says what was attempted, the bundle preserves the fleet state it was
+    attempted against."""
+    if not OBS.enabled:
+        return
+    FLIGHT.record("pilot_action_failed", node=node, action=kind)
+    FLIGHT.dump("pilot_action_failed", node=node, action=kind)
 
 
 # ---------------------------------------------------------------------- engine

@@ -265,3 +265,73 @@ def test_guard_catches(line):
 )
 def test_guard_allows_the_port(line):
     assert forbidden_imports(line) == []
+
+
+PILOT_CONFMAT_FAMILY_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("pilot/__init__", "pilot/config", "pilot/journal", "pilot/signals", "pilot/policy",
+                 "pilot/actuator", "pilot/loop", "functional/classification/jaccard",
+                 "functional/classification/cohen_kappa", "functional/classification/matthews_corrcoef",
+                 "classification/jaccard", "classification/cohen_kappa", "classification/matthews_corrcoef")
+]
+
+
+@pytest.mark.parametrize("relpath", PILOT_CONFMAT_FAMILY_MODULES)
+def test_pilot_plane_and_confusion_matrix_family_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
+def test_the_pilot_plane_exports_the_jax_names():
+    import metrics_tpu.pilot as ref
+
+    import metrics_tpu_torch.pilot as port
+
+    assert len(port.__all__) == 13 and sorted(port.__all__) == sorted(ref.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
+
+
+def test_utils_exports_the_jax_names_the_port_defines():
+    import metrics_tpu.utils as ref
+
+    import metrics_tpu_torch.utils as port
+
+    assert len(port.__all__) == 7 and set(port.__all__) <= set(ref.__all__)
+    assert all(callable(getattr(port, name)) for name in port.__all__)
+    assert sorted(set(ref.__all__) - set(port.__all__)) == [
+        "check_forward_full_state_property", "class_reduce", "rank_zero_debug", "rank_zero_info", "reduce"]
+
+
+def test_kernels_export_the_registry_without_its_fallback_switches():
+    """The JAX names of the registry, less ``configure``, ``mode`` and
+    ``forced``: the port has no mode that sends a CUDA tensor to a plain version."""
+    import metrics_tpu.kernels as ref
+
+    import metrics_tpu_torch.kernels as port
+    from metrics_tpu_torch.kernels import registry
+
+    names = ("REGISTRY", "KernelEntry", "dispatch", "get", "names", "register", "selected", "registry")
+    assert all(name in port.__all__ and name in ref.__all__ for name in names)
+    assert sorted(set(ref.__all__) - set(port.__all__)) == ["configure", "forced", "mode"]
+    assert not any(hasattr(port, name) for name in ("configure", "forced", "mode"))
+    assert port.REGISTRY is registry.REGISTRY and port.dispatch is registry.dispatch and port.registry is registry
+    assert "pair_count_cuda" in port.names()
+
+
+FAMILY_CLASSES = ["BinaryCohenKappa", "BinaryJaccardIndex", "BinaryMatthewsCorrCoef", "CohenKappa", "JaccardIndex",
+                  "MatthewsCorrCoef", "MulticlassCohenKappa", "MulticlassJaccardIndex", "MulticlassMatthewsCorrCoef",
+                  "MultilabelJaccardIndex", "MultilabelMatthewsCorrCoef"]
+
+
+@pytest.mark.parametrize("where,names", [
+    ("classification", FAMILY_CLASSES),
+    ("", ["CohenKappa", "JaccardIndex", "MatthewsCorrCoef"]),
+    ("functional", ["cohen_kappa", "jaccard_index", "matthews_corrcoef"]),
+])
+def test_the_confusion_matrix_family_names_are_exported_as_in_jax(where, names):
+    import importlib
+
+    port = importlib.import_module("metrics_tpu_torch" + (f".{where}" if where else ""))
+    ref = importlib.import_module("metrics_tpu" + (f".{where}" if where else ""))
+    family = sorted(n for n in ref.__all__ if any(k in n.lower() for k in ("jaccard", "kappa", "matthews")))
+    assert family == sorted(names)
+    assert all(name in port.__all__ and hasattr(port, name) for name in names)
