@@ -412,6 +412,30 @@ checkout, and then:
   next sweep and grows the slab, states equal to the fold. Every pilot ends
   with no actuator failure, no ``last_error`` and no ``pilot_action_failed``
   bundle.
+- Phase W drives the rest of classification and the nominal metrics. W1:
+  ``CramersV``, ``PearsonsContingencyCoefficient``, ``TschuprowsT`` and
+  ``TheilsU`` at 100 classes over 4 updates of 10^6 int64 label pairs, and
+  the four functionals on one of them: one table launch of
+  ``csrc/pair_count.cu`` an update or a call, the int32 table
+  ``torch.equal`` to the plain pair count of the same labels on the CPU;
+  ``cramers_v_matrix`` and ``theils_u_matrix`` over a (2^17, 8) matrix of 20
+  categories a column, 28 and 56 table launches; one float batch with NaNs
+  replaced by 0.0 and by -1.0 (category -1: dropped) and dropped. W2:
+  ``MulticlassHammingDistance`` at V1's shapes, 4 updates, one stat-score
+  launch an update, tp/fp/tn/fn equal to the plain stat scores; bench.py's
+  three metrics with a Hamming distance in one ``MetricCollection`` (the
+  JAX package's groups: four at construction, {accuracy, f1, hamming} and
+  {confmat} after the first update; 3 + 1 launches in that update, then
+  1 + 1); the binary and multilabel Hamming forms at 10^6; exact match on
+  (16, 512 x 512) labels over 21 classes, global and samplewise, and on
+  (10^6, 10) multilabel scores. W3: binary calibration on 10^6 scores with
+  the 16 bin edges among them (count and accuracy bins equal to the CPU's
+  bit for bit), multiclass at (10^6, 100); binary and multiclass hinge
+  (both modes, squared); coverage error, ranking average precision and
+  ranking loss at (2^15, 100). W4: Dice at (10^6, 100) micro and macro, and
+  samplewise on (10^4, 100, 100) scores. No reference dispatch; every
+  state against the CPU's and every value within (V_RTOL, V_ATOL); ms and
+  device µs an update and the idle share of each metric.
   Depth cut for the time limit (a whole run must end within 1200 s on the
   slowest host seen, about 1.5x the fastest, where a whole run with Phase V
   took 1104.6 s before the cuts marked "before Phase V"; the depths before
@@ -7053,6 +7077,373 @@ def phase_v(torch, np, obs, instrument, confmat) -> dict:
     return out
 
 
+W_N = 10**6  # label pairs / scores an update (J2's N)
+W_C = 100  # J2's classes
+W_UPDATES = 4
+W_MATRIX = (2**17, 8)  # the *_matrix input: rows x columns, W_MATRIX_CATS categories a column
+W_MATRIX_CATS = 20
+W_EXACT_MC = (16, 512 * 512, 21)  # MulticlassExactMatch: samples x positions, classes
+W_EXACT_ML = (10**6, 10)  # MultilabelExactMatch: samples x labels
+W_RANK = (2**15, 100)  # the ranking metrics: samples x labels (an (N, L, L) float32 comparison tensor)
+W_DICE_MDMC = (10**4, W_C, 100)  # Dice samplewise: (N, C, X), N * X = 10^6 positions
+W_PROFILED = 5  # updates timed by CUDA events and under the profiler, each metric
+W_FLAGSHIP_GROUPS_BUILT = {0: ["accuracy"], 1: ["confmat"], 2: ["f1"], 3: ["hamming"]}  # the JAX package's
+W_FLAGSHIP_GROUPS = {0: ["accuracy", "f1", "hamming"], 1: ["confmat"]}  # after the first update
+
+
+def _w_counted(obs, instrument, calls, what: str, dev: str) -> list:
+    """(stat-score, table) launches of each call, the counters set to 0 just
+    before the first and read just after the last; no reference dispatch on a
+    CUDA tensor."""
+    obs.enable()
+    try:
+        instrument.KERNEL_LAUNCHES.clear()  # the path's run starts here ...
+        instrument.KERNEL_DISPATCHES.clear()
+        per_call = []
+        for call in calls:
+            before = _route_launches(instrument)
+            call()
+            per_call.append(_diff(_route_launches(instrument), before))
+        if dev == "cuda":
+            _no_reference_dispatch(instrument, f"phase {what}")  # ... and ends here
+    finally:
+        obs.disable()
+    return per_call
+
+
+def _w_expect(per_call: list, want: list, what: str, dev: str) -> None:
+    """The launches the path must take on the card (none are counted on the CPU)."""
+    _check(per_call == (want if dev == "cuda" else [(0, 0)] * len(want)), f"{what}: launches {per_call}, want {want}")
+
+
+def _w_timed(torch, update, dev: str, iters: int = W_PROFILED) -> dict:
+    """ms an update (CUDA events), device µs an update and the idle share
+    (profiler). The profiler may lose a session's records (it recorded no
+    device kernel in some): a session with fewer device kernels than half the
+    updates is profiled again, up to 3 times, and if none has them the device
+    figures are None (not measured)."""
+    if dev != "cuda":
+        return {}
+    ms = _time_ms(update, iters, warmup=1)
+    prof = _update_profile(torch, lambda _s, _b: update(), None, None, "", iters=iters)
+    measured = prof["complete"]
+    return {"ms_per_update": ms, "device_us_per_update": prof["device_busy_us_per_update"] if measured else None,
+            "idle_share": prof["idle_share"] if measured else None,
+            "device_launches_per_update": prof["launches_per_update"] if measured else None}
+
+
+def _w_close(torch, got, want, what: str) -> float:
+    """``_v_close`` for tensors of any shape; the largest absolute difference."""
+    g, w = got.cpu().double(), want.double()
+    _check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: dtype/shape {got.dtype} {want.dtype}")
+    _check(torch.allclose(g, w, rtol=V_RTOL, atol=V_ATOL, equal_nan=True), f"{what}: card {got} vs CPU {want}")
+    diff = (g - w).abs()
+    return float(diff[~diff.isnan()].max()) if bool((~diff.isnan()).any()) else 0.0
+
+
+def _w_equal_states(torch, card, cpu, names, what: str) -> None:
+    for name in names:
+        a, b = getattr(card, name), getattr(cpu, name)
+        if isinstance(a, list):
+            a, b = torch.cat(a), torch.cat(b)
+        _check(a.dtype == b.dtype and torch.equal(a.cpu(), b), f"{what}: state {name} differs from the CPU's")
+
+
+def _w_record(torch, out: dict, key: str, err: float, launches, update, dev: str, iters: int = W_PROFILED) -> None:
+    rec = {"max_abs_err_vs_cpu": err, "launches_per_update": launches, **_w_timed(torch, update, dev, iters)}
+    out[key] = rec
+    print(f"phase W {key} {json.dumps(rec)}")
+
+
+def phase_w1(torch, np, obs, instrument, confmat, dev: str = "cuda", n: int = W_N, classes: int = W_C,
+             matrix_shape=W_MATRIX) -> dict:
+    """Nominal association on the card: the four modules over W_UPDATES updates
+    of ``n`` int64 label pairs, each table ``torch.equal`` to the plain pair
+    count of the same labels on the CPU, 1 table launch an update; the four
+    functionals, 1 a call; ``cramers_v_matrix`` and ``theils_u_matrix`` over a
+    (2^17, 8) matrix, D(D-1)/2 and D(D-1) launches; NaNs replaced by 0.0 and
+    -1.0 and dropped. Values within (V_RTOL, V_ATOL) of the port on the CPU."""
+    from metrics_tpu_torch import functional as F
+    from metrics_tpu_torch import nominal
+    from metrics_tpu_torch.functional.nominal.stats import _format_nominal
+
+    rng = np.random.default_rng(19)
+    cpu_batches = []
+    for _ in range(W_UPDATES):
+        target = rng.integers(0, classes, n)
+        preds = np.where(rng.random(n) < 0.4, target, rng.integers(0, classes, n))
+        cpu_batches.append((torch.from_numpy(preds), torch.from_numpy(target)))
+    batches = [(p.to(dev), t.to(dev)) for p, t in cpu_batches]
+    plain = sum(confmat.pair_count_bincount(p, t, classes, classes) for p, t in cpu_batches)
+    out = {"metrics": {}, "launches": {"pair_count": 0, "stat_scores": 0}}
+    worst = 0.0
+    for name in ("CramersV", "PearsonsContingencyCoefficient", "TschuprowsT", "TheilsU"):
+        m, cpu = getattr(nominal, name)(classes, device=dev), getattr(nominal, name)(classes, device="cpu")
+        per = _w_counted(obs, instrument, [lambda b=b: m.update(*b) for b in batches], f"W1 {name}", dev)
+        _w_expect(per, [(0, 1)] * W_UPDATES, f"W1 {name}", dev)
+        out["launches"]["pair_count"] += sum(t for _, t in per)
+        for b in cpu_batches:
+            cpu.update(*b)
+        _check(m.confmat.dtype == torch.int32 and torch.equal(m.confmat.cpu(), plain),
+               f"W1 {name}: the table differs from the plain pair count")
+        _check(torch.equal(cpu.confmat, plain), f"W1 {name}: the CPU table differs from the plain pair count")
+        err = _w_close(torch, m.compute(), cpu.compute(), f"W1 {name}")
+        worst = max(worst, err)
+        _w_record(torch, out["metrics"], name, err, per[-1], lambda: m.update(*batches[0]), dev)
+    for fn in ("cramers_v", "pearsons_contingency_coefficient", "tschuprows_t", "theils_u"):
+        got = []
+        per = _w_counted(obs, instrument, [lambda: got.append(getattr(F, fn)(*batches[0]))], f"W1 {fn}", dev)
+        _w_expect(per, [(0, 1)], f"W1 {fn}", dev)
+        out["launches"]["pair_count"] += per[0][1]
+        err = _w_close(torch, got[0], getattr(F, fn)(*cpu_batches[0]), f"W1 {fn}")
+        worst = max(worst, err)
+        _w_record(torch, out["metrics"], fn, err, per[0], lambda: getattr(F, fn)(*batches[0]), dev)
+    cols = matrix_shape[1]
+    matrix_cpu = torch.from_numpy(rng.integers(0, W_MATRIX_CATS, matrix_shape))
+    matrix = matrix_cpu.to(dev)
+    for fn, pairs in (("cramers_v_matrix", cols * (cols - 1) // 2), ("theils_u_matrix", cols * (cols - 1))):
+        got = []
+        per = _w_counted(obs, instrument, [lambda: got.append(getattr(F, fn)(matrix))], f"W1 {fn}", dev)
+        _w_expect(per, [(0, pairs)], f"W1 {fn}", dev)
+        out["launches"]["pair_count"] += per[0][1]
+        err = _w_close(torch, got[0], getattr(F, fn)(matrix_cpu), f"W1 {fn}")
+        worst = max(worst, err)
+        # one call is 28 or 56 functional calls: time and profile one, not W_PROFILED
+        _w_record(torch, out["metrics"], fn, err, per[0], lambda: getattr(F, fn)(matrix), dev, iters=1)
+    # one batch with NaNs: replaced by 0.0 or -1.0 (category -1: dropped by the pair count), or dropped
+    p_nan, t_nan = (x.to(torch.float32) for x in cpu_batches[0])
+    p_nan[torch.from_numpy(rng.random(n) < 0.05)] = float("nan")
+    t_nan[torch.from_numpy(rng.random(n) < 0.05)] = float("nan")
+    for key, kw in (("nan_replace_0", {"nan_replace_value": 0.0}), ("nan_replace_-1", {"nan_replace_value": -1.0}),
+                    ("nan_drop", {"nan_strategy": "drop"})):
+        m = nominal.CramersV(classes, device=dev, **kw)
+        per = _w_counted(obs, instrument, [lambda: m.update(p_nan.to(dev), t_nan.to(dev))], f"W1 {key}", dev)
+        _w_expect(per, [(0, 1)], f"W1 {key}", dev)
+        out["launches"]["pair_count"] += per[0][1]
+        strategy = kw.get("nan_strategy", "replace")
+        want = confmat.pair_count_bincount(*_format_nominal(p_nan, t_nan, strategy, kw.get("nan_replace_value")),
+                                           classes, classes)
+        _check(m.confmat.dtype == torch.int32 and torch.equal(m.confmat.cpu(), want),
+               f"W1 {key}: the table differs from the plain pair count")
+        cpu = nominal.CramersV(classes, device="cpu", **kw)
+        cpu.update(p_nan, t_nan)
+        err = _w_close(torch, m.compute(), cpu.compute(), f"W1 {key}")
+        err = max(err, _w_close(torch, F.cramers_v(p_nan.to(dev), t_nan.to(dev), **kw), F.cramers_v(p_nan, t_nan, **kw),
+                                f"W1 {key} functional"))
+        worst = max(worst, err)
+        _w_record(torch, out["metrics"], key, err, per[0], lambda: m.update(p_nan.to(dev), t_nan.to(dev)), dev)
+    out["max_abs_err_vs_cpu"] = worst
+    return out
+
+
+def _w_scores(np, rng, shape, pos_rate: float = 0.3):
+    """float32 scores in [0, 1) and int32 targets that follow them."""
+    scores = rng.random(shape).astype(np.float32)
+    target = (rng.random(shape) < np.where(scores > 0.5, 1 - pos_rate, pos_rate)).astype(np.int32)
+    return scores, target
+
+
+def phase_w2(torch, np, obs, instrument, confmat, dev: str = "cuda", shapes=V_SHAPES, n: int = W_N,
+             exact_mc=W_EXACT_MC, exact_ml=W_EXACT_ML) -> dict:
+    """Hamming distance and exact match on the card: ``MulticlassHammingDistance``
+    at V1's shapes, 1 stat-score launch an update, tp/fp/tn/fn equal to the
+    plain stat scores; the binary and multilabel forms at 10^6; the flagship
+    collection with a Hamming distance (the JAX package's groups, then 1
+    stat-score and 1 table launch an update); exact match global and
+    samplewise. States against the CPU, values within (V_RTOL, V_ATOL)."""
+    from metrics_tpu_torch import MetricCollection
+    from metrics_tpu_torch.classification import (
+        BinaryHammingDistance, MulticlassExactMatch, MulticlassHammingDistance, MultilabelExactMatch,
+        MultilabelHammingDistance,
+    )
+    from metrics_tpu_torch.entry import make_metrics
+
+    out = {"metrics": {}, "launches": {"pair_count": 0, "stat_scores": 0}, "collection": {}}
+    worst = 0.0
+    counts = ("tp", "fp", "tn", "fn")
+    for n_, classes, what in shapes:
+        key = f"N{n_}_C{classes}"
+        batches = _v_batches(torch, np, n_ + classes + 1, n_, classes, dev)
+        m, cpu = MulticlassHammingDistance(classes, device=dev), MulticlassHammingDistance(classes, device="cpu")
+        per = _w_counted(obs, instrument, [lambda b=b: m.update(*b) for b in batches], f"W2 hamming {key}", dev)
+        _w_expect(per, [(1, 0)] * W_UPDATES, f"W2 hamming {key}", dev)
+        out["launches"]["stat_scores"] += sum(s for s, _ in per)
+        plain = [sum(x) for x in zip(*(confmat.stat_scores_bincount(t.cpu(), p.cpu(), classes) for p, t in batches))]
+        for name, want in zip(counts, plain):
+            _check(getattr(m, name).dtype == torch.int32 and torch.equal(getattr(m, name).cpu(), want.to(torch.int32)),
+                   f"W2 hamming {key}: {name} differs from the plain stat scores")
+        for p, t in batches:
+            cpu.update(p.cpu(), t.cpu())
+        err = _w_close(torch, m.compute(), cpu.compute(), f"W2 hamming {key}")
+        worst = max(worst, err)
+        _w_record(torch, out["metrics"], f"hamming_{key}", err, per[-1], lambda: m.update(*batches[0]), dev)
+
+        # the flagship's metrics (bench.py's arguments) with a Hamming distance, in one collection
+        metrics = make_metrics(classes, device=dev)
+        metrics["hamming"] = MulticlassHammingDistance(classes, validate_args=False, device=dev)
+        col = MetricCollection(metrics)
+        built = {k: list(v) for k, v in col.compute_groups.items()}
+        _check(built == W_FLAGSHIP_GROUPS_BUILT, f"W2 {key}: groups at construction {built}")
+        per = _w_counted(obs, instrument, [lambda b=b: col.update(*b) for b in batches], f"W2 collection {key}", dev)
+        _w_expect(per, [(len(built) - 1, 1)] + [(1, 1)] * (W_UPDATES - 1), f"W2 collection {key}", dev)
+        groups = {k: list(v) for k, v in col.compute_groups.items()}
+        _check(groups == W_FLAGSHIP_GROUPS, f"W2 {key}: groups {groups}, the JAX package forms {W_FLAGSHIP_GROUPS}")
+        out["launches"]["stat_scores"] += sum(s for s, _ in per)
+        out["launches"]["pair_count"] += sum(t for _, t in per)
+        for name, want in zip(counts, plain):
+            _check(torch.equal(getattr(col["hamming"], name).cpu(), want.to(torch.int32)),
+                   f"W2 {key}: the collection's {name} differs from the plain stat scores")
+        worst = max(worst, _w_close(torch, col.compute()["hamming"], cpu.compute(), f"W2 collection {key}"))
+        rec = {"groups": groups, "built": built, "launches_per_update": per[1:], "launches_forming_update": per[0],
+               **_w_timed(torch, lambda: col.update(*batches[0]), dev)}
+        out["collection"][key] = rec
+        print(f"phase W2 collection {key} {json.dumps(rec)}")
+
+    rng = np.random.default_rng(20)
+    scores, target = _w_scores(np, rng, n)
+    ml_shape = (n // W_C, W_C)
+    forms = {"binary_hamming": (lambda d: BinaryHammingDistance(device=d), (scores, target)),
+             "multilabel_hamming": (lambda d: MultilabelHammingDistance(W_C, device=d),
+                                    (scores.reshape(ml_shape), target.reshape(ml_shape)))}
+    ml_scores, ml_target = _w_scores(np, rng, exact_ml)
+    ml_scores = np.where(rng.random(exact_ml) < 0.9, ml_target, ml_scores).astype(np.float32)  # some rows all right
+    mc_target = rng.integers(0, exact_mc[2], exact_mc[:2])
+    mc_preds = mc_target.copy()
+    wrong = rng.random(exact_mc[0]) < 0.5
+    mc_preds[wrong, rng.integers(0, exact_mc[1], int(wrong.sum()))] += 1  # one position off in half the samples
+    mc_preds %= exact_mc[2]
+    for mda in ("global", "samplewise"):
+        forms[f"multiclass_exact_match_{mda}"] = (
+            lambda d, mda=mda: MulticlassExactMatch(exact_mc[2], multidim_average=mda, device=d), (mc_preds, mc_target))
+    forms["multilabel_exact_match"] = (lambda d: MultilabelExactMatch(exact_ml[1], device=d), (ml_scores, ml_target))
+    for name, (make, arrays) in forms.items():
+        card, cpu = make(dev), make("cpu")
+        args = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        per = _w_counted(obs, instrument, [lambda: card.update(*args)], f"W2 {name}", dev)
+        _w_expect(per, [(0, 0)], f"W2 {name}", dev)  # plain torch counts: no hand kernel
+        cpu.update(*(torch.from_numpy(a) for a in arrays))
+        _w_equal_states(torch, card, cpu, list(card._defaults), f"W2 {name}")
+        err = _w_close(torch, card.compute(), cpu.compute(), f"W2 {name}")
+        worst = max(worst, err)
+        _w_record(torch, out["metrics"], name, err, per[0], lambda: card.update(*args), dev)
+    out["max_abs_err_vs_cpu"] = worst
+    return out
+
+
+def phase_w3(torch, np, obs, instrument, dev: str = "cuda", n: int = W_N, classes: int = W_C,
+             rank_shape=W_RANK) -> dict:
+    """Calibration, hinge and ranking on the card: binary calibration on 10^6
+    scores with the 16 bin edges among them (the int32-valued bins equal to the
+    CPU's bit for bit), multiclass at (10^6, 100); binary and multiclass hinge
+    (both modes, squared or not); the three ranking metrics at (2^15, 100).
+    Plain torch code: no hand kernel is launched."""
+    from metrics_tpu_torch.classification import (
+        BinaryCalibrationError, BinaryHingeLoss, MulticlassCalibrationError, MulticlassHingeLoss,
+        MultilabelCoverageError, MultilabelRankingAveragePrecision, MultilabelRankingLoss,
+    )
+    from metrics_tpu_torch.functional.classification.precision_recall_curve import _linspace01
+
+    rng = np.random.default_rng(21)
+    scores, target = _w_scores(np, rng, n)
+    scores[:16] = _linspace01(16).numpy()  # the bin edges of n_bins = 15, as jnp.linspace gives them
+    logits = rng.normal(0.0, 2.0, (n, classes)).astype(np.float32)
+    probs = np.exp(logits - logits.max(1, keepdims=True))
+    probs = (probs / probs.sum(1, keepdims=True)).astype(np.float32)  # rows summing to 1: no softmax on either side
+    mc_target = np.where(rng.random(n) < 0.4, probs.argmax(1), rng.integers(0, classes, n)).astype(np.int64)
+    rank_scores, rank_target = _w_scores(np, rng, rank_shape)
+    forms = {
+        "binary_calibration": (lambda d: BinaryCalibrationError(n_bins=15, device=d), (scores, target)),
+        "multiclass_calibration": (lambda d: MulticlassCalibrationError(classes, n_bins=15, device=d),
+                                   (probs, mc_target)),
+        "binary_hinge": (lambda d: BinaryHingeLoss(device=d), (scores, target)),
+        "binary_hinge_squared": (lambda d: BinaryHingeLoss(squared=True, device=d), (scores, target)),
+        "multiclass_hinge_crammer_singer": (lambda d: MulticlassHingeLoss(classes, device=d), (logits, mc_target)),
+        "multiclass_hinge_one_vs_all": (
+            lambda d: MulticlassHingeLoss(classes, multiclass_mode="one-vs-all", device=d), (logits, mc_target)),
+        "multiclass_hinge_squared": (lambda d: MulticlassHingeLoss(classes, squared=True, device=d),
+                                     (logits, mc_target)),
+        "coverage_error": (lambda d: MultilabelCoverageError(rank_shape[1], device=d), (rank_scores, rank_target)),
+        "ranking_average_precision": (lambda d: MultilabelRankingAveragePrecision(rank_shape[1], device=d),
+                                      (rank_scores, rank_target)),
+        "ranking_loss": (lambda d: MultilabelRankingLoss(rank_shape[1], device=d), (rank_scores, rank_target)),
+    }
+    out = {"metrics": {}}
+    worst = 0.0
+    for name, (make, arrays) in forms.items():
+        card, cpu = make(dev), make("cpu")
+        args = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        per = _w_counted(obs, instrument, [lambda: card.update(*args)], f"W3 {name}", dev)
+        _w_expect(per, [(0, 0)], f"W3 {name}", dev)
+        cpu.update(*(torch.from_numpy(a) for a in arrays))
+        if "calibration" in name:  # counts and 0/1 accuracy sums are integers below 2^24: exact in any order
+            _w_equal_states(torch, card, cpu, ("count_bin", "acc_bin"), f"W3 {name}")
+            worst = max(worst, _w_close(torch, card.conf_bin, cpu.conf_bin, f"W3 {name} conf_bin"))
+        else:
+            for key in card._defaults:
+                worst = max(worst, _w_close(torch, getattr(card, key), getattr(cpu, key), f"W3 {name} {key}"))
+        err = _w_close(torch, card.compute(), cpu.compute(), f"W3 {name}")
+        worst = max(worst, err)
+        _w_record(torch, out["metrics"], name, err, per[0], lambda: card.update(*args), dev)
+    out["edges_binned_like_the_cpu"] = True
+    out["max_abs_err_vs_cpu"] = worst
+    return out
+
+
+def phase_w4(torch, np, obs, instrument, dev: str = "cuda", n: int = W_N, classes: int = W_C,
+             mdmc_shape=W_DICE_MDMC) -> dict:
+    """Dice on the card through the legacy formatter: micro and macro on
+    (10^6, 100) scores, samplewise on (N, C, X) scores; int32 counts (list
+    states samplewise) equal to the CPU's, values within (V_RTOL, V_ATOL)."""
+    from metrics_tpu_torch.classification import Dice
+
+    rng = np.random.default_rng(22)
+    scores = rng.random((n, classes)).astype(np.float32)
+    target = np.where(rng.random(n) < 0.5, scores.argmax(1), rng.integers(0, classes, n)).astype(np.int64)
+    mdmc = rng.random(mdmc_shape).astype(np.float32)
+    mdmc_target = np.where(rng.random((mdmc_shape[0], mdmc_shape[2])) < 0.5, mdmc.argmax(1),
+                           rng.integers(0, classes, (mdmc_shape[0], mdmc_shape[2]))).astype(np.int64)
+    forms = {
+        "dice_micro": (lambda d: Dice(device=d), (scores, target)),
+        "dice_macro": (lambda d: Dice(average="macro", num_classes=classes, device=d), (scores, target)),
+        "dice_samplewise": (lambda d: Dice(mdmc_average="samplewise", num_classes=classes, device=d),
+                            (mdmc, mdmc_target)),
+    }
+    out = {"metrics": {}}
+    worst = 0.0
+    for name, (make, arrays) in forms.items():
+        card, cpu = make(dev), make("cpu")
+        args = tuple(torch.from_numpy(a).to(dev) for a in arrays)
+        per = _w_counted(obs, instrument, [lambda: card.update(*args)], f"W4 {name}", dev)
+        _w_expect(per, [(0, 0)], f"W4 {name}", dev)
+        cpu.update(*(torch.from_numpy(a) for a in arrays))
+        _w_equal_states(torch, card, cpu, ("tp", "fp", "tn", "fn"), f"W4 {name}")
+        err = _w_close(torch, card.compute(), cpu.compute(), f"W4 {name}")
+        worst = max(worst, err)
+        _w_record(torch, out["metrics"], name, err, per[0], lambda: card.update(*args), dev)
+    out["max_abs_err_vs_cpu"] = worst
+    return out
+
+
+def phase_w(torch, np, obs, instrument, confmat, dev: str = "cuda", **sizes) -> dict:
+    """The rest of classification and the nominal metrics on the card (W1-W4)."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, phase, kw in (("W1", phase_w1, ("n", "classes", "matrix_shape")),
+                           ("W2", phase_w2, ("shapes", "n", "exact_mc", "exact_ml")),
+                           ("W3", phase_w3, ("n", "classes", "rank_shape")),
+                           ("W4", phase_w4, ("n", "classes", "mdmc_shape"))):
+        t1 = time.perf_counter()
+        args = (torch, np, obs, instrument, confmat) if key in ("W1", "W2") else (torch, np, obs, instrument)
+        out[key] = phase(*args, dev=dev, **{k: v for k, v in sizes.items() if k in kw})
+        out[key]["seconds"] = time.perf_counter() - t1
+        print(f"phase {key}: {out[key]['seconds']:.1f} s")
+    out["launches"] = {route: sum(out[k].get("launches", {}).get(route, 0) for k in ("W1", "W2")) for route in ROUTES}
+    out["max_abs_err_vs_cpu"] = max(out[k]["max_abs_err_vs_cpu"] for k in ("W1", "W2", "W3", "W4"))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase W: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--replica-reader":
         return _p2_reader(sys.argv[2], float(sys.argv[3]))  # Phase P2's follower process
@@ -7145,6 +7536,7 @@ def main() -> int:
     cluster_plane = phase_t(torch, np)
     partition_plane = phase_u(torch, np)
     pilot_plane = phase_v(torch, np, obs, instrument, confmat)
+    classification_rest = phase_w(torch, np, obs, instrument, confmat)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -7209,6 +7601,20 @@ def main() -> int:
                 "phase_v1_collection_per_update": {key: rec["collection"]["table_launches_per_update"]
                                                    for key, rec in pilot_plane["V1"]["shapes"].items()}
                 if route == "pair_count" else None,
+                # the rest of classification and the nominal metrics (Phase W): W1 the nominal tables (1 a
+                # module update or a functional call, D(D-1)/2 and D(D-1) a matrix), W2 multiclass Hamming
+                # (1 stat-score launch an update) and the flagship collection with it (3 + 1 in the update
+                # that forms the groups, then 1 + 1)
+                "phase_w1_nominal": classification_rest["W1"]["launches"][route],
+                "phase_w2_hamming_and_collection": classification_rest["W2"]["launches"][route],
+                "phase_w_per_update": {
+                    **{name: rec["launches_per_update"][ROUTES.index(route)]
+                       for name, rec in classification_rest["W1"]["metrics"].items()},
+                    **{name: rec["launches_per_update"][ROUTES.index(route)]
+                       for name, rec in classification_rest["W2"]["metrics"].items() if name.startswith("hamming_N")},
+                    **{f"collection_{key}": [p[ROUTES.index(route)] for p in rec["launches_per_update"]]
+                       for key, rec in classification_rest["W2"]["collection"].items()},
+                },
             },
         })
     shape_fields = ("shape", *fields)
@@ -7276,7 +7682,8 @@ def main() -> int:
                       "engine": engine, "binary_multilabel_mse": classification_l, "durable": durable,
                       "guard": guard, "tier": tier, "replication": replication, "comm": comm_plane,
                       "shard": shard_plane, "query": query_plane, "cluster": cluster_plane,
-                      "partition": partition_plane, "pilot": pilot_plane, "card": card}))
+                      "partition": partition_plane, "pilot": pilot_plane, "classification_rest": classification_rest,
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -20,10 +20,15 @@ from metrics_tpu_torch.classification import (
     ROC,
     Accuracy,
     AveragePrecision,
+    CalibrationError,
     CohenKappa,
     ConfusionMatrix,
+    Dice,
+    ExactMatch,
     F1Score,
     FBetaScore,
+    HammingDistance,
+    HingeLoss,
     JaccardIndex,
     MatthewsCorrCoef,
     Precision,
@@ -34,6 +39,7 @@ from metrics_tpu_torch.classification import (
 )
 from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
+from metrics_tpu_torch.nominal import CramersV, PearsonsContingencyCoefficient, TheilsU, TschuprowsT
 from metrics_tpu_torch.regression import (
     LogCoshError,
     MeanAbsoluteError,
@@ -52,14 +58,20 @@ __all__ = [
     "Accuracy",
     "AUROC",
     "AveragePrecision",
+    "CalibrationError",
     "CardinalitySketch",
     "CatMetric",
     "CohenKappa",
     "CompositionalMetric",
     "ConfusionMatrix",
+    "CramersV",
+    "Dice",
+    "ExactMatch",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
     "HeavyHittersSketch",
+    "HingeLoss",
     "JaccardIndex",
     "LogCoshError",
     "MatthewsCorrCoef",
@@ -72,6 +84,7 @@ __all__ = [
     "Metric",
     "MetricCollection",
     "MinMetric",
+    "PearsonsContingencyCoefficient",
     "Precision",
     "PrecisionRecallCurve",
     "QuantileSketch",
@@ -81,5 +94,7 @@ __all__ = [
     "StatScores",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
+    "TheilsU",
+    "TschuprowsT",
     "WeightedMeanAbsolutePercentageError",
 ]

@@ -1,7 +1,8 @@
 """Classification module metrics (port of ``metrics_tpu/classification``): the
 stat-score family (binary, multiclass, multilabel and the task façades), the
-curve family, and the confusion-matrix family (Jaccard, Cohen's kappa,
-Matthews)."""
+curve family, the confusion-matrix family (Jaccard, Cohen's kappa,
+Matthews), and the rest: Hamming distance, exact match, calibration error,
+hinge loss, the multilabel ranking metrics and Dice."""
 
 from metrics_tpu_torch.classification.accuracy import Accuracy, BinaryAccuracy, MulticlassAccuracy, MultilabelAccuracy
 from metrics_tpu_torch.classification.auroc import AUROC, BinaryAUROC, MulticlassAUROC, MultilabelAUROC
@@ -11,6 +12,11 @@ from metrics_tpu_torch.classification.average_precision import (
     MulticlassAveragePrecision,
     MultilabelAveragePrecision,
 )
+from metrics_tpu_torch.classification.calibration_error import (
+    BinaryCalibrationError,
+    CalibrationError,
+    MulticlassCalibrationError,
+)
 from metrics_tpu_torch.classification.cohen_kappa import BinaryCohenKappa, CohenKappa, MulticlassCohenKappa
 from metrics_tpu_torch.classification.confusion_matrix import (
     BinaryConfusionMatrix,
@@ -18,6 +24,8 @@ from metrics_tpu_torch.classification.confusion_matrix import (
     MulticlassConfusionMatrix,
     MultilabelConfusionMatrix,
 )
+from metrics_tpu_torch.classification.dice import Dice
+from metrics_tpu_torch.classification.exact_match import ExactMatch, MulticlassExactMatch, MultilabelExactMatch
 from metrics_tpu_torch.classification.f_beta import (
     BinaryF1Score,
     BinaryFBetaScore,
@@ -28,6 +36,13 @@ from metrics_tpu_torch.classification.f_beta import (
     MultilabelF1Score,
     MultilabelFBetaScore,
 )
+from metrics_tpu_torch.classification.hamming import (
+    BinaryHammingDistance,
+    HammingDistance,
+    MulticlassHammingDistance,
+    MultilabelHammingDistance,
+)
+from metrics_tpu_torch.classification.hinge import BinaryHingeLoss, HingeLoss, MulticlassHingeLoss
 from metrics_tpu_torch.classification.jaccard import (
     BinaryJaccardIndex,
     JaccardIndex,
@@ -55,6 +70,11 @@ from metrics_tpu_torch.classification.precision_recall_curve import (
     MulticlassPrecisionRecallCurve,
     MultilabelPrecisionRecallCurve,
     PrecisionRecallCurve,
+)
+from metrics_tpu_torch.classification.ranking import (
+    MultilabelCoverageError,
+    MultilabelRankingAveragePrecision,
+    MultilabelRankingLoss,
 )
 from metrics_tpu_torch.classification.recall_at_fixed_precision import (
     BinaryRecallAtFixedPrecision,
@@ -89,10 +109,13 @@ __all__ = [
     "BinaryAccuracy",
     "BinaryAUROC",
     "BinaryAveragePrecision",
+    "BinaryCalibrationError",
     "BinaryCohenKappa",
     "BinaryConfusionMatrix",
     "BinaryF1Score",
     "BinaryFBetaScore",
+    "BinaryHammingDistance",
+    "BinaryHingeLoss",
     "BinaryJaccardIndex",
     "BinaryMatthewsCorrCoef",
     "BinaryPrecision",
@@ -103,19 +126,28 @@ __all__ = [
     "BinarySpecificity",
     "BinarySpecificityAtSensitivity",
     "BinaryStatScores",
+    "CalibrationError",
     "CohenKappa",
     "ConfusionMatrix",
+    "Dice",
+    "ExactMatch",
     "F1Score",
     "FBetaScore",
+    "HammingDistance",
+    "HingeLoss",
     "JaccardIndex",
     "MatthewsCorrCoef",
     "MulticlassAccuracy",
     "MulticlassAUROC",
     "MulticlassAveragePrecision",
+    "MulticlassCalibrationError",
     "MulticlassCohenKappa",
     "MulticlassConfusionMatrix",
+    "MulticlassExactMatch",
     "MulticlassF1Score",
     "MulticlassFBetaScore",
+    "MulticlassHammingDistance",
+    "MulticlassHingeLoss",
     "MulticlassJaccardIndex",
     "MulticlassMatthewsCorrCoef",
     "MulticlassPrecision",
@@ -130,12 +162,17 @@ __all__ = [
     "MultilabelAUROC",
     "MultilabelAveragePrecision",
     "MultilabelConfusionMatrix",
+    "MultilabelCoverageError",
+    "MultilabelExactMatch",
     "MultilabelF1Score",
     "MultilabelFBetaScore",
+    "MultilabelHammingDistance",
     "MultilabelJaccardIndex",
     "MultilabelMatthewsCorrCoef",
     "MultilabelPrecision",
     "MultilabelPrecisionRecallCurve",
+    "MultilabelRankingAveragePrecision",
+    "MultilabelRankingLoss",
     "MultilabelRecall",
     "MultilabelRecallAtFixedPrecision",
     "MultilabelROC",

@@ -1,7 +1,8 @@
 """Classification functionals (port of ``metrics_tpu/functional/classification``):
 the stat-score family (binary, multiclass, multilabel and the task façades),
-the curve family, and the confusion-matrix family (Jaccard, Cohen's kappa,
-Matthews)."""
+the curve family, the confusion-matrix family (Jaccard, Cohen's kappa,
+Matthews), and the rest: Hamming distance, exact match, calibration error,
+hinge loss, the multilabel ranking metrics and Dice."""
 
 from metrics_tpu_torch.functional.classification.accuracy import (
     accuracy,
@@ -16,6 +17,11 @@ from metrics_tpu_torch.functional.classification.average_precision import (
     multiclass_average_precision,
     multilabel_average_precision,
 )
+from metrics_tpu_torch.functional.classification.calibration_error import (
+    binary_calibration_error,
+    calibration_error,
+    multiclass_calibration_error,
+)
 from metrics_tpu_torch.functional.classification.cohen_kappa import (
     binary_cohen_kappa,
     cohen_kappa,
@@ -27,6 +33,12 @@ from metrics_tpu_torch.functional.classification.confusion_matrix import (
     multiclass_confusion_matrix,
     multilabel_confusion_matrix,
 )
+from metrics_tpu_torch.functional.classification.dice import dice
+from metrics_tpu_torch.functional.classification.exact_match import (
+    exact_match,
+    multiclass_exact_match,
+    multilabel_exact_match,
+)
 from metrics_tpu_torch.functional.classification.f_beta import (
     binary_f1_score,
     binary_fbeta_score,
@@ -37,6 +49,13 @@ from metrics_tpu_torch.functional.classification.f_beta import (
     multilabel_f1_score,
     multilabel_fbeta_score,
 )
+from metrics_tpu_torch.functional.classification.hamming import (
+    binary_hamming_distance,
+    hamming_distance,
+    multiclass_hamming_distance,
+    multilabel_hamming_distance,
+)
+from metrics_tpu_torch.functional.classification.hinge import binary_hinge_loss, hinge_loss, multiclass_hinge_loss
 from metrics_tpu_torch.functional.classification.jaccard import (
     binary_jaccard_index,
     jaccard_index,
@@ -64,6 +83,11 @@ from metrics_tpu_torch.functional.classification.precision_recall_curve import (
     multiclass_precision_recall_curve,
     multilabel_precision_recall_curve,
     precision_recall_curve,
+)
+from metrics_tpu_torch.functional.classification.ranking import (
+    multilabel_coverage_error,
+    multilabel_ranking_average_precision,
+    multilabel_ranking_loss,
 )
 from metrics_tpu_torch.functional.classification.recall_at_fixed_precision import (
     binary_recall_at_fixed_precision,
@@ -96,10 +120,13 @@ __all__ = [
     "binary_accuracy",
     "binary_auroc",
     "binary_average_precision",
+    "binary_calibration_error",
     "binary_cohen_kappa",
     "binary_confusion_matrix",
     "binary_f1_score",
     "binary_fbeta_score",
+    "binary_hamming_distance",
+    "binary_hinge_loss",
     "binary_jaccard_index",
     "binary_matthews_corrcoef",
     "binary_precision",
@@ -110,19 +137,28 @@ __all__ = [
     "binary_specificity",
     "binary_specificity_at_sensitivity",
     "binary_stat_scores",
+    "calibration_error",
     "cohen_kappa",
     "confusion_matrix",
+    "dice",
+    "exact_match",
     "f1_score",
     "fbeta_score",
+    "hamming_distance",
+    "hinge_loss",
     "jaccard_index",
     "matthews_corrcoef",
     "multiclass_accuracy",
     "multiclass_auroc",
     "multiclass_average_precision",
+    "multiclass_calibration_error",
     "multiclass_cohen_kappa",
     "multiclass_confusion_matrix",
+    "multiclass_exact_match",
     "multiclass_f1_score",
     "multiclass_fbeta_score",
+    "multiclass_hamming_distance",
+    "multiclass_hinge_loss",
     "multiclass_jaccard_index",
     "multiclass_matthews_corrcoef",
     "multiclass_precision",
@@ -137,12 +173,17 @@ __all__ = [
     "multilabel_auroc",
     "multilabel_average_precision",
     "multilabel_confusion_matrix",
+    "multilabel_coverage_error",
+    "multilabel_exact_match",
     "multilabel_f1_score",
     "multilabel_fbeta_score",
+    "multilabel_hamming_distance",
     "multilabel_jaccard_index",
     "multilabel_matthews_corrcoef",
     "multilabel_precision",
     "multilabel_precision_recall_curve",
+    "multilabel_ranking_average_precision",
+    "multilabel_ranking_loss",
     "multilabel_recall",
     "multilabel_recall_at_fixed_precision",
     "multilabel_roc",

@@ -44,13 +44,13 @@ Thresholds = Optional[Union[int, List[float], Tensor]]
 _EXACT_IGNORE_SENTINEL = -1.0
 
 
-def _linspace01(steps: int, device: Optional[torch.device] = None) -> Tensor:
-    """``jnp.linspace(0, 1, steps, dtype=float32)`` bit for bit: ``i * (1 / (steps - 1))``
-    in float32, with the last value set to exactly 1."""
+def _linspace01(steps: int, device: Optional[torch.device] = None, dtype: torch.dtype = torch.float32) -> Tensor:
+    """``jnp.linspace(0, 1, steps, dtype=dtype)`` bit for bit (float32 and float16):
+    ``i * (1 / (steps - 1))`` in ``dtype``, with the last value set to exactly 1."""
     if steps == 1:
-        return torch.zeros(1, dtype=torch.float32, device=device)
-    step = torch.tensor(1.0, dtype=torch.float32) / (steps - 1)
-    out = torch.arange(steps, dtype=torch.float32) * step
+        return torch.zeros(1, dtype=dtype, device=device)
+    step = torch.tensor(1.0, dtype=dtype) / (steps - 1)
+    out = torch.arange(steps, dtype=dtype) * step
     out[-1] = 1.0
     return out.to(device)
 

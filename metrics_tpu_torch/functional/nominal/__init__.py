@@ -1,0 +1,23 @@
+"""Nominal association functionals (port of ``metrics_tpu/functional/nominal``)."""
+
+from metrics_tpu_torch.functional.nominal.stats import (
+    cramers_v,
+    cramers_v_matrix,
+    pearsons_contingency_coefficient,
+    pearsons_contingency_coefficient_matrix,
+    theils_u,
+    theils_u_matrix,
+    tschuprows_t,
+    tschuprows_t_matrix,
+)
+
+__all__ = [
+    "cramers_v",
+    "cramers_v_matrix",
+    "pearsons_contingency_coefficient",
+    "pearsons_contingency_coefficient_matrix",
+    "theils_u",
+    "theils_u_matrix",
+    "tschuprows_t",
+    "tschuprows_t_matrix",
+]

@@ -1,5 +1,6 @@
 """Input validation helpers (port of ``metrics_tpu/utils/checks.py``, the part
-that the ported classification validation calls).
+that the ported classification validation calls, and the legacy input
+formatter that Dice uses).
 
 The JAX package skips value-dependent checks on traced arrays: inside
 ``jax.jit``, and so inside the serving engine's micro-batch kernel and
@@ -18,10 +19,13 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Iterator
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import Tensor
+
+from metrics_tpu_torch.utils.data import select_topk, to_onehot
+from metrics_tpu_torch.utils.enums import DataType
 
 _TRACE = threading.local()
 
@@ -54,3 +58,164 @@ def _check_same_shape(preds: Tensor, target: Tensor) -> None:
         raise RuntimeError(
             f"Predictions and targets are expected to have the same shape, but got {preds.shape} and {target.shape}."
         )
+
+
+def _as_x32(x: Tensor) -> Tensor:
+    """``x`` as the JAX package sees it with x64 off: float64 as float32, and
+    integers other than int32 by their low 32 bits (bool stays bool)."""
+    x = torch.as_tensor(x)
+    if x.dtype == torch.float64:
+        return x.to(torch.float32)
+    if not x.is_floating_point() and x.dtype not in (torch.int32, torch.bool):
+        return x.to(torch.int32)
+    return x
+
+
+def _basic_input_validation(preds: Tensor, target: Tensor, threshold: float, ignore_index: Optional[int]) -> None:
+    """Checks common to every legacy input: integer, non-negative targets (but
+    ``ignore_index``), non-negative integer preds, a threshold in (0, 1)."""
+    if _value_check_possible(target) and target.is_floating_point():
+        raise ValueError("The `target` has to be an integer tensor.")
+
+    if _value_check_possible(target):
+        unique_values = torch.unique(target)
+        negative = (unique_values != 0) & (unique_values != 1) & (unique_values < 0)
+        if ignore_index is not None:
+            negative = negative & (unique_values != ignore_index)
+        if bool(torch.any(negative)):
+            raise ValueError("The `target` has to be a non-negative tensor.")
+
+    if _value_check_possible(preds) and not preds.is_floating_point() and bool(torch.any(preds < 0)):
+        raise ValueError("If `preds` are integers, they have to be non-negative.")
+
+    if not 0 < threshold < 1:
+        raise ValueError(f"The `threshold` should be a float in the (0,1) interval, got {threshold}")
+
+
+def _check_shape_and_type_consistency(preds: Tensor, target: Tensor) -> Tuple[DataType, int]:
+    """The input case (binary, multiclass, multilabel or multi-dim multiclass)
+    and the number of classes the shapes imply."""
+    preds_float = preds.is_floating_point()
+
+    if preds.ndim == target.ndim:
+        if preds.shape != target.shape:
+            raise ValueError("The `preds` and `target` should have the same shape, got different shapes.")
+        if preds_float and _value_check_possible(target) and target.numel() and int(target.max()) > 1:
+            raise ValueError("If `preds` and `target` are of shape (N, ...) and `preds` are floats, `target` should be binary.")
+        if preds.ndim == 1:
+            case = DataType.BINARY if preds_float else DataType.MULTICLASS
+        else:
+            case = DataType.MULTILABEL if preds_float else DataType.MULTIDIM_MULTICLASS
+        implied_classes = preds.shape[1] if preds.ndim > 1 else 1
+    elif preds.ndim == target.ndim + 1:
+        if not preds_float:
+            raise ValueError("If `preds` have one dimension more than `target`, `preds` should be a float tensor.")
+        if preds.shape[2:] != target.shape[1:]:
+            raise ValueError("If `preds` have one dimension more than `target`, the shape must be (N, C, ...).")
+        implied_classes = preds.shape[1]
+        case = DataType.MULTICLASS if preds.ndim == 2 else DataType.MULTIDIM_MULTICLASS
+    else:
+        raise ValueError("Either `preds` and `target` both should have the (same) shape (N, ...), or `target` (N, ...) and `preds` (N, C, ...).")
+    return case, implied_classes
+
+
+def _check_classification_inputs(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float,
+    num_classes: Optional[int],
+    multiclass: Optional[bool],
+    top_k: Optional[int],
+    ignore_index: Optional[int] = None,
+) -> DataType:
+    """Validate a legacy input pair and return its case."""
+    _basic_input_validation(preds, target, threshold, ignore_index)
+    case, implied_classes = _check_shape_and_type_consistency(preds, target)
+    if num_classes is not None and case != DataType.BINARY and num_classes != implied_classes and preds.ndim != target.ndim:
+        raise ValueError(f"num_classes={num_classes} does not match implied classes {implied_classes}")
+    if top_k is not None and case not in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) and not (
+        case == DataType.MULTILABEL and top_k == 1
+    ):
+        if top_k != 1:
+            raise ValueError("You can only use `top_k` with multiclass inputs.")
+    return case
+
+
+def _input_squeeze(preds: Tensor, target: Tensor) -> Tuple[Tensor, Tensor]:
+    """Remove excess dimensions: a batch of one becomes ``(1, -1)``, any other
+    batch loses its size-1 dimensions."""
+    if preds.shape[0] == 1:
+        return preds.reshape(1, -1), target.reshape(1, -1)
+    return preds.squeeze(), target.squeeze()
+
+
+def _max_label(x: Tensor) -> int:
+    return int(x.max()) if x.numel() else 0
+
+
+def _input_format_classification(
+    preds: Tensor,
+    target: Tensor,
+    threshold: float = 0.5,
+    top_k: Optional[int] = None,
+    num_classes: Optional[int] = None,
+    multiclass: Optional[bool] = None,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, DataType]:
+    """Legacy formatter: any valid input pair to int32 0/1 ``(N, C)`` tensors
+    (multi-dim input flattened to ``(N * X, C)``), and the detected case.
+
+    The case is decided from shapes and, where they leave it open, values:
+    float preds of a target's shape need a binary target, float preds outside
+    [0, 1] go through a sigmoid, and label inputs without ``num_classes`` take
+    their largest label + 1 (host reads, as in the JAX package). An
+    out-of-range label, such as an ``ignore_index`` of -1, one-hots to a zero row.
+    """
+    preds = _as_x32(preds)
+    target = _as_x32(target)
+    if preds.ndim == 0:
+        preds = preds.reshape(1)
+    if target.ndim == 0:
+        target = target.reshape(1)
+    case = _check_classification_inputs(
+        preds, target, threshold=threshold, num_classes=num_classes, multiclass=multiclass, top_k=top_k,
+        ignore_index=ignore_index,
+    )
+    preds_float = preds.is_floating_point()
+    top_k = top_k if top_k else 1
+
+    if case in (DataType.BINARY, DataType.MULTILABEL) and not top_k > 1:
+        if preds_float:
+            if _value_check_possible(preds) and bool(torch.any((preds < 0) | (preds > 1))):
+                preds = torch.sigmoid(preds)
+            preds = (preds >= threshold).to(torch.int32)
+        else:
+            preds = preds.to(torch.int32)
+        preds = preds.reshape(preds.shape[0], -1)
+        target = target.reshape(target.shape[0], -1).to(torch.int32)
+        if multiclass and case == DataType.BINARY:
+            target = to_onehot(target.reshape(-1), 2).reshape(target.shape[0] * target.shape[1], 2)
+    elif case in (DataType.MULTICLASS, DataType.MULTIDIM_MULTICLASS) or top_k > 1:
+        nc = num_classes
+        if nc is None:
+            if preds.ndim == target.ndim + 1:
+                nc = preds.shape[1]
+            else:
+                if not _value_check_possible(preds, target):
+                    raise ValueError("num_classes must be given explicitly inside jit")
+                nc = max(_max_label(preds), _max_label(target), 0) + 1
+        if preds.ndim == target.ndim + 1:  # probabilities or logits
+            preds = select_topk(preds, top_k, dim=1)
+        else:
+            preds = to_onehot(preds.to(torch.int32), nc)
+        target = to_onehot(target.to(torch.int32), nc)
+        if preds.ndim > 2 and case != DataType.MULTIDIM_MULTICLASS:
+            preds = preds.reshape(preds.shape[0], -1)
+        if preds.ndim > 2:  # (N, C, X) to (N * X, C)
+            preds = torch.movedim(preds, 1, -1).reshape(-1, nc)
+            target = torch.movedim(target, 1, -1).reshape(-1, nc)
+        preds = preds.reshape(-1, nc).to(torch.int32)
+        target = target.reshape(-1, nc).to(torch.int32)
+    else:
+        raise ValueError(f"Unsupported input case {case}")
+    return preds, target, case

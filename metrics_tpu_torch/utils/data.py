@@ -110,3 +110,17 @@ def _squeeze_scalar_element_tensor(x: Tensor) -> Tensor:
 
 def _squeeze_if_scalar(data: Any) -> Any:
     return apply_to_collection(data, Tensor, _squeeze_scalar_element_tensor)
+
+
+def to_categorical(x: Tensor, argmax_dim: int = 1) -> Tensor:
+    """Probabilities or logits to dense labels, by argmax along ``argmax_dim``."""
+    return torch.argmax(x, dim=argmax_dim)
+
+
+def allclose(t1: Tensor, t2: Tensor, atol: float = 1e-8, rtol: float = 1e-5) -> bool:
+    """``torch.allclose`` after casting ``t2`` to ``t1``'s dtype."""
+    t1 = torch.as_tensor(t1)
+    t2 = torch.as_tensor(t2)
+    if t1.dtype != t2.dtype:
+        t2 = t2.to(t1.dtype)
+    return bool(torch.allclose(t1, t2, atol=atol, rtol=rtol))

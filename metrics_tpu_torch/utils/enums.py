@@ -1,8 +1,6 @@
 """String enums (port of ``metrics_tpu/utils/enums.py``).
 
-Case-insensitive ``from_str`` lookup with '-'/'_' normalisation. The legacy
-input-type enums (``DataType`` and the averaging enums) come with the checks
-that use them.
+Case-insensitive ``from_str`` lookup with '-'/'_' normalisation.
 """
 
 from __future__ import annotations
@@ -43,5 +41,43 @@ class ClassificationTask(EnumStr):
         if task is None:
             raise ValueError(
                 f"Invalid Classification: expected one of ['binary', 'multiclass', 'multilabel'] but got {value}"
+            )
+        return task  # type: ignore[return-value]
+
+
+class DataType(EnumStr):
+    """Classification input type (decided by the legacy formatter)."""
+
+    BINARY = "binary"
+    MULTILABEL = "multi-label"
+    MULTICLASS = "multi-class"
+    MULTIDIM_MULTICLASS = "multi-dim multi-class"
+
+
+class AverageMethod(EnumStr):
+    MICRO = "micro"
+    MACRO = "macro"
+    WEIGHTED = "weighted"
+    NONE = None  # type: ignore[assignment]
+    SAMPLES = "samples"
+
+
+class MDMCAverageMethod(EnumStr):
+    GLOBAL = "global"
+    SAMPLEWISE = "samplewise"
+
+
+class ClassificationTaskNoMultilabel(EnumStr):
+    """Tasks for metrics without a multilabel variant (calibration, hinge)."""
+
+    BINARY = "binary"
+    MULTICLASS = "multiclass"
+
+    @classmethod
+    def from_str_or_raise(cls, value: str) -> "ClassificationTaskNoMultilabel":
+        task = cls.from_str(value)
+        if task is None:
+            raise ValueError(
+                f"Invalid Classification: expected one of ['binary', 'multiclass'] but got {value}"
             )
         return task  # type: ignore[return-value]

@@ -38,3 +38,13 @@ def _warn(message: str, *args: Any, **kwargs: Any) -> None:
 
 
 rank_zero_warn = _warn
+
+
+_warn_once_registry: set = set()
+
+
+def rank_zero_warn_once(message: str) -> None:
+    """:func:`rank_zero_warn` the first time this process sees ``message``."""
+    if message not in _warn_once_registry:
+        _warn_once_registry.add(message)
+        rank_zero_warn(message)

@@ -335,3 +335,93 @@ def test_the_confusion_matrix_family_names_are_exported_as_in_jax(where, names):
     family = sorted(n for n in ref.__all__ if any(k in n.lower() for k in ("jaccard", "kappa", "matthews")))
     assert family == sorted(names)
     assert all(name in port.__all__ and hasattr(port, name) for name in names)
+
+
+SLICE_18_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("functional/nominal/__init__", "functional/nominal/utils", "functional/nominal/stats",
+                 "nominal/__init__", "nominal/stats")
+] + [
+    f"metrics_tpu_torch/{pkg}/{name}.py"
+    for pkg in ("functional/classification", "classification")
+    for name in ("hamming", "exact_match", "calibration_error", "hinge", "ranking", "dice")
+]
+
+
+@pytest.mark.parametrize("relpath", SLICE_18_MODULES)
+def test_nominal_and_classification_rest_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
+def test_classification_exports_every_name_of_the_jax_package():
+    import metrics_tpu.classification as ref
+
+    import metrics_tpu_torch.classification as port
+
+    assert len(ref.__all__) == 84 and sorted(port.__all__) == sorted(ref.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
+
+
+SLICE_18_TOP = ["CalibrationError", "CramersV", "Dice", "ExactMatch", "HammingDistance", "HingeLoss",
+                "PearsonsContingencyCoefficient", "TheilsU", "TschuprowsT"]
+SLICE_18_FUNCTIONAL = ["calibration_error", "cramers_v", "cramers_v_matrix", "dice", "exact_match", "hamming_distance",
+                       "hinge_loss", "pearsons_contingency_coefficient", "pearsons_contingency_coefficient_matrix",
+                       "theils_u", "theils_u_matrix", "tschuprows_t", "tschuprows_t_matrix"]
+
+
+@pytest.mark.parametrize("where,names", [("", SLICE_18_TOP), ("functional", SLICE_18_FUNCTIONAL),
+                                         ("nominal", SLICE_18_TOP[1:2] + SLICE_18_TOP[6:]),
+                                         ("functional.nominal", [n for n in SLICE_18_FUNCTIONAL if "_" in n
+                                                                 and n.split("_")[0] in ("cramers", "pearsons",
+                                                                                         "theils", "tschuprows")])])
+def test_the_slice_18_names_are_exported_as_in_jax(where, names):
+    import importlib
+
+    port = importlib.import_module("metrics_tpu_torch" + (f".{where}" if where else ""))
+    ref = importlib.import_module("metrics_tpu" + (f".{where}" if where else ""))
+    assert all(name in ref.__all__ for name in names)
+    assert all(name in port.__all__ and hasattr(port, name) for name in names)
+    if where.endswith("nominal"):
+        assert sorted(port.__all__) == sorted(ref.__all__) == sorted(names)
+
+
+def test_the_top_level_and_functional_counts():
+    import metrics_tpu_torch as port
+    import metrics_tpu_torch.functional as port_fn
+
+    assert len(port.__all__) == 43 and len(port_fn.__all__) == 64
+
+
+def test_utils_define_the_legacy_helpers_the_jax_package_does_not_export():
+    """The enums, the legacy checks and ``to_categorical``, ``allclose`` and
+    ``rank_zero_warn_once``: defined where the JAX package defines them and, as
+    there, left out of ``utils.__all__``."""
+    import metrics_tpu.utils as ref
+
+    import metrics_tpu_torch.utils as port
+    from metrics_tpu_torch.utils import checks, data, enums, prints
+
+    names = {enums: ("DataType", "AverageMethod", "MDMCAverageMethod", "ClassificationTaskNoMultilabel"),
+             checks: ("_basic_input_validation", "_check_shape_and_type_consistency", "_check_classification_inputs",
+                      "_input_squeeze", "_input_format_classification"),
+             data: ("to_categorical", "allclose"), prints: ("rank_zero_warn_once",)}
+    for module, defined in names.items():
+        assert all(callable(getattr(module, n)) for n in defined)
+        assert not any(n in port.__all__ or n in ref.__all__ for n in defined)
+    assert enums.DataType.from_str("multilabel") == enums.DataType.MULTILABEL == "multi-label"
+    assert enums.AverageMethod.NONE == "none" and enums.MDMCAverageMethod.from_str("samplewise") == "samplewise"
+    with pytest.raises(ValueError, match="expected one of \\['binary', 'multiclass'\\]"):
+        enums.ClassificationTaskNoMultilabel.from_str_or_raise("multilabel")
+    import torch
+
+    assert data.to_categorical(torch.tensor([[0.1, 0.9], [0.8, 0.2]])).tolist() == [1, 0]
+    assert data.allclose(torch.tensor([1.0, 2.0]), torch.tensor([1, 2])) and not data.allclose(torch.ones(2), torch.zeros(2))
+
+
+def test_rank_zero_warn_once_warns_once(recwarn):
+    from metrics_tpu_torch.utils.prints import rank_zero_warn_once
+
+    message = "metrics_tpu_torch test: rank_zero_warn_once"
+    rank_zero_warn_once(message)
+    rank_zero_warn_once(message)
+    assert [str(w.message) for w in recwarn].count(message) == 1
