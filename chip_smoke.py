@@ -436,6 +436,37 @@ checkout, and then:
   samplewise on (10^4, 100, 100) scores. No reference dispatch; every
   state against the CPU's and every value within (V_RTOL, V_ATOL); ms and
   device µs an update and the idle share of each metric.
+- Phase X drives the rest of regression, pairwise and retrieval (plain
+  torch, no hand kernel). X1: ``PearsonCorrCoef``, ``ConcordanceCorrCoef``,
+  ``R2Score(adjusted=5)`` and ``ExplainedVariance`` over 4 updates of 10^6
+  scalar pairs and their (10^6, 8) forms; Pearson merged from two halves
+  through the stacked ``_final_aggregation`` equals one metric fed the whole
+  (rtol 1e-4, atol 1e-5). X2: ``CosineSimilarity`` on (2^16, 512) in two
+  batches, ``KLDivergence`` on (2^16, 1000) probabilities and
+  log-probabilities, ``TweedieDevianceScore`` at powers 0, 1, 1.5, 2 and 3
+  on 10^6 values, ``SpearmanCorrCoef`` on 10^6 tied values (ranks equal to
+  the CPU's bit for bit), ``KendallRankCorrCoef`` variants a, b and c with
+  ``t_test`` at N = 2^15 on the card (on its first 2^12 pairs, the CPU
+  grid's cost, pair counts equal to the CPU's exactly and values against
+  the CPU's).
+  X3: the four pairwise functionals on (4096, 512) x (4096, 512) and in
+  self mode (diagonal 0), manhattan on (2048, 256) x (2048, 256); linear and
+  manhattan within atol 1e-4 (sums of 256-512 products in another order).
+  X4: the ten retrieval classes over 4 updates of 10^4 queries x 100
+  candidates (scores on 64 levels, about 5% of queries without a positive),
+  "pos" and "skip" beside "neg", ``ignore_index``, nDCG on graded targets;
+  "error" raises on the card. X5: K6's traffic shape (batch-1 requests, 8
+  tenants, buckets (64, 256), capacity 8, 4 threads, 2000 requests) serving
+  ``R2Score``, ``PearsonCorrCoef``, ``ExplainedVariance`` and
+  ``TweedieDevianceScore`` over X1's rows: 2 captures and only replays, no
+  eager fallback, each tenant's state against a CPU fold of its requests in
+  receipt order (each thread owns its tenants), req/s beside per-request
+  updates. Every op of an X1-X4 update or compute on the card returns card
+  tensors (checked under a ``TorchDispatchMode``); every state and value
+  against the port on the CPU within (V_RTOL, V_ATOL) unless stated; ms of
+  the call that does each form's work (its update, or for list states the
+  compute), and device µs and idle share of one form of each metric, whose
+  profile must hold device kernels.
   Depth cut for the time limit (a whole run must end within 1200 s on the
   slowest host seen, about 1.5x the fastest, where a whole run with Phase V
   took 1104.6 s before the cuts marked "before Phase V"; the depths before
@@ -450,7 +481,8 @@ checkout, and then:
   ([512]); S1 and S2 serve with buckets (64,) (the engine's six-rung
   default there: one capture an engine, not six); T1 48 + 48 writes around
   the death (64 + 64 before Phase V) and U1 64 + 48, T2 and U3 1 pair (6 there), U4 1 pair (4); V2 1 healed /
-  hand-balanced pair (2 there), V3 1 quiet pair (6 there).
+  hand-balanced pair (2 there), V3 1 quiet pair (6 there); X Kendall's CPU grid 2^12 (2^15 in its first run),
+  one profiled form a metric (every form in its first runs: X took 44.3-56.5 s alone).
 
 The second-to-last line of output is a JSON object with one record per
 kernel (``shapes`` lists every shape or route a kernel was timed at); the
@@ -7444,6 +7476,537 @@ def phase_w(torch, np, obs, instrument, confmat, dev: str = "cuda", **sizes) -> 
     return out
 
 
+# --------------------------------------------------------------------------- Phase X: regression, pairwise, retrieval
+
+X_N = 10**6  # scalar pairs an update (X1); values of X2's Tweedie and Spearman
+X_UPDATES = 4
+X_OUTPUTS = 8  # the multioutput case's columns
+X_R2_ADJUSTED = 5
+X_COSINE = (2**16, 512)  # rows x width, in two batches
+X_KL = (2**16, 1000)
+X_TWEEDIE_POWERS = (0.0, 1.0, 1.5, 2.0, 3.0)
+X_KENDALL_N = 2**15
+X_KENDALL_CPU_N = 2**12  # the CPU's grid (2^15 there took ~7 s): counts and the three variants' values
+X_PAIRWISE = (4096, 512)
+X_MANHATTAN = (2048, 256)
+X_PRODUCT_ATOL = 1e-4  # linear and manhattan entries: sums of 256-512 products of order 1 in another order
+X_MERGE_RTOL, X_MERGE_ATOL = 1e-4, 1e-5  # the parallel Welford merge against the sequential update
+X_QUERIES = 10**4
+X_CANDIDATES = 100  # documents a query: 10^6 in all, over X_UPDATES updates
+X_EMPTY_SHARE = 0.05  # queries with no positive
+X_ENGINE_REQUESTS = 2000  # K6's traffic shape at this depth
+X_ENGINE_NAIVE = 300
+
+
+def _x_card_only(torch, fn, what: str, dev: str, need_ops: bool = True):
+    """``fn()``, failing if any op in it returned a CPU tensor of more than one
+    element (the data and every intermediate stay on the card; a host read of
+    a scalar, or a scalar copied to the card, is allowed) and, with
+    ``need_ops``, if no op in it ran on the card. Not checked on the CPU."""
+    if dev != "cuda":
+        return fn()
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_flatten
+
+    found, on_card = [], [0]
+
+    class _Watch(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            tensors = [t for t in tree_flatten(out)[0] if isinstance(t, torch.Tensor)]
+            found.extend(str(func) for t in tensors if t.device.type == "cpu" and t.numel() > 1)
+            on_card[0] += any(t.is_cuda for t in tensors)
+            return out
+
+    with _Watch():
+        result = fn()
+    _check(not found, f"{what}: ops returned CPU tensors on the card's path: {sorted(set(found))[:6]}")
+    _check(on_card[0] > 0 or not need_ops, f"{what}: no op ran on the card")
+    return result
+
+
+def _x_close(torch, got, want, what: str, rtol: float = V_RTOL, atol: float = V_ATOL) -> float:
+    """The card's value (or tuple of values) against the CPU's: dtype and shape
+    equal, within (rtol, atol). Returns the share of the tolerance used, the
+    largest ``|card - cpu| / (atol + rtol |cpu|)`` (0: equal; at most 1)."""
+    if isinstance(want, tuple):
+        _check(isinstance(got, tuple) and len(got) == len(want), f"{what}: {type(got)} vs a tuple")
+        return max(_x_close(torch, g, w, f"{what}[{i}]", rtol, atol) for i, (g, w) in enumerate(zip(got, want)))
+    _check(got.dtype == want.dtype and got.shape == want.shape,
+           f"{what}: dtype/shape {got.dtype} {tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    g, w = got.cpu().double(), want.cpu().double()
+    _check(torch.allclose(g, w, rtol=rtol, atol=atol, equal_nan=True), f"{what}: card {got} vs CPU {want}")
+    share = (g - w).abs() / (atol + rtol * w.abs())
+    share = share[~share.isnan()]
+    return float(share.max()) if share.numel() else 0.0
+
+
+def _x_states(torch, card, cpu, what: str, rtol: float = V_RTOL, atol: float = V_ATOL) -> float:
+    """Every state of ``card`` against ``cpu``'s (list states concatenated)."""
+    worst = 0.0
+    for name in cpu._defaults:
+        a, b = getattr(card, name), getattr(cpu, name)
+        if isinstance(a, list):
+            a, b = torch.cat(a), torch.cat(b)
+        worst = max(worst, _x_close(torch, a, b, f"{what} state {name}", rtol, atol))
+    return worst
+
+
+def _x_profile(torch, calls: dict) -> dict:
+    """Device µs, device kernels and idle share an update of each entry of
+    ``calls`` (key -> (zero-argument call, calls timed)), all in ONE profiler
+    session: a session's set-up and teardown cost seconds in a whole run.
+    128 lead-in spin kernels (``torch.cuda._sleep``) take the session's first
+    records, which whole runs of this script lose (about 60); one spin
+    kernel before each window marks where it starts, and the last
+    ``len(calls)`` spin records are those markers."""
+    import bisect
+
+    from torch.profiler import ProfilerActivity, profile
+
+    walls = {}
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(128):
+            torch.cuda._sleep(64)
+        for key, (call, iters) in calls.items():
+            torch.cuda._sleep(64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                call()
+            torch.cuda.synchronize()
+            walls[key] = (time.perf_counter() - t0) * 1e6
+    events = sorted((e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in events if "spin_kernel" in e.name][-len(calls):]
+    _check(len(starts) == len(calls), f"the profile holds {len(starts)} window markers for {len(calls)} windows")
+    busy = [[] for _ in calls]
+    for e in events:
+        if "spin_kernel" not in e.name and e.time_range.start >= starts[0]:
+            busy[bisect.bisect_right(starts, e.time_range.start) - 1].append(e.time_range.elapsed_us())
+    return {key: {"device_us_per_update": sum(b) / iters, "idle_share": 1.0 - sum(b) / walls[key],
+                  "device_launches_per_update": len(b) / iters}
+            for (key, (_, iters)), b in zip(calls.items(), busy)}
+
+
+def _x_record(torch, out: dict, key: str, err, update, dev: str, profiled: str = "update",
+              profile: bool = True, iters: int = W_PROFILED, **extra) -> None:
+    """ms an update (CUDA events) of ``update``, the call that does the
+    metric's work on the card (``profiled`` names it); with ``profile`` (one
+    form of each metric) the call waits in ``out["_profile"]`` for
+    ``_x_finish``. ``extra`` joins the record."""
+    rec = {"tolerance_share_vs_cpu": err, "profiled": profiled if profile else None, **extra}
+    if dev == "cuda":
+        rec["ms_per_update"] = _time_ms(update, iters, warmup=1)
+        if profile:
+            out.setdefault("_profile", {})[key] = (update, iters)
+    out[key] = rec
+
+
+def _x_finish(torch, out: dict, what: str) -> None:
+    """Profile the calls ``_x_record`` left in ``out`` in one session, join
+    their device figures to their records (each profile must hold device
+    kernels), and print every record."""
+    calls = out.pop("_profile", {})
+    if calls:
+        for key, figures in _x_profile(torch, calls).items():
+            _check(figures["device_launches_per_update"] > 0, f"{what} {key}: the profiled call ran no device kernel")
+            out[key].update(figures)
+    for key, rec in out.items():
+        print(f"phase {what} {key} {json.dumps(rec)}")
+
+
+def _x_signed(np, rng, shape):
+    """float32 targets around 2 and predictions that follow them (R² ~0.6)."""
+    target = rng.normal(2.0, 1.0, shape).astype(np.float32)
+    return (0.8 * target + rng.normal(0.0, 0.5, shape)).astype(np.float32), target
+
+
+def phase_x1(torch, np, dev: str = "cuda", n: int = X_N, outputs: int = X_OUTPUTS) -> dict:
+    """The moment metrics on the card: Pearson, concordance, R² (adjusted = 5)
+    and explained variance over X_UPDATES updates of ``n`` scalar pairs, and
+    their ``(n, outputs)`` forms; every state and value against the port on the
+    CPU, within (V_RTOL, V_ATOL). Pearson merged from two halves through the
+    stacked ``_final_aggregation`` route equals one metric fed the whole."""
+    from metrics_tpu_torch import regression as R
+    from metrics_tpu_torch.regression.moments import _final_aggregation
+
+    rng = np.random.default_rng(20)
+    cpu_batches = {cols: [tuple(torch.from_numpy(a) for a in _x_signed(np, rng, (n,) if cols == 1 else (n, cols)))
+                          for _ in range(X_UPDATES)] for cols in (1, outputs)}
+    forms = {
+        "pearson": (lambda d: R.PearsonCorrCoef(device=d), 1),
+        "concordance": (lambda d: R.ConcordanceCorrCoef(device=d), 1),
+        "r2_adjusted": (lambda d: R.R2Score(adjusted=X_R2_ADJUSTED, device=d), 1),
+        "explained_variance": (lambda d: R.ExplainedVariance(device=d), 1),
+        f"pearson_{outputs}": (lambda d: R.PearsonCorrCoef(num_outputs=outputs, device=d), outputs),
+        f"concordance_{outputs}": (lambda d: R.ConcordanceCorrCoef(num_outputs=outputs, device=d), outputs),
+        f"r2_{outputs}_raw": (lambda d: R.R2Score(num_outputs=outputs, multioutput="raw_values", device=d), outputs),
+        f"explained_variance_{outputs}_weighted":
+            (lambda d: R.ExplainedVariance(multioutput="variance_weighted", device=d), outputs),
+    }
+    out = {"metrics": {}}
+    worst = 0.0
+    for key, (make, cols) in forms.items():
+        card, cpu = make(dev), make("cpu")
+        batches = [tuple(a.to(dev) for a in b) for b in cpu_batches[cols]]
+        _x_card_only(torch, lambda: card.update(*batches[0]), f"X1 {key} update", dev)
+        for b in batches[1:]:
+            card.update(*b)
+        for b in cpu_batches[cols]:
+            cpu.update(*b)
+        err = _x_states(torch, card, cpu, f"X1 {key}")
+        value = _x_card_only(torch, card.compute, f"X1 {key} compute", dev)
+        err = max(err, _x_close(torch, value, cpu.compute(), f"X1 {key}"))
+        worst = max(worst, err)
+        _x_record(torch, out["metrics"], key, err, lambda card=card, b=batches[0]: card.update(*b), dev,
+                  profile=cols == 1)
+    # two replicas' Welford states stacked (a sync's dist_reduce_fx=None gather), merged
+    names = ("mean_x", "mean_y", "var_x", "var_y", "corr_xy", "n_total")
+    whole, halves = R.PearsonCorrCoef(device=dev), [R.PearsonCorrCoef(device=dev) for _ in range(2)]
+    for i, b in enumerate(cpu_batches[1]):
+        b = tuple(a.to(dev) for a in b)
+        whole.update(*b)
+        halves[i * 2 // X_UPDATES].update(*b)
+    stacked = [torch.stack([getattr(m, k) for m in halves]) for k in names]
+    merged = _final_aggregation(*stacked)
+    merge_err = max(_x_close(torch, got, getattr(whole, k), f"X1 merged {k}", X_MERGE_RTOL, X_MERGE_ATOL)
+                    for k, got in zip(names, merged))
+    synced = R.PearsonCorrCoef(device=dev)
+    for k, v in zip(names, stacked):
+        setattr(synced, k, v)
+    synced._update_called = True
+    merge_err = max(merge_err, _x_close(torch, synced.compute(), whole.compute(), "X1 merged compute",
+                                        X_MERGE_RTOL, X_MERGE_ATOL))
+    _x_finish(torch, out["metrics"], "X1")
+    out["pearson_merge_tolerance_share"] = merge_err
+    out["tolerance_share_vs_cpu"] = worst
+    return out
+
+
+def phase_x2(torch, np, dev: str = "cuda", cosine=X_COSINE, kl=X_KL, n: int = X_N, kendall_n: int = X_KENDALL_N,
+             kendall_cpu_n: int = X_KENDALL_CPU_N) -> dict:
+    """Cosine similarity, KL divergence, Tweedie deviance, Spearman's and
+    Kendall's rank correlations on the card, against the port on the CPU.
+    Spearman's ranks equal the CPU's bit for bit. Kendall's three variants
+    with ``t_test`` run at ``kendall_n`` on the card; on the first
+    ``kendall_cpu_n`` pairs its counts equal the CPU's exactly and its values
+    are held against the CPU's."""
+    from metrics_tpu_torch import regression as R
+    from metrics_tpu_torch.functional import regression as F
+    from metrics_tpu_torch.functional.regression.misc import _kendall_counts, _rank_data
+
+    rng = np.random.default_rng(21)
+    out = {"metrics": {}}
+    worst = 0.0
+
+    def run(key, card, cpu, cpu_batches, profiled=None, work=None, profile=True, rtol=V_RTOL, atol=V_ATOL):
+        nonlocal worst
+        batches = [tuple(a.to(dev) for a in b) for b in cpu_batches]
+        _x_card_only(torch, lambda: card.update(*batches[0]), f"X2 {key} update", dev, need_ops=work is None)
+        for b in batches[1:]:
+            card.update(*b)
+        for b in cpu_batches:
+            cpu.update(*b)
+        err = _x_states(torch, card, cpu, f"X2 {key}", rtol, atol)
+        value = _x_card_only(torch, card.compute, f"X2 {key} compute", dev)
+        err = max(err, _x_close(torch, value, cpu.compute(), f"X2 {key}", rtol, atol))
+        worst = max(worst, err)
+        if work is None:
+            _x_record(torch, out["metrics"], key, err, lambda: card.update(*batches[0]), dev, profile=profile)
+        else:  # a list-state update appends; its compute does the work
+            _x_record(torch, out["metrics"], key, err, lambda: work(*[torch.cat(c) for c in zip(*batches)]), dev,
+                      profiled, profile)
+            out["metrics"][key]["update_ms"] = _time_ms(lambda: card.update(*batches[0]), 3, 1) if dev == "cuda" \
+                else None
+        return batches
+
+    # cosine similarity, two batches of (rows / 2, width)
+    half = cosine[0] // 2
+    cos = [tuple(torch.from_numpy(a) for a in _x_signed(np, rng, (half, cosine[1]))) for _ in range(2)]
+    run("cosine_similarity", R.CosineSimilarity(device=dev), R.CosineSimilarity(device="cpu"), cos,
+        "compute (the functional on the sample)", F.cosine_similarity)
+    del cos
+    # KL divergence, probabilities and log-probabilities
+    p = rng.random(kl).astype(np.float32) + 0.01
+    q = rng.random(kl).astype(np.float32) + 0.01
+    p /= p.sum(-1, keepdims=True)
+    q /= q.sum(-1, keepdims=True)
+    run("kl_divergence", R.KLDivergence(device=dev), R.KLDivergence(device="cpu"),
+        [(torch.from_numpy(p), torch.from_numpy(q))])
+    run("kl_divergence_log_prob", R.KLDivergence(log_prob=True, device=dev),
+        R.KLDivergence(log_prob=True, device="cpu"), [(torch.from_numpy(np.log(p)), torch.from_numpy(np.log(q)))],
+        profile=False)
+    del p, q
+    # Tweedie deviance at each power, positive values
+    tw = tuple(torch.from_numpy((rng.random(n) * 3 + 0.1).astype(np.float32)) for _ in range(2))
+    for power in X_TWEEDIE_POWERS:
+        run(f"tweedie_{power}", R.TweedieDevianceScore(power=power, device=dev),
+            R.TweedieDevianceScore(power=power, device="cpu"), [tw], profile=power == 1.5)
+    # Spearman with ties: scores on a grid of 4096 values
+    sp_t = (rng.integers(0, 4096, n) / 4096).astype(np.float32)
+    sp_p = (np.rint((0.7 * sp_t + 0.3 * rng.random(n)) * 4096) / 4096).astype(np.float32)
+    sp = [(torch.from_numpy(sp_p), torch.from_numpy(sp_t))]
+    card_sp = run("spearman", R.SpearmanCorrCoef(device=dev), R.SpearmanCorrCoef(device="cpu"), sp,
+                  "compute (the functional on the sample)", F.spearman_corrcoef)
+    for i, name in enumerate(("preds", "target")):
+        _check(torch.equal(_rank_data(card_sp[0][i]).cpu(), _rank_data(sp[0][i])),
+               f"X2 spearman: the {name}' ranks differ from the CPU's")
+    out["spearman_ranks_equal"] = True
+    # Kendall: the card at kendall_n; counts and values against the CPU's on the first kendall_cpu_n pairs
+    kt = (rng.integers(0, 2048, kendall_n) / 2048).astype(np.float32)
+    kp = (np.rint((0.6 * kt + 0.4 * rng.random(kendall_n)) * 2048) / 2048).astype(np.float32)
+    kx, ky = torch.from_numpy(kp), torch.from_numpy(kt)
+    counts = _kendall_counts(kx[:kendall_cpu_n].to(dev), ky[:kendall_cpu_n].to(dev))
+    cpu_counts = _kendall_counts(kx[:kendall_cpu_n], ky[:kendall_cpu_n])
+    _check(counts.dtype == torch.int64 and torch.equal(counts.cpu(), cpu_counts),
+           f"X2 kendall: counts {counts.tolist()} vs the CPU's {cpu_counts.tolist()}")
+    out["kendall_counts"] = {"n": kendall_cpu_n, "concordant_discordant_ties": counts.tolist()}
+    for variant, alternative in (("a", "two-sided"), ("b", "less"), ("c", "greater")):
+        kw = {"variant": variant, "t_test": True, "alternative": alternative}
+        key = f"kendall_{variant}"
+        small = [(kx[:kendall_cpu_n], ky[:kendall_cpu_n])]
+        run(f"{key}_n{kendall_cpu_n}", R.KendallRankCorrCoef(**kw, device=dev),
+            R.KendallRankCorrCoef(**kw, device="cpu"), small, "compute (the functional on the sample)",
+            lambda a, b, kw=kw: F.kendall_rank_corrcoef(a, b, **kw), profile=False)
+        card = R.KendallRankCorrCoef(**kw, device=dev)
+        card.update(kx.to(dev), ky.to(dev))
+        tau, p_value = _x_card_only(torch, card.compute, f"X2 {key} compute", dev)
+        _check(bool(torch.isfinite(tau)) and -1 <= float(tau) <= 1 and 0 <= float(p_value) <= 1,
+               f"X2 {key} at N={kendall_n}: tau {tau}, p {p_value}")
+        kxd, kyd = kx.to(dev), ky.to(dev)
+        _x_record(torch, out["metrics"], f"{key}_n{kendall_n}", None,  # no CPU reference at this N
+                  lambda kw=kw: F.kendall_rank_corrcoef(kxd, kyd, **kw), dev, "compute (the functional)",
+                  profile=variant == "b", iters=2, n=kendall_n, tau=float(tau), p_value=float(p_value))
+    _x_finish(torch, out["metrics"], "X2")
+    out["tolerance_share_vs_cpu"] = worst
+    return out
+
+
+def phase_x3(torch, np, dev: str = "cuda", shape=X_PAIRWISE, manhattan=X_MANHATTAN) -> dict:
+    """The four pairwise functionals on the card on ``shape`` x ``shape``
+    (manhattan on ``manhattan``), and self mode, against the CPU: cosine and
+    euclidean (the float64 expansion) within (V_RTOL, V_ATOL), linear and
+    manhattan within (V_RTOL, X_PRODUCT_ATOL)."""
+    from metrics_tpu_torch.functional import pairwise as P
+
+    rng = np.random.default_rng(22)
+    out = {"metrics": {}}
+    worst = 0.0
+    for kind in ("cosine_similarity", "euclidean_distance", "linear_similarity", "manhattan_distance"):
+        fn = getattr(P, f"pairwise_{kind}")
+        size = manhattan if kind == "manhattan_distance" else shape
+        x, y = (torch.from_numpy(rng.normal(size=size).astype(np.float32)) for _ in range(2))
+        xd, yd = x.to(dev), y.to(dev)
+        atol = X_PRODUCT_ATOL if kind in ("linear_similarity", "manhattan_distance") else V_ATOL
+        for mode, args, cpu_args in (("", (xd, yd), (x, y)), ("_self", (xd,), (x,))):
+            key = f"{kind}{mode}"
+            got = _x_card_only(torch, lambda: fn(*args), f"X3 {key}", dev)
+            if mode:
+                _check(bool((torch.diagonal(got) == 0).all()), f"X3 {key}: the diagonal is not 0")
+            err = _x_close(torch, got, fn(*cpu_args), f"X3 {key}", V_RTOL, atol)
+            worst = max(worst, err)
+            _x_record(torch, out["metrics"], key, err, lambda fn=fn, args=args: fn(*args), dev, "call",
+                      profile=not mode)
+    _x_finish(torch, out["metrics"], "X3")
+    out["tolerance_share_vs_cpu"] = worst
+    return out
+
+
+def _x_retrieval_data(np, rng, queries: int, candidates: int, graded: bool = False):
+    """``queries`` x ``candidates`` documents, shuffled: float32 scores on a grid
+    of 64 values (ties), relevance binary (or 0-3) and X_EMPTY_SHARE of the
+    queries with no positive; int64 query ids."""
+    n = queries * candidates
+    idx = np.repeat(np.arange(queries, dtype=np.int64), candidates)
+    preds = (rng.integers(0, 64, n) / 64).astype(np.float32)
+    target = rng.integers(0, 4, n) if graded else (rng.random(n) < np.where(preds > 0.5, 0.3, 0.05)).astype(np.int64)
+    target[np.isin(idx, np.arange(int(queries * X_EMPTY_SHARE)))] = 0
+    order = rng.permutation(n)
+    return preds[order], target[order], idx[order]
+
+
+def phase_x4(torch, np, dev: str = "cuda", queries: int = X_QUERIES, candidates: int = X_CANDIDATES) -> dict:
+    """The ten retrieval classes on the card over X_UPDATES updates of
+    ``queries`` x ``candidates`` documents (ties, empty queries), each
+    ``empty_target_action`` and ``ignore_index``, nDCG on graded targets too,
+    against the CPU; "error" raises on the card."""
+    from metrics_tpu_torch import retrieval as RT
+
+    rng = np.random.default_rng(23)
+    binary = _x_retrieval_data(np, rng, queries, candidates)
+    graded = _x_retrieval_data(np, rng, queries, candidates, graded=True)
+    ignored = list(binary)
+    ignored[1] = np.where(rng.random(ignored[1].shape[0]) < 0.1, -100, ignored[1])
+
+    def split(data):
+        parts = [np.array_split(a, X_UPDATES) for a in data]
+        return [tuple(torch.from_numpy(np.ascontiguousarray(p[i])) for p in parts) for i in range(X_UPDATES)]
+
+    data = {"binary": split(binary), "graded": split(graded), "ignored": split(ignored)}
+    forms = [("RetrievalMAP", {}, "binary"), ("RetrievalMRR", {}, "binary"),
+             ("RetrievalPrecision", {"k": 10}, "binary"),
+             ("RetrievalPrecision", {"k": 200, "adaptive_k": True}, "binary"),
+             ("RetrievalRecall", {"k": 10}, "binary"), ("RetrievalFallOut", {"k": 10}, "binary"),
+             ("RetrievalHitRate", {"k": 5}, "binary"), ("RetrievalRPrecision", {}, "binary"),
+             ("RetrievalNormalizedDCG", {"k": 10}, "binary"), ("RetrievalNormalizedDCG", {}, "graded"),
+             ("RetrievalPrecisionRecallCurve", {"max_k": 20}, "binary"),
+             ("RetrievalRecallAtFixedPrecision", {"min_precision": 0.2, "max_k": 20}, "binary")]
+    forms += [("RetrievalMAP", {"empty_target_action": a}, "binary") for a in ("pos", "skip")]
+    forms += [("RetrievalPrecisionRecallCurve", {"max_k": 10, "empty_target_action": a}, "binary")
+              for a in ("pos", "skip")]
+    forms += [("RetrievalMRR", {"ignore_index": -100}, "ignored"), ("RetrievalNormalizedDCG", {"ignore_index": -100},
+                                                                    "ignored")]
+    out = {"metrics": {}, "documents": queries * candidates}
+    worst = 0.0
+    profiled_classes = set()  # the first form of each class is profiled, its update timed
+    for cls, kw, which in forms:
+        key = "_".join([cls] + [f"{k}={v}" for k, v in kw.items()] + ([which] if which != "binary" else []))
+        card, cpu = getattr(RT, cls)(**kw, device=dev), getattr(RT, cls)(**kw, device="cpu")
+        batches = [tuple(a.to(dev) for a in b) for b in data[which]]
+        for b, cb in zip(batches, data[which]):
+            card.update(*b[:2], indexes=b[2])
+            cpu.update(*cb[:2], indexes=cb[2])
+        err = _x_states(torch, card, cpu, f"X4 {key}")
+        t0 = time.perf_counter()
+        value = _x_card_only(torch, card.compute, f"X4 {key} compute", dev)
+        compute_ms = (time.perf_counter() - t0) * 1e3
+        err = max(err, _x_close(torch, value, cpu.compute(), f"X4 {key}"))
+        worst = max(worst, err)
+        profile = cls not in profiled_classes
+        profiled_classes.add(cls)
+        extra = {"compute_ms_first": compute_ms}
+        if dev == "cuda" and profile:
+            timed = getattr(RT, cls)(**kw, device=dev)  # updates timed on their own instance
+            extra["update_ms"] = _time_ms(lambda: timed.update(*batches[0][:2], indexes=batches[0][2]), 3, 1)
+        _x_record(torch, out["metrics"], key, err, lambda card=card: (setattr(card, "_computed", None), card.compute()),
+                  dev, "compute", profile=profile, iters=2, **extra)
+    _x_finish(torch, out["metrics"], "X4")
+    # "error" raises on the card while a query has no positive, and computes without one
+    card = RT.RetrievalMAP(empty_target_action="error", device=dev)
+    for b in data["binary"]:
+        card.update(b[0].to(dev), b[1].to(dev), indexes=b[2].to(dev))
+    try:
+        card.compute()
+        raise AssertionError("X4: empty_target_action='error' did not raise on the card")
+    except ValueError as exc:
+        _check("no positive target" in str(exc), f"X4 error action: {exc}")
+    keep = (np.bincount(binary[2], weights=binary[1], minlength=queries) > 0)[binary[2]]  # queries with a positive
+    card = RT.RetrievalMAP(empty_target_action="error", device=dev)
+    cpu = RT.RetrievalMAP(empty_target_action="error", device="cpu")
+    cols = [torch.from_numpy(np.ascontiguousarray(a[keep])) for a in binary]
+    card.update(cols[0].to(dev), cols[1].to(dev), indexes=cols[2].to(dev))
+    cpu.update(*cols[:2], indexes=cols[2])
+    worst = max(worst, _x_close(torch, card.compute(), cpu.compute(), "X4 error action without empty queries"))
+    out["error_action_raised"] = True
+    out["tolerance_share_vs_cpu"] = worst
+    return out
+
+
+def _x_engine_reqs(np, rows, n: int, tenants: int, threads: int):
+    """``n`` batch-1 requests over X1's first scalar rows: request i goes to a
+    tenant of client thread ``i % threads`` (``_k_submit`` deals request i to
+    that thread), so each tenant's requests reach the queue in list order and
+    a fold in list order is the fold in receipt order."""
+    rng = np.random.default_rng(24)
+    per_thread = tenants // threads
+    return [(f"tenant-{i % threads + threads * int(rng.integers(0, per_thread))}",
+             (rows[0][i : i + 1], rows[1][i : i + 1])) for i in range(n)]
+
+
+def phase_x5(torch, np, dev: str = "cuda", requests: int = X_ENGINE_REQUESTS) -> dict:
+    """K6's traffic shape (batch-1 requests, 8 tenants, buckets (64, 256),
+    capacity 8, 4 threads) serving R², Pearson, explained variance and Tweedie
+    deviance over X1's scalar rows: every micro-batch one CUDA-graph replay
+    (captured graphs and replays, no eager fallback), every tenant's state
+    against a CPU fold of its acknowledged requests in receipt order within
+    (V_RTOL, V_ATOL), and req/s beside a naive loop of per-request updates."""
+    from metrics_tpu_torch import regression as R
+    from metrics_tpu_torch.engine import StreamingEngine
+
+    rng = np.random.default_rng(25)
+    rows = _x_signed(np, rng, (requests + X_ENGINE_NAIVE,))
+    reqs = _x_engine_reqs(np, rows, requests, K_TENANTS, K_THREADS)
+    naive_rows = [(torch.from_numpy(rows[0][i : i + 1]).to(dev), torch.from_numpy(rows[1][i : i + 1]).to(dev))
+                  for i in range(requests, requests + X_ENGINE_NAIVE)]
+    forms = {"R2Score": lambda d: R.R2Score(device=d), "PearsonCorrCoef": lambda d: R.PearsonCorrCoef(device=d),
+             "ExplainedVariance": lambda d: R.ExplainedVariance(device=d),
+             "TweedieDevianceScore": lambda d: R.TweedieDevianceScore(device=d)}
+    out = {"metrics": {}}
+    worst = 0.0
+    for name, make in forms.items():
+        naive = make(dev)  # per-request updates (a forward of one row has no R² or Pearson value)
+        naive.update(*naive_rows[0])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p, t in naive_rows:
+            naive.update(p, t)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        naive_rps = X_ENGINE_NAIVE / (time.perf_counter() - t0)
+        keys = sorted({k for k, _ in reqs})
+        engine = StreamingEngine(make(dev), buckets=K_BUCKETS, max_queue=K_QUEUE, capacity=K_TENANTS)
+        try:
+            warm = _k_warm(engine, lambda r: _x_signed(np, rng, (r,)), K_BUCKETS, keys)
+            seconds = _k_submit(engine, reqs, K_THREADS)
+            snap = engine.telemetry_snapshot()
+            graphs = engine.graph_stats() if dev == "cuda" else []
+            replays = sum(g["replays"] for g in graphs)
+            if dev == "cuda":
+                _check(warm == len(K_BUCKETS) and snap["compiles"] == len(K_BUCKETS),
+                       f"X5 {name}: {snap['compiles']} captures for {len(K_BUCKETS)} buckets")
+                _check(replays > 0, f"X5 {name}: no graph replay")
+            _check(snap["fused"] and snap["fused_fallbacks"] == 0 and not snap["degraded"],
+                   f"X5 {name}: fused {snap['fused']}, {snap['fused_fallbacks']} fallbacks")
+            states = engine._read_states(keys, window=False)  # copies, ordered after the engine's stream
+        finally:
+            engine.close()
+        fold_metric, folds, counts = make("cpu"), {}, {}
+        for key, args in reqs:
+            folds[key] = fold_metric.update_state(folds.get(key) or fold_metric.init_state(),
+                                                  *(torch.from_numpy(a) for a in args))
+            counts[key] = counts.get(key, 0) + 1
+        err, compared = 0.0, 0
+        for key, fold in folds.items():
+            for leaf, want in fold.items():
+                got = states[key][leaf]
+                if leaf == "_update_count":
+                    _check(int(got) == counts[key], f"X5 {name} {key}: {int(got)} updates for {counts[key]} rows")
+                    continue
+                err = max(err, _x_close(torch, got, want, f"X5 {name} {key} {leaf}"))
+                compared += 1
+        worst = max(worst, err)
+        rec = {"requests": requests, "req_per_s": requests / seconds, "naive_req_per_s": naive_rps,
+               "speedup_vs_naive": requests / seconds / naive_rps, "captures": snap["compiles"],
+               "replays": replays, "batches": snap["batches"], "fused_fallbacks": snap["fused_fallbacks"],
+               "mean_batch_occupancy": snap["mean_batch_occupancy"], "latency_s": snap["latency_s"],
+               "state_leaves_compared": compared, "tolerance_share_vs_cpu_fold": err}
+        out["metrics"][name] = rec
+        print(f"phase X5 {name} {json.dumps(rec)}")
+    out["tolerance_share_vs_cpu"] = worst
+    return out
+
+
+def phase_x(torch, np, dev: str = "cuda", **sizes) -> dict:
+    """The rest of regression, pairwise and retrieval on the card (X1-X5)."""
+    t0 = time.perf_counter()
+    out = {}
+    for key, phase, kw in (("X1", phase_x1, ("n", "outputs")),
+                           ("X2", phase_x2, ("cosine", "kl", "n", "kendall_n", "kendall_cpu_n")),
+                           ("X3", phase_x3, ("shape", "manhattan")),
+                           ("X4", phase_x4, ("queries", "candidates")),
+                           ("X5", phase_x5, ("requests",))):
+        t1 = time.perf_counter()
+        out[key] = phase(torch, np, dev=dev, **{k: v for k, v in sizes.items() if k in kw})
+        out[key]["seconds"] = time.perf_counter() - t1
+        print(f"phase {key}: {out[key]['seconds']:.1f} s")
+    out["tolerance_share_vs_cpu"] = max(out[k]["tolerance_share_vs_cpu"] for k in ("X1", "X2", "X3", "X4", "X5"))
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase X: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == "--replica-reader":
         return _p2_reader(sys.argv[2], float(sys.argv[3]))  # Phase P2's follower process
@@ -7537,6 +8100,7 @@ def main() -> int:
     partition_plane = phase_u(torch, np)
     pilot_plane = phase_v(torch, np, obs, instrument, confmat)
     classification_rest = phase_w(torch, np, obs, instrument, confmat)
+    regression_rest = phase_x(torch, np)
 
     fields = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "device_ms")
     what = {"pair_count": ("train step, global atomics", "six-metric collection update, shared memory, clusters of 2"),
@@ -7683,6 +8247,7 @@ def main() -> int:
                       "guard": guard, "tier": tier, "replication": replication, "comm": comm_plane,
                       "shard": shard_plane, "query": query_plane, "cluster": cluster_plane,
                       "partition": partition_plane, "pilot": pilot_plane, "classification_rest": classification_rest,
+                      "regression_pairwise_retrieval": regression_rest,
                       "card": card}))
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -41,13 +41,34 @@ from metrics_tpu_torch.collections import MetricCollection
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.nominal import CramersV, PearsonsContingencyCoefficient, TheilsU, TschuprowsT
 from metrics_tpu_torch.regression import (
+    ConcordanceCorrCoef,
+    CosineSimilarity,
+    ExplainedVariance,
+    KendallRankCorrCoef,
+    KLDivergence,
     LogCoshError,
     MeanAbsoluteError,
     MeanAbsolutePercentageError,
     MeanSquaredError,
     MeanSquaredLogError,
+    PearsonCorrCoef,
+    R2Score,
+    SpearmanCorrCoef,
     SymmetricMeanAbsolutePercentageError,
+    TweedieDevianceScore,
     WeightedMeanAbsolutePercentageError,
+)
+from metrics_tpu_torch.retrieval import (
+    RetrievalFallOut,
+    RetrievalHitRate,
+    RetrievalMAP,
+    RetrievalMRR,
+    RetrievalNormalizedDCG,
+    RetrievalPrecision,
+    RetrievalPrecisionRecallCurve,
+    RetrievalRecall,
+    RetrievalRecallAtFixedPrecision,
+    RetrievalRPrecision,
 )
 from metrics_tpu_torch.sketch import CardinalitySketch, HeavyHittersSketch, QuantileSketch
 from metrics_tpu_torch import engine  # noqa: E402  (serving runtime; not in __all__, as in the JAX package)
@@ -63,16 +84,21 @@ __all__ = [
     "CatMetric",
     "CohenKappa",
     "CompositionalMetric",
+    "ConcordanceCorrCoef",
     "ConfusionMatrix",
+    "CosineSimilarity",
     "CramersV",
     "Dice",
     "ExactMatch",
+    "ExplainedVariance",
     "F1Score",
     "FBetaScore",
     "HammingDistance",
     "HeavyHittersSketch",
     "HingeLoss",
     "JaccardIndex",
+    "KendallRankCorrCoef",
+    "KLDivergence",
     "LogCoshError",
     "MatthewsCorrCoef",
     "MaxMetric",
@@ -84,17 +110,31 @@ __all__ = [
     "Metric",
     "MetricCollection",
     "MinMetric",
+    "PearsonCorrCoef",
     "PearsonsContingencyCoefficient",
     "Precision",
     "PrecisionRecallCurve",
     "QuantileSketch",
+    "R2Score",
     "Recall",
+    "RetrievalFallOut",
+    "RetrievalHitRate",
+    "RetrievalMAP",
+    "RetrievalMRR",
+    "RetrievalNormalizedDCG",
+    "RetrievalPrecision",
+    "RetrievalPrecisionRecallCurve",
+    "RetrievalRecall",
+    "RetrievalRecallAtFixedPrecision",
+    "RetrievalRPrecision",
     "ROC",
+    "SpearmanCorrCoef",
     "Specificity",
     "StatScores",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "TheilsU",
     "TschuprowsT",
+    "TweedieDevianceScore",
     "WeightedMeanAbsolutePercentageError",
 ]

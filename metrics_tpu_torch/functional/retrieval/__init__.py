@@ -1,0 +1,25 @@
+"""Per-query retrieval functionals (port of ``metrics_tpu/functional/retrieval``)."""
+
+from metrics_tpu_torch.functional.retrieval.rank_metrics import (
+    retrieval_average_precision,
+    retrieval_fall_out,
+    retrieval_hit_rate,
+    retrieval_normalized_dcg,
+    retrieval_precision,
+    retrieval_precision_recall_curve,
+    retrieval_r_precision,
+    retrieval_recall,
+    retrieval_reciprocal_rank,
+)
+
+__all__ = [
+    "retrieval_average_precision",
+    "retrieval_fall_out",
+    "retrieval_hit_rate",
+    "retrieval_normalized_dcg",
+    "retrieval_precision",
+    "retrieval_precision_recall_curve",
+    "retrieval_r_precision",
+    "retrieval_recall",
+    "retrieval_reciprocal_rank",
+]

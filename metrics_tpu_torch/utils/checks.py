@@ -1,6 +1,6 @@
 """Input validation helpers (port of ``metrics_tpu/utils/checks.py``, the part
-that the ported classification validation calls, and the legacy input
-formatter that Dice uses).
+that the ported classification validation calls, the legacy input formatter
+that Dice uses, and the retrieval input checks).
 
 The JAX package skips value-dependent checks on traced arrays: inside
 ``jax.jit``, and so inside the serving engine's micro-batch kernel and
@@ -219,3 +219,51 @@ def _input_format_classification(
     else:
         raise ValueError(f"Unsupported input case {case}")
     return preds, target, case
+
+
+def _check_retrieval_shape(indexes: Tensor, preds: Tensor, target: Tensor) -> None:
+    if indexes.shape != preds.shape or target.shape != preds.shape:
+        raise IndexError("`indexes`, `preds` and `target` must be of the same shape")
+
+
+def _is_integer(x: Tensor) -> bool:
+    return not x.is_floating_point() and not x.is_complex() and x.dtype != torch.bool
+
+
+def _check_retrieval_inputs(
+    indexes: Tensor,
+    preds: Tensor,
+    target: Tensor,
+    allow_non_binary_target: bool = False,
+    ignore_index: Optional[int] = None,
+) -> Tuple[Tensor, Tensor, Tensor]:
+    """Check retrieval inputs and flatten them: int32 query ids, float32 scores
+    and the targets as the JAX package sees them with x64 off.
+
+    Ids and targets of other integer types keep their low 32 bits (an int64
+    id at or above 2^31 wraps, as ``jnp.asarray`` wraps it; ROADMAP C.3);
+    ``ignore_index`` is compared after that truncation. Dropping the ignored
+    documents and the binary check read values, so both are skipped under a
+    trace analogue (:func:`traced`, a capture; ROADMAP C.4), as under ``jax.jit``.
+    """
+    indexes, preds, target = (torch.as_tensor(x) for x in (indexes, preds, target))
+    if indexes.ndim == 0 or preds.ndim == 0 or target.ndim == 0:
+        raise ValueError("`indexes`, `preds` and `target` must be non-empty and non-scalar tensors")
+    _check_retrieval_shape(indexes, preds, target)
+    if not _is_integer(indexes):
+        raise ValueError("`indexes` must be a tensor of long integers")
+    if not preds.is_floating_point():
+        raise ValueError("`preds` must be a tensor of floats")
+    if not (_is_integer(target) or target.dtype == torch.bool):
+        raise ValueError("`target` must be a tensor of booleans or integers")
+    indexes, target = _as_x32(indexes), _as_x32(target)
+    if ignore_index is not None and _value_check_possible(target):
+        valid = target != ignore_index
+        indexes, preds, target = indexes[valid], preds[valid], target[valid]
+    if (
+        not allow_non_binary_target
+        and _value_check_possible(target)
+        and bool(torch.any((target > 1) | (target < 0)))
+    ):
+        raise ValueError("`target` must contain `binary` values")
+    return indexes.reshape(-1), preds.reshape(-1).to(torch.float32), target.reshape(-1)

@@ -1,4 +1,4 @@
-"""Numerically-safe compute helpers (port of ``metrics_tpu/utils/compute.py:65-113``)."""
+"""Numerically-safe compute helpers (port of ``metrics_tpu/utils/compute.py:52-113``)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,20 @@ from torch import Tensor
 def _as_float(x: Union[Tensor, float, int]) -> Tensor:
     x = torch.as_tensor(x)
     return x if x.is_floating_point() else x.to(torch.float32)
+
+
+def _safe_matmul(x: Tensor, y: Tensor) -> Tensor:
+    """Matmul that upcasts half-precision inputs, so the products accumulate
+    in float32, and casts the result back to ``x``'s dtype."""
+    if x.dtype in (torch.float16, torch.bfloat16) or y.dtype in (torch.float16, torch.bfloat16):
+        return (x.to(torch.float32) @ y.to(torch.float32)).to(x.dtype)
+    return x @ y
+
+
+def _safe_xlogy(x: Tensor, y: Tensor) -> Tensor:
+    """``x * log(y)`` that is 0 where ``x == 0`` (even where ``log(y)`` is -inf)."""
+    res = x * torch.log(y)
+    return torch.where(x == 0.0, torch.zeros((), dtype=res.dtype, device=res.device), res)
 
 
 def _safe_divide(num: Union[Tensor, float], denom: Union[Tensor, float], zero_division: float = 0.0) -> Tensor:

@@ -6,11 +6,12 @@ One counterpart for each test of ``tests/ckpt/test_restore.py``, run on the port
 Two of them serve a metric the port does not have yet (the wrappers come with
 ROADMAP A.10): the wrapper's child metric is a compositional metric's operands
 here, and the tracker's module-level ``ckpt.save``/``ckpt.restore`` run on a
-collection of compositions. ``PearsonCorrCoef`` (not ported) gives way to
-``MeanSquaredError`` as the wrong class. Then the cross-reads: a snapshot saved by
-either package restores in the other with equal states (int32 counts bit for bit,
-with their dtype) and an equal ``compute()``, and each fault raises the error
-type of the same name in both packages.
+collection of compositions. The wrong class of the strict-validation test is
+``PearsonCorrCoef``, as in the JAX test, and ``MeanSquaredError`` too. Then the
+cross-reads: a snapshot saved by either package (``R2Score``'s among them)
+restores in the other with equal states (int32 counts bit for bit, with their
+dtype) and an equal ``compute()``, and each fault raises the error type of the
+same name in both packages.
 """
 
 import os
@@ -34,7 +35,7 @@ from metrics_tpu_torch.classification import (
     MulticlassPrecision,
     MulticlassRecall,
 )
-from metrics_tpu_torch.regression import MeanSquaredError
+from metrics_tpu_torch.regression import MeanSquaredError, PearsonCorrCoef
 
 CPU = {"device": "cpu"}
 
@@ -198,17 +199,20 @@ class TestComputeGroupAliasing:
 
 
 class TestStrictValidation:
-    def test_wrong_metric_class_missing_keys(self, data, tmp_path):
+    @pytest.mark.parametrize("wrong_class,count_state", [(PearsonCorrCoef, "n_total"), (MeanSquaredError, "total")],
+                             ids=["PearsonCorrCoef", "MeanSquaredError"])
+    def test_wrong_metric_class_missing_keys(self, data, tmp_path, wrong_class, count_state):
         probs, target = data
         path = str(tmp_path / "m.ckpt")
         m = MulticlassAccuracy(5, **CPU)
         m.update(probs, target)
         m.save(path)
-        wrong = MeanSquaredError(**CPU)
+        wrong = wrong_class(**CPU)
         with pytest.raises((ckpt.CkptSchemaError, KeyError)):
             wrong.restore(path)
+        # the failed restore left the instance untouched
         assert wrong._update_count == 0
-        assert int(wrong.total) == 0
+        assert float(getattr(wrong, count_state)) == 0
 
     def test_shape_mismatch_raises_schema_error(self, data, tmp_path):
         probs, target = data
@@ -331,6 +335,8 @@ CASES = {
     "mse": (lambda: jm.MeanSquaredError(), lambda: tm.MeanSquaredError(**CPU),
             lambda rng: (rng.normal(size=40).astype(np.float32), rng.normal(size=40).astype(np.float32))),
     "cat": (lambda: jm.CatMetric(), lambda: tm.CatMetric(**CPU), lambda rng: (rng.random(7).astype(np.float32),)),
+    "r2": (lambda: jm.R2Score(adjusted=1), lambda: tm.R2Score(adjusted=1, **CPU),
+           lambda rng: (rng.normal(size=40).astype(np.float32), rng.normal(size=40).astype(np.float32))),
     "flagship_collection": (lambda: _flagship(jm), lambda: _flagship(tm, **CPU),
                             lambda rng: (rng.integers(0, 5, 40).astype(np.int32),
                                          rng.integers(0, 5, 40).astype(np.int32))),

@@ -389,7 +389,55 @@ def test_the_top_level_and_functional_counts():
     import metrics_tpu_torch as port
     import metrics_tpu_torch.functional as port_fn
 
-    assert len(port.__all__) == 43 and len(port_fn.__all__) == 64
+    assert len(port.__all__) == 62 and len(port_fn.__all__) == 86
+
+
+SLICE_19_MODULES = [
+    f"metrics_tpu_torch/{name}.py"
+    for name in ("functional/regression/moments", "functional/regression/misc", "regression/moments",
+                 "regression/misc", "functional/pairwise/__init__", "functional/pairwise/similarity",
+                 "functional/retrieval/__init__", "functional/retrieval/_utils", "functional/retrieval/rank_metrics",
+                 "retrieval/__init__", "retrieval/base", "retrieval/rank_metrics", "retrieval/precision_recall_curve")
+]
+
+
+@pytest.mark.parametrize("relpath", SLICE_19_MODULES)
+def test_regression_pairwise_and_retrieval_modules_are_scanned(relpath):
+    assert relpath in SOURCES
+
+
+@pytest.mark.parametrize("where,count", [("regression", 16), ("functional.regression", 16),
+                                         ("functional.pairwise", 4), ("functional.retrieval", 9),
+                                         ("retrieval", 13)])
+def test_the_slice_19_packages_export_every_name_of_the_jax_package(where, count):
+    import importlib
+
+    port = importlib.import_module(f"metrics_tpu_torch.{where}")
+    ref = importlib.import_module(f"metrics_tpu.{where}")
+    assert len(port.__all__) == count and sorted(port.__all__) == sorted(ref.__all__)
+    assert all(hasattr(port, name) for name in port.__all__)
+
+
+def test_the_slice_19_names_reach_the_top_level_and_functional():
+    """The 19 top-level and 22 functional names of the slice, exported as the
+    JAX package exports them."""
+    import metrics_tpu as ref
+    import metrics_tpu.functional as ref_fn
+    import metrics_tpu.regression as ref_reg
+    import metrics_tpu.retrieval as ref_ret
+
+    import metrics_tpu_torch as port
+    import metrics_tpu_torch.functional as port_fn
+
+    top = ({n for n in ref_reg.__all__ if n in ref.__all__} | {n for n in ref_ret.__all__ if n in ref.__all__}) - {
+        "LogCoshError", "MeanAbsoluteError", "MeanAbsolutePercentageError", "MeanSquaredError",
+        "MeanSquaredLogError", "SymmetricMeanAbsolutePercentageError", "WeightedMeanAbsolutePercentageError"}
+    assert len(top) == 19 and top <= set(port.__all__)
+    fn = {n for n in ref_fn.__all__ if n.startswith(("pairwise_", "retrieval_")) or n in (
+        "concordance_corrcoef", "cosine_similarity", "explained_variance", "kendall_rank_corrcoef", "kl_divergence",
+        "pearson_corrcoef", "r2_score", "spearman_corrcoef", "tweedie_deviance_score")}
+    assert len(fn) == 22 and fn <= set(port_fn.__all__)
+    assert len(set(ref_fn.__all__) & set(port_fn.__all__)) == 60
 
 
 def test_utils_define_the_legacy_helpers_the_jax_package_does_not_export():
