@@ -38,6 +38,16 @@ from metrics_tpu_torch.classification import (
     StatScores,
 )
 from metrics_tpu_torch.collections import MetricCollection
+from metrics_tpu_torch.image import (
+    ErrorRelativeGlobalDimensionlessSynthesis,
+    MultiScaleStructuralSimilarityIndexMeasure,
+    PeakSignalNoiseRatio,
+    SpectralAngleMapper,
+    SpectralDistortionIndex,
+    StructuralSimilarityIndexMeasure,
+    TotalVariation,
+    UniversalImageQualityIndex,
+)
 from metrics_tpu_torch.metric import CompositionalMetric, Metric
 from metrics_tpu_torch.nominal import CramersV, PearsonsContingencyCoefficient, TheilsU, TschuprowsT
 from metrics_tpu_torch.regression import (
@@ -71,6 +81,7 @@ from metrics_tpu_torch.retrieval import (
     RetrievalRPrecision,
 )
 from metrics_tpu_torch.sketch import CardinalitySketch, HeavyHittersSketch, QuantileSketch
+from metrics_tpu_torch.wrappers import BootStrapper, ClasswiseWrapper, MetricTracker, MinMaxMetric, MultioutputWrapper
 from metrics_tpu_torch import engine  # noqa: E402  (serving runtime; not in __all__, as in the JAX package)
 
 # the names of ``metrics_tpu.__all__`` that the port has so far
@@ -79,9 +90,11 @@ __all__ = [
     "Accuracy",
     "AUROC",
     "AveragePrecision",
+    "BootStrapper",
     "CalibrationError",
     "CardinalitySketch",
     "CatMetric",
+    "ClasswiseWrapper",
     "CohenKappa",
     "CompositionalMetric",
     "ConcordanceCorrCoef",
@@ -89,6 +102,7 @@ __all__ = [
     "CosineSimilarity",
     "CramersV",
     "Dice",
+    "ErrorRelativeGlobalDimensionlessSynthesis",
     "ExactMatch",
     "ExplainedVariance",
     "F1Score",
@@ -109,7 +123,12 @@ __all__ = [
     "MeanSquaredLogError",
     "Metric",
     "MetricCollection",
+    "MetricTracker",
+    "MinMaxMetric",
     "MinMetric",
+    "MultioutputWrapper",
+    "MultiScaleStructuralSimilarityIndexMeasure",
+    "PeakSignalNoiseRatio",
     "PearsonCorrCoef",
     "PearsonsContingencyCoefficient",
     "Precision",
@@ -130,11 +149,16 @@ __all__ = [
     "ROC",
     "SpearmanCorrCoef",
     "Specificity",
+    "SpectralAngleMapper",
+    "SpectralDistortionIndex",
     "StatScores",
+    "StructuralSimilarityIndexMeasure",
     "SumMetric",
     "SymmetricMeanAbsolutePercentageError",
     "TheilsU",
+    "TotalVariation",
     "TschuprowsT",
     "TweedieDevianceScore",
+    "UniversalImageQualityIndex",
     "WeightedMeanAbsolutePercentageError",
 ]

@@ -77,7 +77,15 @@ def _crc(data: bytes) -> int:
 
 
 def _dtype_name(dtype: Any) -> str:
-    return np.dtype(dtype).name
+    """A leaf's dtype as the manifest names it: numpy's name, except for text
+    (``BootStrapper``'s ``_sampling_strategy``), named by ``dtype.str``
+    (``<U11``), which ``np.dtype`` parses in either package; numpy's name for
+    it (``str352``) parses nowhere (ROADMAP C.15)."""
+    dtype = np.dtype(dtype)
+    return dtype.str if dtype.kind in "US" else dtype.name
+
+
+_TEXT_NAMES = {"str": ("<U", 32), "bytes": ("|S", 8)}  # numpy's name of a text dtype: its width in bits
 
 
 def _dtype_from_name(name: str) -> np.dtype:
@@ -85,6 +93,9 @@ def _dtype_from_name(name: str) -> np.dtype:
         return np.dtype(name)
     except TypeError:
         pass
+    for prefix, (code, bits) in _TEXT_NAMES.items():
+        if name.startswith(prefix) and name[len(prefix):].isdigit():
+            return np.dtype(f"{code}{int(name[len(prefix):]) // bits}")  # the JAX package's writer's name
     # extension dtypes (bfloat16 et al.) register under ml_dtypes, which the
     # JAX package always ships with and a PyTorch installation may not have:
     # imported only when a snapshot names such a dtype

@@ -154,6 +154,13 @@ def _walk_metrics(obj: Any, prefix: str = "") -> Iterator[Tuple[str, Any]]:
         yield prefix, obj
         for name, child in obj._child_metrics():
             yield from _walk_metrics(child, f"{prefix}{name}.")
+        return
+    # a MetricTracker is neither a Metric nor a collection: walk its history
+    # under the prefixes its own state_dict uses
+    tracked = getattr(obj, "_metrics", None)
+    if isinstance(tracked, (list, tuple)):
+        for i, m in enumerate(tracked):
+            yield from _walk_metrics(m, f"{prefix}_metrics.{i}.")
 
 
 @contextmanager

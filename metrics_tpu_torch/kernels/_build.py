@@ -28,6 +28,14 @@ NVCC_FLAGS: List[str] = [
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+
+class KernelLaunchError(RuntimeError):
+    """A hand kernel's launch was refused (the C function returned a CUDA
+    error). A ``RuntimeError``, so that callers which catch torch's own
+    ``RuntimeError`` (``BootStrapper``'s fall-back from its stacked update)
+    can tell a kernel's failure apart and let it through."""
+
+
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -35,7 +35,9 @@ and ``T`` from 1 to ``65535 * 1024``. The JAX package's TPU rails
 over. The kernel's sums run in a fixed order, so the same input gives the same
 bits on every launch; with 0/1 weights the counts are integers, equal to the
 plain version's bit for bit below 2**24 samples. Nothing catches a kernel
-failure.
+failure. Under ``torch.func.vmap`` the wrapper takes a batched call through
+its custom op ``metrics_tpu_torch::binned_curve_counts``, whose rule calls the
+wrapper once a copy (:mod:`._batched`).
 """
 
 from __future__ import annotations
@@ -46,7 +48,7 @@ from typing import Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.kernels import _build, _tally, registry
+from metrics_tpu_torch.kernels import _batched, _build, _tally, registry
 from metrics_tpu_torch.obs import instrument as _obs
 
 KERNEL_NAME = "binned_curve"  # csrc/binned_curve.cu
@@ -198,6 +200,8 @@ def binned_curve_counts_cuda(preds: Tensor, target_w: Tensor, w: Tensor, thresho
     a launch error. ``M = 0`` returns zeros without a launch.
     """
     global launches
+    if _batched.is_batched(preds, target_w, w, thresholds):
+        return _binned_curve_op(preds, target_w, w, thresholds)
     if preds.device.type == "cpu":
         return reference_counts(preds, target_w, w, thresholds)
     p, tw, w2, one_column = _as_columns(preds, target_w, w)
@@ -228,11 +232,27 @@ def binned_curve_counts_cuda(preds: Tensor, target_w: Tensor, w: Tensor, thresho
         )
     if code != 0:
         msg = lib.binned_curve_error_string(code).decode()
-        raise RuntimeError(f"binned_curve CUDA kernel failed to launch: {msg} (error {code})")
+        raise _build.KernelLaunchError(f"binned_curve CUDA kernel failed to launch: {msg} (error {code})")
     launches += 1
     _tally.record(KERNEL_NAME)
     _obs.record_kernel_launch(KERNEL_NAME)
     return (tp[:, 0], fp[:, 0]) if one_column else (tp, fp)
+
+
+@torch.library.custom_op("metrics_tpu_torch::binned_curve_counts", mutates_args=())
+def _binned_curve_op(preds: Tensor, target_w: Tensor, w: Tensor, thresholds: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`binned_curve_counts_cuda` as a custom op (fresh outputs): the
+    route of a batched call."""
+    return tuple(x.clone() for x in binned_curve_counts_cuda(preds, target_w, w, thresholds))
+
+
+@_binned_curve_op.register_fake
+def _(preds, target_w, w, thresholds):
+    shape = (thresholds.shape[0],) + tuple(preds.shape[1:])
+    return preds.new_empty(shape, dtype=torch.float32), preds.new_empty(shape, dtype=torch.float32)
+
+
+_binned_curve_op.register_vmap(_batched.loop_rule(binned_curve_counts_cuda))
 
 
 # --------------------------------------------------------------------- registry

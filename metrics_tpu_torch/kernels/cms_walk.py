@@ -23,7 +23,10 @@ It comes three ways:
   evictions, each candidate decided exactly), for the CPU tests and the
   card's checks.
 
-Every tensor stays where it is: no call reads a value on the host.
+Every tensor stays where it is: no call reads a value on the host. Under
+``torch.func.vmap`` :func:`cms_walk_cuda` takes a batched call through its
+custom op ``metrics_tpu_torch::cms_walk``, whose rule calls the wrapper once a
+copy (:mod:`._batched`).
 """
 
 from __future__ import annotations
@@ -35,7 +38,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.kernels import _build, _tally
+from metrics_tpu_torch.kernels import _batched, _build, _tally
 from metrics_tpu_torch.kernels.scatter import (
     CMS_MAX_DEPTH,
     MAX_CUDA_SIZE,
@@ -253,6 +256,10 @@ def cms_walk_cuda(
     estimates and the segment histograms) comes from one ``torch.empty``.
     """
     global launches
+    if _batched.is_batched(counts, ledger, ids, counters):
+        if counters is not None:
+            raise ValueError("cms_walk_cuda: counters are not taken in a batched call")
+        return _cms_walk_op(counts, ledger, ids)
     if counts.device.type == "cpu":
         return cms_walk_reference(counts, ledger, ids)
     what = "cms_walk_cuda"
@@ -292,9 +299,24 @@ def cms_walk_cuda(
         )
     if code != 0:
         msg = _lib().cms_walk_error_string(code).decode()
-        raise RuntimeError(f"cms_walk CUDA kernel failed to launch: {msg} (error {code})")
+        raise _build.KernelLaunchError(f"cms_walk CUDA kernel failed to launch: {msg} (error {code})")
     launches += KERNELS
     _tally.record(KERNEL_NAME, KERNELS)
     for _ in range(KERNELS):
         _obs.record_kernel_launch(KERNEL_NAME)
     return out_counts, out_ledger
+
+
+@torch.library.custom_op("metrics_tpu_torch::cms_walk", mutates_args=())
+def _cms_walk_op(counts: Tensor, ledger: Tensor, ids: Tensor) -> Tuple[Tensor, Tensor]:
+    """:func:`cms_walk_cuda` as a custom op: the route of a batched call."""
+    return cms_walk_cuda(counts, ledger, ids)
+
+
+@_cms_walk_op.register_fake
+def _(counts, ledger, ids):
+    return (torch.empty_like(counts, memory_format=torch.contiguous_format),
+            torch.empty_like(ledger, memory_format=torch.contiguous_format))
+
+
+_cms_walk_op.register_vmap(_batched.loop_rule(cms_walk_cuda))

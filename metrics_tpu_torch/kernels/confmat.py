@@ -22,7 +22,10 @@ label equals ``ignore_index`` (compared after that truncation), are dropped.
 
 ``pair_count`` and ``stat_scores`` route through the registry: the kernel for
 CUDA tensors, the plain version for CPU tensors. Both kernel routes read int32
-and int64 labels as they are. Nothing catches a kernel failure.
+and int64 labels as they are. Nothing catches a kernel failure. Under
+``torch.func.vmap`` both wrappers take a batched call through their custom op
+(``metrics_tpu_torch::pair_count``, ``::stat_scores``), whose rule calls the
+wrapper once a copy (:mod:`._batched`).
 """
 
 from __future__ import annotations
@@ -33,7 +36,7 @@ from typing import Optional, Tuple
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.kernels import _build, _tally, registry
+from metrics_tpu_torch.kernels import _batched, _build, _tally, registry
 from metrics_tpu_torch.obs import instrument as _obs
 
 KERNEL_NAME = "pair_count"
@@ -158,7 +161,7 @@ def _lib() -> ctypes.CDLL:
 def _check_code(code: int, what: str) -> None:
     if code != 0:
         msg = _lib().pair_count_error_string(code).decode()
-        raise RuntimeError(f"{what} CUDA kernel failed to launch: {msg} (error {code})")
+        raise _build.KernelLaunchError(f"{what} CUDA kernel failed to launch: {msg} (error {code})")
 
 
 def _as_index(x: Tensor, what: str, caller: str) -> Tensor:
@@ -227,6 +230,8 @@ def pair_count_cuda(
     error. int32 and int64 labels are read as they are.
     """
     global launches
+    if _batched.is_batched(row_idx, col_idx, row_mask):
+        return _pair_count_op(row_idx, col_idx, num_rows, num_cols, row_mask, ignore_index)
     if row_idx.device.type == "cpu":
         return pair_count_bincount(row_idx, col_idx, num_rows, num_cols, row_mask, ignore_index)
     if num_rows < 1 or num_cols < 1 or num_rows * num_cols > MAX_CUDA_SIZE:
@@ -274,6 +279,8 @@ def stat_scores_cuda(
     :func:`pair_count_cuda`). The four results are views of that buffer.
     """
     global stat_score_launches
+    if _batched.is_batched(target, preds):
+        return tuple(_stat_scores_op(target, preds, num_classes, ignore_index).unbind(0))
     if target.device.type == "cpu":
         return stat_scores_bincount(target, preds, num_classes, ignore_index)
     if num_classes < 1 or 4 * num_classes + 2 > MAX_CUDA_SIZE:
@@ -295,6 +302,40 @@ def stat_scores_cuda(
         _obs.record_kernel_launch(STAT_SCORES_NAME)
     tp, fp, tn, fn = out[: 4 * num_classes].view(4, num_classes)
     return tp, fp, tn, fn
+
+
+@torch.library.custom_op("metrics_tpu_torch::pair_count", mutates_args=())
+def _pair_count_op(row_idx: Tensor, col_idx: Tensor, num_rows: int, num_cols: int, row_mask: Optional[Tensor],
+                   ignore_index: Optional[int]) -> Tensor:
+    """:func:`pair_count_cuda` as a custom op: the route of a batched call."""
+    return pair_count_cuda(row_idx, col_idx, num_rows, num_cols, row_mask, ignore_index)
+
+
+@_pair_count_op.register_fake
+def _(row_idx, col_idx, num_rows, num_cols, row_mask, ignore_index):
+    return row_idx.new_empty((num_rows, num_cols), dtype=torch.int32)
+
+
+_pair_count_op.register_vmap(_batched.loop_rule(pair_count_cuda))
+
+
+def _stacked_stat_scores(target: Tensor, preds: Tensor, num_classes: int, ignore_index: Optional[int]) -> Tensor:
+    return torch.stack(stat_scores_cuda(target, preds, num_classes, ignore_index))
+
+
+@torch.library.custom_op("metrics_tpu_torch::stat_scores", mutates_args=())
+def _stat_scores_op(target: Tensor, preds: Tensor, num_classes: int, ignore_index: Optional[int]) -> Tensor:
+    """:func:`stat_scores_cuda` as a custom op, its four results stacked into
+    one ``(4, C)`` int32 tensor: the route of a batched call."""
+    return _stacked_stat_scores(target, preds, num_classes, ignore_index)
+
+
+@_stat_scores_op.register_fake
+def _(target, preds, num_classes, ignore_index):
+    return target.new_empty((4, num_classes), dtype=torch.int32)
+
+
+_stat_scores_op.register_vmap(_batched.loop_rule(_stacked_stat_scores))
 
 
 def _cuda_eligible(row_idx, col_idx, num_rows, num_cols, row_mask=None, ignore_index=None) -> bool:

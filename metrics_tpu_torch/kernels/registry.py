@@ -11,6 +11,12 @@ Selection is by device plus static eligibility:
   kernel; on any other device it raises). If the call is not eligible,
   :func:`dispatch` raises; it never runs the reference off the CPU.
 
+A call whose tensors are batched by ``torch.func.vmap`` (``BootStrapper``'s
+stacked update) goes to the optimized wrapper on either device: the wrapper
+sends it through its custom op, whose batching rule calls the wrapper once a
+copy, so each CUDA copy launches the kernel and each CPU copy runs the
+reference (:mod:`._batched`).
+
 Two things of the JAX registry are deliberately absent. There is no exception
 fallback (``metrics_tpu/kernels/registry.py:206-215`` ran the reference after
 any kernel failure): on a CUDA tensor the kernel runs or the call raises, so a
@@ -25,6 +31,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from metrics_tpu_torch.kernels import _batched
 from metrics_tpu_torch.obs import instrument as _obs
 
 
@@ -87,6 +94,9 @@ def selected(name: str, *args: Any, **kwargs: Any) -> str:
 def dispatch(name: str, *args: Any, **kwargs: Any) -> Any:
     """Run entry ``name``: its kernel on CUDA tensors, its reference otherwise."""
     entry = REGISTRY[name]
+    if _batched.is_batched(*args, *kwargs.values()):
+        _obs.record_kernel_dispatch(name, "batched")
+        return entry.optimized(*args, **kwargs)
     impl = selected(name, *args, **kwargs)
     _obs.record_kernel_dispatch(name, impl)
     fn = entry.optimized if impl == "optimized" else entry.reference

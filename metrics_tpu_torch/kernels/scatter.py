@@ -32,7 +32,10 @@ batches on the TPU, a speed choice and not part of the contract, and the
 port's registry raises on an ineligible CUDA call, so a floor would make every
 small sketch update on the card an error. Integer add (modulo 2**32) and max
 commute, so the kernel is bit-identical to the plain version in any launch
-order. Nothing catches a kernel failure.
+order. Nothing catches a kernel failure. Under ``torch.func.vmap`` each
+``*_cuda`` wrapper takes a batched call through its custom op
+(``metrics_tpu_torch::hist_add``, ``::hist_max``, ``::cms_rows_add``,
+``::cms_ids_add``), whose rule calls the wrapper once a copy (:mod:`._batched`).
 """
 
 from __future__ import annotations
@@ -44,7 +47,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from metrics_tpu_torch.kernels import _build, _tally, registry
+from metrics_tpu_torch.kernels import _batched, _build, _tally, registry
 from metrics_tpu_torch.obs import instrument as _obs
 
 KERNEL_NAME = "scatter"  # csrc/scatter.cu
@@ -225,7 +228,7 @@ def _require_cuda(what: str, device: torch.device) -> None:
 def _raise_on(code: int, kernel: str) -> None:
     if code != 0:
         msg = _lib().scatter_error_string(code).decode()
-        raise RuntimeError(f"{kernel} CUDA kernel failed to launch: {msg} (error {code})")
+        raise _build.KernelLaunchError(f"{kernel} CUDA kernel failed to launch: {msg} (error {code})")
 
 
 def _counted(kernel: str) -> None:
@@ -266,6 +269,8 @@ def hist_add_cuda(bins: Tensor, idx: Tensor, weights: Tensor) -> Tensor:
     another device, a table that is not 1-D int32, a non-integer or
     non-contiguous input, mismatched lengths, N >= 2**31, or a launch error.
     """
+    if _batched.is_batched(bins, idx, weights):
+        return _hist_add_op(bins, idx, weights)
     if bins.device.type == "cpu":
         return hist_add_reference(bins, idx, weights)
     return _hist_cuda("hist_add", bins, idx, weights)
@@ -274,6 +279,8 @@ def hist_add_cuda(bins: Tensor, idx: Tensor, weights: Tensor) -> Tensor:
 def hist_max_cuda(bins: Tensor, idx: Tensor, values: Tensor) -> Tensor:
     """:func:`hist_max_reference` by the CUDA kernel ``csrc/scatter.cu``
     (the same rules as :func:`hist_add_cuda`)."""
+    if _batched.is_batched(bins, idx, values):
+        return _hist_max_op(bins, idx, values)
     if bins.device.type == "cpu":
         return hist_max_reference(bins, idx, values)
     return _hist_cuda("hist_max", bins, idx, values)
@@ -283,6 +290,8 @@ def cms_rows_add_cuda(counts: Tensor, cols: Tensor, valid: Tensor) -> Tensor:
     """:func:`cms_rows_add_reference` by the CUDA kernel ``csrc/scatter.cu``:
     all depth rows in one launch (the same rules as :func:`hist_add_cuda`;
     ``cols`` is ``(N, depth)``, ``valid`` ``(N,)`` bool or integer)."""
+    if _batched.is_batched(counts, cols, valid):
+        return _cms_rows_add_op(counts, cols, valid)
     if counts.device.type == "cpu":
         return cms_rows_add_reference(counts, cols, valid)
     what = "cms_rows_add_cuda"
@@ -323,6 +332,8 @@ def cms_ids_add_cuda(counts: Tensor, ids: Tensor) -> Tensor:
     table that is not 2-D int32, more than ``CMS_MAX_DEPTH`` rows, non-integer
     or non-contiguous ids, N >= 2**31, or a launch error.
     """
+    if _batched.is_batched(counts, ids):
+        return _cms_ids_add_op(counts, ids)
     if counts.device.type == "cpu":
         return cms_ids_add_reference(counts, ids)
     what = "cms_ids_add_cuda"
@@ -345,6 +356,39 @@ def cms_ids_add_cuda(counts: Tensor, ids: Tensor) -> Tensor:
     _raise_on(code, "cms_rows_add")
     _counted("cms_rows_add")
     return out
+
+
+# --------------------------------------------------------------------- batched calls (custom ops)
+
+
+@torch.library.custom_op("metrics_tpu_torch::hist_add", mutates_args=())
+def _hist_add_op(bins: Tensor, idx: Tensor, weights: Tensor) -> Tensor:
+    """:func:`hist_add_cuda` as a custom op: the route of a batched call."""
+    return hist_add_cuda(bins, idx, weights)
+
+
+@torch.library.custom_op("metrics_tpu_torch::hist_max", mutates_args=())
+def _hist_max_op(bins: Tensor, idx: Tensor, values: Tensor) -> Tensor:
+    """:func:`hist_max_cuda` as a custom op: the route of a batched call."""
+    return hist_max_cuda(bins, idx, values)
+
+
+@torch.library.custom_op("metrics_tpu_torch::cms_rows_add", mutates_args=())
+def _cms_rows_add_op(counts: Tensor, cols: Tensor, valid: Tensor) -> Tensor:
+    """:func:`cms_rows_add_cuda` as a custom op: the route of a batched call."""
+    return cms_rows_add_cuda(counts, cols, valid)
+
+
+@torch.library.custom_op("metrics_tpu_torch::cms_ids_add", mutates_args=())
+def _cms_ids_add_op(counts: Tensor, ids: Tensor) -> Tensor:
+    """:func:`cms_ids_add_cuda` as a custom op: the route of a batched call."""
+    return cms_ids_add_cuda(counts, ids)
+
+
+for _op, _wrapper in ((_hist_add_op, hist_add_cuda), (_hist_max_op, hist_max_cuda),
+                      (_cms_rows_add_op, cms_rows_add_cuda), (_cms_ids_add_op, cms_ids_add_cuda)):
+    _op.register_fake(lambda table, *rest: torch.empty_like(table, memory_format=torch.contiguous_format))
+    _op.register_vmap(_batched.loop_rule(_wrapper))
 
 
 # --------------------------------------------------------------------- registry

@@ -1,6 +1,7 @@
 """Input validation helpers (port of ``metrics_tpu/utils/checks.py``, the part
 that the ported classification validation calls, the legacy input formatter
-that Dice uses, and the retrieval input checks).
+that Dice uses, the retrieval input checks and
+``check_forward_full_state_property``).
 
 The JAX package skips value-dependent checks on traced arrays: inside
 ``jax.jit``, and so inside the serving engine's micro-batch kernel and
@@ -19,7 +20,7 @@ from __future__ import annotations
 
 import threading
 from contextlib import contextmanager
-from typing import Iterator, Optional, Tuple
+from typing import Any, Iterator, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
@@ -267,3 +268,63 @@ def _check_retrieval_inputs(
     ):
         raise ValueError("`target` must contain `binary` values")
     return indexes.reshape(-1), preds.reshape(-1).to(torch.float32), target.reshape(-1)
+
+
+def _allclose_recursive(res1: Any, res2: Any, atol: float = 1e-8) -> bool:
+    """``torch.allclose`` over nested lists, tuples and dicts of tensors."""
+    if isinstance(res1, (list, tuple)):
+        return all(_allclose_recursive(r1, r2, atol) for r1, r2 in zip(res1, res2))
+    if isinstance(res1, dict):
+        return all(_allclose_recursive(res1[k], res2[k], atol) for k in res1)
+    return bool(torch.allclose(torch.as_tensor(res1), torch.as_tensor(res2), atol=atol))
+
+
+def check_forward_full_state_property(
+    metric_class: Any,
+    init_args: Optional[dict] = None,
+    input_args: Optional[dict] = None,
+    num_update_to_compare: Sequence[int] = (10, 100, 1000),
+    reps: int = 5,
+) -> None:
+    """Whether ``metric_class`` may set ``full_state_update=False``: its
+    ``forward`` is run both ways on ``input_args`` and the outputs compared,
+    then both ways are timed over ``num_update_to_compare`` forwards, ``reps``
+    times each; the verdict is printed. ``init_args`` should name the device
+    (``{"device": "cpu"}``)."""
+    import time
+
+    init_args = init_args or {}
+    input_args = input_args or {}
+
+    class FullState(metric_class):
+        full_state_update = True
+
+    class PartState(metric_class):
+        full_state_update = False
+
+    fullstate = FullState(**init_args)
+    partstate = PartState(**init_args)
+
+    equal = True
+    for _ in range(max(num_update_to_compare)):
+        out1 = fullstate(**input_args)
+        out2 = partstate(**input_args)
+        equal = equal and _allclose_recursive(out1, out2)
+    res1 = fullstate.compute()
+    res2 = partstate.compute()
+    equal = equal and _allclose_recursive(res1, res2)
+    mean_full, mean_part = [], []
+    for metric in (FullState, PartState):
+        out = mean_full if metric is FullState else mean_part
+        for num in num_update_to_compare:
+            m = metric(**init_args)
+            start = time.perf_counter()
+            for _ in range(reps):
+                for _ in range(num):
+                    m(**input_args)
+                m.reset()
+            out.append((time.perf_counter() - start) / reps)
+    faster = sum(mean_part) < sum(mean_full)
+    print(f"Output equal: {equal}; partial-state faster: {faster}")
+    if equal and faster:
+        print(f"Recommended: set `full_state_update=False` on {metric_class.__name__}")

@@ -1,4 +1,8 @@
-"""Cross-process gather (port of ``metrics_tpu/utils/distributed.py:60-93``).
+"""Reductions and the cross-process gather (port of ``metrics_tpu/utils/distributed.py``).
+
+``reduce`` and ``class_reduce`` reduce a tensor as the reference's
+``utilities/distributed.py`` does (``jnp.mean`` becomes ``torch.mean``, which
+may differ from it in the last bit of a float32 mean).
 
 ``gather_all_tensors`` rides the comm plane's transport layer
 (:func:`metrics_tpu_torch.comm.transport.gather_ragged`): shapes are gathered
@@ -16,6 +20,36 @@ from typing import Any, List, Optional
 
 import torch
 from torch import Tensor
+
+from metrics_tpu_torch.utils.compute import _safe_divide
+
+
+def reduce(x: Tensor, reduction: Optional[str]) -> Tensor:
+    """Reduce a tensor: ``"elementwise_mean"``, ``"sum"``, or ``"none"`` / None."""
+    if reduction == "elementwise_mean":
+        return torch.mean(x)
+    if reduction == "sum":
+        return torch.sum(x)
+    if reduction is None or reduction == "none":
+        return x
+    raise ValueError("Reduction parameter unknown.")
+
+
+def class_reduce(num: Tensor, denom: Tensor, weights: Tensor, class_reduction: str = "none") -> Tensor:
+    """Per-class fraction ``num / denom`` (0 where ``denom`` is 0), reduced by
+    ``"micro"``, ``"macro"``, ``"weighted"`` or ``"none"`` / None."""
+    valid_reduction = ("micro", "macro", "weighted", "none", None)
+    fraction = _safe_divide(torch.sum(num), torch.sum(denom)) if class_reduction == "micro" else _safe_divide(num, denom)
+
+    if class_reduction == "micro":
+        return fraction
+    if class_reduction == "macro":
+        return torch.mean(fraction)
+    if class_reduction == "weighted":
+        return torch.sum(fraction * _safe_divide(weights, torch.sum(weights)))
+    if class_reduction == "none" or class_reduction is None:
+        return fraction
+    raise ValueError(f"Reduction parameter {class_reduction} unknown. Choose between one of these: {valid_reduction}")
 
 
 def distributed_available() -> bool:

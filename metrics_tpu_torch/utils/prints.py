@@ -1,17 +1,20 @@
-"""Rank-zero-only warnings (port of ``metrics_tpu/utils/prints.py``).
+"""Rank-zero-only warnings and log records (port of ``metrics_tpu/utils/prints.py``).
 
-The rank is ``torch.distributed.get_rank()`` once a process group is
+Log records go to the ``metrics_tpu_torch`` logger. The rank is ``torch.distributed.get_rank()`` once a process group is
 initialised, else the ``LOCAL_RANK`` environment variable (0 when unset).
 """
 
 from __future__ import annotations
 
+import logging
 import os
 import warnings
 from functools import wraps
 from typing import Any, Callable
 
 import torch
+
+log = logging.getLogger("metrics_tpu_torch")
 
 
 def _rank() -> int:
@@ -37,7 +40,19 @@ def _warn(message: str, *args: Any, **kwargs: Any) -> None:
     warnings.warn(message, *args, **kwargs)
 
 
+@rank_zero_only
+def _info(message: str, **kwargs: Any) -> None:
+    log.info(message, **kwargs)
+
+
+@rank_zero_only
+def _debug(message: str, **kwargs: Any) -> None:
+    log.debug(message, **kwargs)
+
+
 rank_zero_warn = _warn
+rank_zero_info = _info
+rank_zero_debug = _debug
 
 
 _warn_once_registry: set = set()

@@ -2,16 +2,18 @@
 ``Metric.save``/``restore``, ``MetricCollection.save``/``restore``) against the
 JAX package's.
 
-One counterpart for each test of ``tests/ckpt/test_restore.py``, run on the port.
-Two of them serve a metric the port does not have yet (the wrappers come with
-ROADMAP A.10): the wrapper's child metric is a compositional metric's operands
-here, and the tracker's module-level ``ckpt.save``/``ckpt.restore`` run on a
-collection of compositions. The wrong class of the strict-validation test is
+One counterpart for each test of ``tests/ckpt/test_restore.py``, run on the port,
+the wrappers' included (``MinMaxMetric``'s extremes, ``MetricTracker``'s
+history through the module-level ``ckpt.save``/``ckpt.restore``); the two
+stand-ins written before the wrappers were ported (a compositional metric's
+operands as child metrics, a collection of compositions) stay. The wrong class of the strict-validation test is
 ``PearsonCorrCoef``, as in the JAX test, and ``MeanSquaredError`` too. Then the
 cross-reads: a snapshot saved by either package (``R2Score``'s among them)
 restores in the other with equal states (int32 counts bit for bit, with their
-dtype) and an equal ``compute()``, and each fault raises the error type of the
-same name in both packages.
+dtype) and an equal ``compute()``, the wrappers' snapshots too (``BootStrapper``
+stacked, after its fall-back to copies, and with Poisson copies, each resuming
+with the other package's generator state; ``MinMaxMetric``; ``MetricTracker``),
+and each fault raises the error type of the same name in both packages.
 """
 
 import os
@@ -139,6 +141,31 @@ class TestRoundTrip:
         fresh = make()
         ckpt.restore(fresh, path)
         _tree_equal(fresh.compute(), col.compute())
+
+    def test_wrapper_extras_round_trip(self, data, tmp_path):
+        probs, target = data
+        path = str(tmp_path / "mm.ckpt")
+        w = tm.MinMaxMetric(MulticlassAccuracy(5, average="micro", **CPU))
+        w.update(probs[:16], target[:16])
+        w.compute()
+        w.update(probs[16:], target[16:])
+        w.save(path)
+        w2 = tm.MinMaxMetric(MulticlassAccuracy(5, average="micro", **CPU))
+        w2.restore(path)
+        _tree_equal(w2.compute(), w.compute())
+
+    def test_tracker_dynamic_history(self, data, tmp_path):
+        probs, target = data
+        path = str(tmp_path / "tr.ckpt")
+        tr = tm.MetricTracker(MulticlassAccuracy(5, average="micro", **CPU))
+        for lo in (0, 24):
+            tr.increment()
+            tr.update(probs[lo : lo + 24], target[lo : lo + 24])
+        ckpt.save(tr, path)
+        fresh = tm.MetricTracker(MulticlassAccuracy(5, average="micro", **CPU))
+        ckpt.restore(fresh, path)
+        assert fresh.n_steps == 2
+        _tree_equal(fresh.compute_all(), tr.compute_all())
 
     def test_lossy_policy_bounded_not_identical(self, tmp_path):
         path = str(tmp_path / "cat.ckpt")
@@ -387,6 +414,129 @@ def test_a_save_of_either_package_restores_in_the_other(case, writer, tmp_path):
         assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     _tree_equal(_values(fresh_port.compute()), _values(fresh_jax.compute()))
+
+
+class _JItemSum(jm.Metric):
+    def __init__(self):
+        super().__init__()
+        self.add_state("total", jnp.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x):
+        if float(jnp.sum(x)) >= -1e30:
+            self.total = self.total + jnp.sum(x)
+
+    def compute(self):
+        return self.total
+
+
+class _TItemSum(tm.Metric):
+    def __init__(self):
+        super().__init__(**CPU)
+        self.add_state("total", torch.zeros(()), dist_reduce_fx="sum")
+
+    def update(self, x):
+        if float(torch.sum(x)) >= -1e30:
+            self.total = self.total + torch.sum(x)
+
+    def compute(self):
+        return self.total
+
+
+def _labels5(rng):
+    return rng.integers(0, 5, 40).astype(np.int32), rng.integers(0, 5, 40).astype(np.int32)
+
+
+# name -> (JAX wrapper, port wrapper, update inputs from an rng)
+WRAPPER_CASES = {
+    "bootstrap_stacked": (
+        lambda: jm.BootStrapper(jcls.MulticlassConfusionMatrix(5), 4, sampling_strategy="multinomial", seed=1, raw=True),
+        lambda: tm.BootStrapper(tcls.MulticlassConfusionMatrix(5, **CPU), 4, sampling_strategy="multinomial", seed=1,
+                                raw=True),
+        _labels5),
+    "bootstrap_poisson": (
+        lambda: jm.BootStrapper(jcls.MulticlassAccuracy(5, average="micro"), 3, seed=2, raw=True),
+        lambda: tm.BootStrapper(tcls.MulticlassAccuracy(5, average="micro", **CPU), 3, seed=2, raw=True),
+        _labels5),
+    "bootstrap_fallen_back": (
+        lambda: jm.BootStrapper(_JItemSum(), 3, sampling_strategy="multinomial", seed=3, raw=True),
+        lambda: tm.BootStrapper(_TItemSum(), 3, sampling_strategy="multinomial", seed=3, raw=True),
+        lambda rng: (rng.normal(size=40).astype(np.float32),)),
+    "minmax": (lambda: jm.MinMaxMetric(jcls.MulticlassF1Score(5)), lambda: tm.MinMaxMetric(tcls.MulticlassF1Score(5, **CPU)),
+               _labels5),
+}
+
+
+@pytest.mark.parametrize("case", sorted(WRAPPER_CASES))
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_wrapper_save_of_either_package_restores_in_the_other(case, writer, tmp_path):
+    """A wrapper saved by one package restores in the other, and after one
+    more batch it computes what the writer's own instance computes: a
+    bootstrapper's generator state crossed with its states (so both draw the
+    same rows), in its mode."""
+    make_jax, make_port, gen = WRAPPER_CASES[case]
+    rng = np.random.default_rng(5)
+    jax_m, port_m = make_jax(), make_port()
+    for _ in range(2):
+        args = gen(rng)
+        jax_m.update(*map(jnp.asarray, args))
+        port_m.update(*map(torch.from_numpy, args))
+        jax_m.compute()
+        port_m.compute()
+    path = str(tmp_path / "w.ckpt")
+    writer_m = jax_m if writer == "jax" else port_m
+    writer_m.save(path)
+    reader = make_port() if writer == "jax" else make_jax()
+    reader.restore(path)
+    if case.startswith("bootstrap"):
+        assert reader._use_vmap == writer_m._use_vmap == (case == "bootstrap_stacked")
+    args = gen(rng)
+    for m in (writer_m, reader):
+        m.update(*map(jnp.asarray if isinstance(m, jm.Metric) else torch.from_numpy, args))
+    want, got = _values(writer_m.compute()), _values(reader.compute())
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def test_a_bootstrapper_snapshot_names_its_text_leaf_so_both_packages_parse_it_c15(tmp_path):
+    """ROADMAP C.15: the JAX package names a text leaf's dtype by numpy's
+    ``dtype.name`` (``str352``), which its own reader cannot parse, so a JAX
+    ``BootStrapper`` snapshot does not restore in the JAX package. The port
+    names it ``<U11`` and reads both names."""
+    make_jax, make_port, gen = WRAPPER_CASES["bootstrap_stacked"]
+    path_j, path_p = str(tmp_path / "j.ckpt"), str(tmp_path / "p.ckpt")
+    make_jax().save(path_j)
+    make_port().save(path_p)
+    with pytest.raises(AttributeError, match="str352"):
+        make_jax().restore(path_j)
+    make_jax().restore(path_p)
+    make_port().restore(path_j)
+    make_port().restore(path_p)
+
+
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_a_tracker_save_of_either_package_restores_in_the_other(writer, tmp_path):
+    def make(pkg, **kw):
+        return pkg.MetricTracker(pkg.MetricCollection({
+            "accuracy": pkg.classification.MulticlassAccuracy(5, average="micro", **kw),
+            "f1": pkg.classification.MulticlassF1Score(5, average="macro", **kw)}), maximize=[True, False])
+
+    rng = np.random.default_rng(6)
+    jt, pt = make(jm), make(tm, **CPU)
+    for _ in range(3):
+        jt.increment()
+        pt.increment()
+        args = _labels5(rng)
+        jt.update(*map(jnp.asarray, args))
+        pt.update(*map(torch.from_numpy, args))
+    path = str(tmp_path / "tr.ckpt")
+    (jax_ckpt if writer == "jax" else ckpt).save(jt if writer == "jax" else pt, path)
+    fresh_jax, fresh_port = make(jm), make(tm, **CPU)
+    jax_ckpt.restore(fresh_jax, path)
+    ckpt.restore(fresh_port, path)
+    assert fresh_port.n_steps == fresh_jax.n_steps == 3
+    _tree_equal(_values(fresh_port.compute_all()), _values(fresh_jax.compute_all()))
+    assert fresh_port.best_metric(return_step=True)[1] == fresh_jax.best_metric(return_step=True)[1]
 
 
 def _corrupt(path):
