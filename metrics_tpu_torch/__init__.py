@@ -15,6 +15,13 @@ __version__ = "0.1.0"
 
 from metrics_tpu_torch import functional
 from metrics_tpu_torch.aggregation import CatMetric, MaxMetric, MeanMetric, MinMetric, SumMetric
+from metrics_tpu_torch.audio import (
+    PermutationInvariantTraining,
+    ScaleInvariantSignalDistortionRatio,
+    ScaleInvariantSignalNoiseRatio,
+    SignalDistortionRatio,
+    SignalNoiseRatio,
+)
 from metrics_tpu_torch.classification import (
     AUROC,
     ROC,
@@ -129,6 +136,7 @@ __all__ = [
     "MultioutputWrapper",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
+    "PermutationInvariantTraining",
     "PearsonCorrCoef",
     "PearsonsContingencyCoefficient",
     "Precision",
@@ -147,6 +155,10 @@ __all__ = [
     "RetrievalRecallAtFixedPrecision",
     "RetrievalRPrecision",
     "ROC",
+    "ScaleInvariantSignalDistortionRatio",
+    "ScaleInvariantSignalNoiseRatio",
+    "SignalDistortionRatio",
+    "SignalNoiseRatio",
     "SpearmanCorrCoef",
     "Specificity",
     "SpectralAngleMapper",

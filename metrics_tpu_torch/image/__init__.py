@@ -1,13 +1,13 @@
-"""Image module metrics (port of ``metrics_tpu/image``).
-
-``__all__`` holds the JAX package's names but the four that need a network
-(``FrechetInceptionDistance``, ``InceptionScore``,
-``KernelInceptionDistance``, ``LearnedPerceptualImagePatchSimilarity``),
-which the next slice ports with their nets.
-"""
+"""Image module metrics (port of ``metrics_tpu/image``), every name of the JAX
+package's: the metrics without a network, and FID, KID, the Inception Score
+and LPIPS over the port's InceptionV3 and LPIPS networks."""
 
 from metrics_tpu_torch.image.d_lambda import SpectralDistortionIndex
 from metrics_tpu_torch.image.ergas import ErrorRelativeGlobalDimensionlessSynthesis
+from metrics_tpu_torch.image.fid import FrechetInceptionDistance
+from metrics_tpu_torch.image.inception import InceptionScore
+from metrics_tpu_torch.image.kid import KernelInceptionDistance
+from metrics_tpu_torch.image.lpip import LearnedPerceptualImagePatchSimilarity
 from metrics_tpu_torch.image.psnr import PeakSignalNoiseRatio
 from metrics_tpu_torch.image.sam import SpectralAngleMapper
 from metrics_tpu_torch.image.ssim import (
@@ -19,6 +19,10 @@ from metrics_tpu_torch.image.uqi import UniversalImageQualityIndex
 
 __all__ = [
     "ErrorRelativeGlobalDimensionlessSynthesis",
+    "FrechetInceptionDistance",
+    "InceptionScore",
+    "KernelInceptionDistance",
+    "LearnedPerceptualImagePatchSimilarity",
     "MultiScaleStructuralSimilarityIndexMeasure",
     "PeakSignalNoiseRatio",
     "SpectralAngleMapper",

@@ -82,6 +82,19 @@ _REDUCTION_FNS: Dict[str, Callable] = {
 
 StateValue = Union[Tensor, List[Tensor]]
 
+# the keyword arguments ``Metric.__init__`` takes: wrappers that split the base
+# arguments from those they pass on key off this
+BASE_METRIC_KWARGS = frozenset((
+    "device",
+    "compute_on_cpu",
+    "dist_sync_on_step",
+    "process_group",
+    "dist_sync_fn",
+    "distributed_available_fn",
+    "sync_on_compute",
+    "axis_name",
+))
+
 
 def zero_state(shape: Any = (), dtype: torch.dtype = torch.float32, device: DeviceLike = None) -> Tensor:
     """An all-zeros state default of ``shape`` and ``dtype`` on ``device``."""

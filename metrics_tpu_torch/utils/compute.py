@@ -2,10 +2,28 @@
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from contextlib import contextmanager
+from typing import Iterator, Optional, Union
 
 import torch
 from torch import Tensor
+
+
+@contextmanager
+def _float32_convolutions() -> Iterator[None]:
+    """Run the body's convolutions in full float32 on the card.
+
+    cuDNN runs float32 convolutions in TF32 while
+    ``torch.backends.cudnn.allow_tf32`` is True, PyTorch's default, which keeps
+    about three digits. The body runs with it False; the flag is restored after.
+    """
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        cudnn.allow_tf32 = before
 
 
 def _as_float(x: Union[Tensor, float, int]) -> Tensor:

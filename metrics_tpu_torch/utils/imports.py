@@ -14,3 +14,7 @@ def _package_available(name: str) -> bool:
 
 
 _MATPLOTLIB_AVAILABLE = _package_available("matplotlib")
+_SCIPY_AVAILABLE = _package_available("scipy")
+_PESQ_AVAILABLE = _package_available("pesq")
+_PYSTOI_AVAILABLE = _package_available("pystoi")
+_LPIPS_AVAILABLE = _package_available("lpips")

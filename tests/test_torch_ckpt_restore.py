@@ -583,3 +583,50 @@ def test_faults_raise_the_jax_error_types(fault, tmp_path):
     assert type(jax_err.value).__name__ == type(port_err.value).__name__ == error
     members = port_metric._modules.values() if isinstance(port_metric, tm.MetricCollection) else [port_metric]
     assert all(m._update_count == 0 for m in members)  # the failed restore left the instance untouched
+
+
+def _jax_flatten8(imgs):
+    return jnp.asarray(imgs).reshape(imgs.shape[0], -1)[:, :8].astype(jnp.float32)
+
+
+def _port_flatten8(imgs):
+    return imgs.reshape(imgs.shape[0], -1)[:, :8].to(torch.float32)
+
+
+# name -> (JAX metric, port metric): a feature callable of 8 pixels, as the JAX image tests use
+IMAGE_CASES = {
+    "fid": (lambda: jm.image.FrechetInceptionDistance(_jax_flatten8, num_features=8, sqrtm_backend="newton"),
+            lambda: tm.image.FrechetInceptionDistance(_port_flatten8, num_features=8, sqrtm_backend="newton", **CPU)),
+    "kid": (lambda: jm.image.KernelInceptionDistance(_jax_flatten8, subsets=3, subset_size=10),
+            lambda: tm.image.KernelInceptionDistance(_port_flatten8, subsets=3, subset_size=10, **CPU)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(IMAGE_CASES))
+@pytest.mark.parametrize("writer", ["jax", "port"])
+def test_an_fid_or_kid_save_of_either_package_restores_in_the_other(case, writer, tmp_path):
+    """FID's float32 sums and int32 counts, and KID's list states, saved by
+    one package restore in the other with equal states and equal values (KID
+    under one ``np.random.seed``)."""
+    make_jax, make_port = IMAGE_CASES[case]
+    rng = np.random.default_rng(13)
+    jax_m, port_m = make_jax(), make_port()
+    for real in (True, False, True, False):
+        imgs = rng.random((12, 3, 4, 4)).astype(np.float32) + (0.0 if real else 0.3)
+        jax_m.update(jnp.asarray(imgs), real=real)
+        port_m.update(torch.from_numpy(imgs), real=real)
+    path = str(tmp_path / "image.ckpt")
+    (jax_m if writer == "jax" else port_m).save(path)
+    fresh_jax, fresh_port = make_jax(), make_port()
+    fresh_jax.restore(path)
+    fresh_port.restore(path)
+    got, want = _states(fresh_port), _states(fresh_jax)
+    assert got.keys() == want.keys() and len(got) > 3
+    for k in want:
+        assert got[k].dtype == want[k].dtype and got[k].shape == want[k].shape, k
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    np.random.seed(3)
+    want_v = _values(fresh_jax.compute())
+    np.random.seed(3)
+    got_v = _values(fresh_port.compute())
+    np.testing.assert_allclose(np.atleast_1d(got_v), np.atleast_1d(want_v), rtol=1e-4, atol=1e-6)
